@@ -158,9 +158,9 @@ def _kernel_matrix_launch(x1, x2, lengthscale, variance, kind):
                          f"{tuple(lengthscale.shape)}")
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"input dimension {d} outside 1..{MAX_DIM}")
-    if (n + 7) // 8 > 65535:
+    if (n + 31) // 32 > 65535:
         raise ValueError(f"x1 has {n} rows; the grid takes at most "
-                         f"{65535 * 8}")
+                         f"{65535 * 32}")
     out = torch.empty((n, m), dtype=torch.float32, device=x1.device)
     lib = load()
     with torch.cuda.device(x1.device):
