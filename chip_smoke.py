@@ -7,13 +7,20 @@ its hand-written kernels against its plain PyTorch version.
 Phases, one line each; any failure exits non-zero, and nothing falls back
 to the CPU:
 
-  1. device   — a CUDA card is required; its name and power limit.
-  2. build    — compile the GP kernels from src/repro_torch/kernels/csrc
-                into build/repro_torch/ and load them.
-  3. kernels  — each kernel against its plain version at the main path's
+  1. device   — a CUDA card is required; its name and power limit; the
+                card's arithmetic held to the reference's (no TF32, bf16
+                products summed in f32).
+  2. build    — compile the three kernel libraries (GP, flash attention,
+                Mamba2 SSD) from src/repro_torch/kernels/csrc into
+                build/repro_torch/, one nvcc each, all started together,
+                and load them.
+  3. kernels  — each kernel against its plain version at its path's
                 shapes, with its device time (torch.profiler), its time per
                 back-to-back call (CUDA events), the plain version's device
-                time and the least time the card could take (bound).
+                time, the least time the card could take (bound) and, for
+                attention, PyTorch's scaled_dot_product_attention on the
+                same inputs as a yardstick (timed only; the port never
+                calls it).
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -23,9 +30,21 @@ to the CPU:
                 The kernels' launch counters are zeroed just before and
                 must all have risen just after.  The card's predictions are
                 held against the port on the CPU for the same posterior.
-  5. where    — outside the counted run: one GS2 solve alone, and the
-                device's busy share (torch.profiler) during a solve and a
-                10,000-task re-cost.
+  5. serve    — LM serving of zamba2-2.7b at its published widths (54
+                layers, d_model 2560, bf16, random weights from a seed)
+                through the Executor: 8 requests on one persistent server
+                (prompts of 64-1023 tokens, 16 new tokens each), then 2 on
+                fresh servers.  The attention and SSD launch counters are
+                zeroed just before and must have risen just after.
+  6. serve_check — outside the timed window, at full width 2 groups (12
+                layers) deep in f32: greedy tokens equal the argmax of
+                repeated full forwards, and prefill logits on the card
+                match the port on the CPU with the same weights.
+  7. where    — outside the counted runs: one GS2 solve alone, and the
+                device's busy share (torch.profiler) during a solve, a
+                10,000-task re-cost and one zamba2 request (a 512-token
+                prefill, then prefill + 16 new tokens), with the operators
+                that take the device time in the serve windows.
 
 Before the last line it prints one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  The full record
@@ -36,15 +55,18 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 FLOP/s
-# outside the tensor cores — the kernels run IEEE f32 on the CUDA cores
+# published H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 FLOP/s
+# outside the tensor cores (the GP kernels and the SSD recurrence are f32
+# work) and dense bf16 tensor-core FLOP/s (bf16 attention products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 N_SIMS = 256
 N_WORKERS = 8
@@ -52,6 +74,13 @@ N_NAIVE = 32
 N_BACKLOG = 100_000
 N_PARTITIONED = 8_192
 FIT_STEPS = 150
+
+SERVE_ARCH = "zamba2-2.7b"
+SERVE_REQUESTS = 8
+SERVE_FRESH = 2
+SERVE_MAX_NEW = 16
+SERVE_MAX_LEN = 2048
+SERVE_MIN_PROMPT = 64
 
 
 def log(phase: str, **kv) -> None:
@@ -96,18 +125,22 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     return busy / iters
 
 
+def _kernel_events(prof):
+    """The device-side events (kernels, copies) of a profiler window.  A
+    CPU operator's self device time repeats its kernels' time, so a sum
+    over every event counts each launched kernel twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
 def _device_busy_ms(prof) -> float:
     """Sum of device time over the kernels a profiler window recorded."""
-    total = 0.0
-    for evt in prof.key_averages():
-        total += getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-    return total / 1e3
+    return sum(e.self_device_time_total for e in _kernel_events(prof)) / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOP_PER_S * 1e3
+    t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -124,8 +157,14 @@ def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("TF32 matmuls are on; the GP path is f32")
+    from repro_torch import device
+    device.strict_numerics()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction):
+        raise RuntimeError("TF32 or reduced-precision bf16 sums are on; "
+                           "the reference sums in f32")
     name = torch.cuda.get_device_name(0)
     log("device", name=repr(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
@@ -133,14 +172,20 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import gp_kernel
+    """Build the three libraries at once (one nvcc each, from threads)."""
+    from repro_torch.kernels import flash_attention, gp_kernel, mamba2_ssd
+    mods = (gp_kernel, flash_attention, mamba2_ssd)
     t0 = time.perf_counter()
-    gp_kernel.load()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        for f in [pool.submit(m.load) for m in mods]:
+            f.result()
     seconds = time.perf_counter() - t0
-    regs = [ln.strip() for ln in str(gp_kernel.build_info["log"]).splitlines()
-            if "registers" in ln]
-    log("build", seconds=f"{seconds:.2f}", library=gp_kernel.build_info["path"],
-        ptxas=regs)
+    for m in mods:
+        regs = [ln.strip() for ln in str(m.build_info["log"]).splitlines()
+                if "registers" in ln or "spill" in ln]
+        log("build", library=m.build_info["path"],
+            nvcc_s=f"{m.build_info['seconds']:.2f}", ptxas=regs)
+    log("build", seconds=f"{seconds:.2f}")
     return seconds
 
 
@@ -241,9 +286,122 @@ def phase_kernels():
                      max_abs_err=err, tol=1e-4, ms=ms, call_ms=call,
                      plain_ms=plain, bound_ms=b, bound_by=by))
     for r in rows:
+        r.update(source=src, library_ms=None)
         log("kernel", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                          for k, v in r.items()})
-    return rows, src
+    return rows
+
+
+def _attn_bound(q, k, v):
+    """Causal attention.  Bytes: q, k, v read once and the output written
+    once.  Operations: 2 (Dh + Dv) per visible (query, key) pair, at the
+    bf16 tensor-core peak for bf16 inputs (the products' type) and the f32
+    CUDA-core peak for f32 (the port allows no TF32)."""
+    import torch
+    b, sq, h, dh = q.shape
+    skv, dv = k.shape[1], v.shape[3]
+    # row r sees keys 0 .. r + skv - sq
+    pairs = sum(min(skv, r + skv - sq + 1) for r in range(sq))
+    elem = q.element_size()
+    n_bytes = elem * (q.numel() + k.numel() + v.numel() + b * sq * h * dv)
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    return bound_ms(n_bytes, b * h * pairs * 2 * (dh + dv), peak)
+
+
+def _ssd_bound(x, b_in, state):
+    """Bytes: x, dt, B, C, A, D and the state read once, y and the final
+    state written once.  Operations: the recurrence's 5 f32 operations per
+    (t, h, p, n) (decay, input product, add, and the C . state
+    multiply-add), the least the function needs, at the f32 CUDA-core
+    peak: the state and decays are f32 in the reference."""
+    bb, s, h, p = x.shape
+    n = b_in.shape[2]
+    elem = x.element_size()
+    n_bytes = (2 * elem * x.numel() + 4 * bb * s * h + 2 * elem * b_in.numel()
+               + 8 * h + 4 * bb * h * p * n * (2 if state is not None else 1))
+    return bound_ms(n_bytes, 5 * bb * s * h * p * n)
+
+
+def phase_lm_kernels():
+    """flash_attention and mamba2_ssd against their plain versions at the
+    serve path's shapes (zamba2: 32 heads of 80, 80 SSD heads of 64 with a
+    64-wide state; starcoder2: a GQA group of 12 with heads of 128)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    rows = []
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, sq, h, hkv, dh, dtype in (
+            ("zamba2 bf16 S=1024", 1024, 32, 32, 80, bf16),
+            ("zamba2 bf16 S=777", 777, 32, 32, 80, bf16),
+            ("starcoder2 bf16 S=1024", 1024, 24, 2, 128, bf16),
+            ("zamba2 f32 S=1024", 1024, 32, 32, 80, f32)):
+        q = randn(1, sq, h, dh, dtype=dtype)
+        k = randn(1, sq, hkv, dh, dtype=dtype)
+        v = randn(1, sq, hkv, dh, dtype=dtype)
+        tol = 2e-2 if dtype == bf16 else 2e-5
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = max_err(got.float(), ref.attention(q, k, v).float())
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {label}: {err} > {tol}")
+        run = (lambda: fa.flash_attention(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=h != hkv), 20)
+        b, by = _attn_bound(q, k, v)
+        rows.append(dict(
+            name=f"flash_attention[{label}]", source=fa.SOURCE, tol=tol,
+            shape=f"q{tuple(q.shape)} kv{tuple(k.shape)}", max_abs_err=err,
+            ms=device_ms(run, 20), call_ms=call_ms(run, 20),
+            plain_ms=device_ms(lambda: ref.attention(q, k, v), 10),
+            bound_ms=b, bound_by=by, library_ms=library))
+
+    h, p, n = 80, 64, 64
+    for s, with_state in ((1024, False), (1024, True), (777, False),
+                          (777, True)):
+        x = randn(1, s, h, p, dtype=bf16)
+        dt = F.softplus(randn(1, s, h))
+        a = -torch.ones(h, device=dev)        # zamba2's a_log init is 0
+        b_in, c_in = randn(1, s, n, dtype=bf16), randn(1, s, n, dtype=bf16)
+        d = torch.ones(h, device=dev, dtype=bf16)
+        st = 0.1 * randn(1, h, p, n) if with_state else None
+        args = (x, dt, a, b_in, c_in, d, st)
+        got = ssd.mamba2_ssd(*args, chunk=256)
+        torch.cuda.synchronize()
+        want = ref.mamba2_ssd(*args, chunk=256)
+        # y: both round an f32 result to bf16 once, 2e-2 absolute and
+        # relative; the f32 state at 2e-3 (the reference's tolerance)
+        ok_y = ((got[0].float() - want[0].float()).abs()
+                <= 2e-2 + 2e-2 * want[0].float().abs()).all()
+        ok_s = ((got[1] - want[1]).abs() <= 2e-3 + 2e-3 * want[1].abs()).all()
+        err = max(max_err(got[0].float(), want[0].float()),
+                  max_err(got[1], want[1]))
+        label = f"zamba2 bf16 S={s}{' +state' if with_state else ''}"
+        if not (ok_y and ok_s):
+            raise AssertionError(f"mamba2_ssd {label}: max error {err}")
+        run = (lambda: ssd.mamba2_ssd(*args, chunk=256))
+        b, by = _ssd_bound(x, b_in, st)
+        rows.append(dict(
+            name=f"mamba2_ssd[{label}]", source=ssd.SOURCE,
+            tol="y 2e-2 + 2e-2|y|, state 2e-3 + 2e-3|s|",
+            shape=f"x{tuple(x.shape)} n{n}", max_abs_err=err,
+            ms=device_ms(run, 20), call_ms=call_ms(run, 20),
+            plain_ms=device_ms(lambda: ref.mamba2_ssd(*args, chunk=256), 5),
+            bound_ms=b, bound_by=by, library_ms=None))
+    for r in rows:
+        r["source"] = str(Path(r["source"]).relative_to(ROOT))
+        log("kernel", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+                         for k, v in r.items()})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -465,14 +623,127 @@ def phase_main():
     return out, launches
 
 
+def phase_serve():
+    """zamba2-2.7b at its published widths through the port's Executor:
+    a persistent server, then fresh servers.  The attention and SSD
+    launch counters are zeroed just before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    ssd.reset_launches()
+    out = {}
+    t_serve = time.perf_counter()
+    for mode, n_req, persistent in (("persistent", SERVE_REQUESTS, True),
+                                    ("fresh-server", SERVE_FRESH, False)):
+        r = serve.serve_benchmark(
+            SERVE_ARCH, reduced=False, n_requests=n_req,
+            max_new=SERVE_MAX_NEW, n_workers=1, persistent=persistent,
+            max_len=SERVE_MAX_LEN, min_prompt=SERVE_MIN_PROMPT, seed=0)
+        torch.cuda.synchronize()
+        s = r["summary"]
+        init_ts = [rec.cpu_time - rec.compute_t for rec in r["records"]]
+        init_share = 1 - s.total_compute / max(s.total_cpu_time, 1e-9)
+        if r["tokens"] != n_req * SERVE_MAX_NEW:
+            raise AssertionError(f"serve {mode}: {r['tokens']} tokens")
+        out[mode] = dict(
+            requests=n_req, wall_s=r["wall"], cpu_s=s.total_cpu_time,
+            compute_s=s.total_compute, init_share=init_share,
+            tokens=r["tokens"], tokens_per_s=r["tokens"] / r["wall"],
+            server_init_s=[t for t in init_ts if t > 0],
+            makespan_s=s.makespan)
+        log("serve", mode=mode, requests=n_req, wall_s=f"{r['wall']:.3f}",
+            cpu_s=f"{s.total_cpu_time:.3f}", init_share=f"{init_share:.4f}",
+            tokens_per_s=f"{r['tokens'] / r['wall']:.2f}",
+            server_init_s=[f"{t:.3f}" for t in init_ts if t > 0])
+    out["serve_s"] = time.perf_counter() - t_serve
+    out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"flash_attention": fa.launches["flash_attention"],
+                "mamba2_ssd": ssd.launches["mamba2_ssd"]}
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serve path: "
+                             f"{missing}")
+    lens = np.random.default_rng(0).integers(
+        SERVE_MIN_PROMPT, SERVE_MAX_LEN // 2, SERVE_REQUESTS)
+    out["prompt_lens"] = lens.tolist()
+    log("serve.total", seconds=f"{out['serve_s']:.3f}",
+        peak_device_gib=f"{out['peak_device_gib']:.2f}", **launches)
+    return out, launches
+
+
+def phase_serve_check():
+    """Outside the timed window: zamba2-2.7b at full width, 2 groups (12
+    layers) deep, f32.  (a) LMServer.generate's greedy tokens equal the
+    argmax of repeated full forwards (tests/test_serve.py's check);
+    (b) prefill logits on the card match the port on the CPU with the same
+    weights, within 5e-3 relative to max(|x|, 1): the same f32 formulas,
+    summed in other orders (cuBLAS and the kernels against the CPU's BLAS
+    and the plain versions) over d_model 2560 and d_ff 10240, through 12
+    random-weight layers; 1.3e-3 was measured on an H100."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = configs.get(SERVE_ARCH).replace(
+        n_layers=2 * configs.get(SERVE_ARCH).shared_attn_every,
+        dtype="float32")
+    srv = serve.LMServer(cfg, max_len=64, seed=5)
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 40))
+    out = srv.generate(prompt, 4)
+    toks, want = prompt.copy(), []
+    for _ in range(4):
+        logits, _, _ = model.forward(
+            srv.params, {"tokens": torch.as_tensor(toks, device="cuda")}, cfg)
+        want.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
+        toks = np.concatenate([toks, [[want[-1]]]], 1)
+    if out[0].tolist() != want:
+        raise AssertionError(f"greedy tokens {out[0].tolist()} != "
+                             f"teacher-forced {want}")
+
+    batch = torch.as_tensor(prompt)
+    card, _, _ = model.prefill(srv.params, {"tokens": batch.cuda()}, cfg,
+                               model.init_cache(cfg, 1, 64, "cuda"))
+    cpu_params = model.LM(cfg, "cpu")
+    cpu_params.load_state_dict(srv.params.state_dict())
+    cpu, _, _ = model.prefill(cpu_params, {"tokens": batch}, cfg,
+                              model.init_cache(cfg, 1, 64, "cpu"))
+    err = float(((card.cpu() - cpu).abs() / cpu.abs().clamp_min(1.0)).max())
+    if not (torch.isfinite(card).all() and err <= 5e-3):
+        raise AssertionError(f"card vs CPU prefill logits: {err} > 5e-3")
+    log("serve_check", layers=cfg.n_layers, tokens=out[0].tolist(),
+        teacher_forced="equal", prefill_logits_err=f"{err:.3g}")
+    return dict(layers=cfg.n_layers, tokens=out[0].tolist(),
+                prefill_logits_err=err)
+
+
+def _top_device_ops(prof, k: int = 6):
+    """The `k` kernels with the most device time in a profiler window:
+    [(name, device ms, launches)]."""
+    rows = [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+            for e in _kernel_events(prof)]
+    return sorted(rows, key=lambda r: -r[1])[:k]
+
+
 def phase_where():
-    """Where the main path's time goes, outside the counted run: one GS2
+    """Where the paths' time goes, outside the counted runs: one GS2
     solve alone on one thread, and the device's busy share (profiler)
-    during a solve and during a 10,000-task re-cost."""
+    during a solve, a 10,000-task re-cost, and one zamba2 request (a
+    512-token prefill alone, then prefill + 16 new tokens) on a warm
+    full-width server, with the operators that take the device time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
     from repro_torch.core import EvalRequest
+    from repro_torch.launch import serve
     from repro_torch.sched import GPRuntimePredictor
     from repro_torch.uq import gs2_proxy, sampling
 
@@ -495,8 +766,15 @@ def phase_where():
     reqs = [EvalRequest("gs2", [t.tolist()])
             for t in sampling.latin_hypercube(10_000, seed=13)]
     pred.predict_many_with_sd(reqs)              # first use off the clock
+    srv = serve.LMServer(configs.get(SERVE_ARCH), max_len=SERVE_MAX_LEN,
+                         seed=0)
+    prompt = rng.integers(0, srv.cfg.vocab_size, (1, 512))
+    srv.generate(prompt, 2)                      # first use off the clock
     for name, fn in (("solve", lambda: gs2_proxy.solve(theta)),
-                     ("recost_10k", lambda: pred.predict_many_with_sd(reqs))):
+                     ("recost_10k", lambda: pred.predict_many_with_sd(reqs)),
+                     ("serve_prefill_512", lambda: srv.generate(prompt, 1)),
+                     ("serve_request_512+16",
+                      lambda: srv.generate(prompt, SERVE_MAX_NEW))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -509,11 +787,15 @@ def phase_where():
             busy = idle = None
         else:
             idle = 1 - busy / (wall * 1e3)
+        top = _top_device_ops(prof) if name.startswith("serve") else []
         out[name] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                         device_idle_share=idle)
+                         device_idle_share=idle, top_device_ops=top)
         log("where", window=name, wall_ms=f"{wall * 1e3:.3f}",
             device_busy_ms=busy if busy is not None else "not measured",
             idle_share=idle if idle is not None else "not measured")
+        for op, ms, calls in top:
+            log("where.op", window=name, op=repr(op), device_ms=f"{ms:.3f}",
+                calls=calls)
     log("where", window="solve_alone", iters=iters,
         us_per_iter=f"{out['us_per_iter']:.2f}")
     return out
@@ -523,24 +805,31 @@ def phase_where():
 def main() -> int:
     name, smi = phase_device()
     build_s = phase_build()
-    rows, src = phase_kernels()
+    rows = phase_kernels() + phase_lm_kernels()
     main_out, launches = phase_main()
+    serve_out, serve_launches = phase_serve()
+    serve_check = phase_serve_check()
     where = phase_where()
+    launches.update(serve_launches)
+    log("main.launches", **launches)
 
     replaces = {"gp_kernel_matrix": "src/repro/kernels/gp_kernel.py:23",
                 "gp_predict": "src/repro/kernels/gp_kernel.py:79",
-                "gp_predict_experts": "src/repro/kernels/gp_kernel.py:159"}
+                "gp_predict_experts": "src/repro/kernels/gp_kernel.py:159",
+                "flash_attention": "src/repro/kernels/flash_attention.py:30",
+                "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:24"}
     kernels = []
     for r in rows:
         base = r["name"].split("[")[0]
         kernels.append(dict(
-            name=r["name"], route="cuda", source=src,
+            name=r["name"], route="cuda", source=r["source"],
             replaces=replaces[base], launches=launches[base],
             max_abs_err=r["max_abs_err"], ms=r["ms"], call_ms=r["call_ms"],
-            plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     record = dict(device=name, nvidia_smi=smi, build_s=build_s,
-                  kernels=kernels, main=main_out, where=where)
+                  kernels=kernels, launches=launches, main=main_out,
+                  serve=serve_out, serve_check=serve_check, where=where)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

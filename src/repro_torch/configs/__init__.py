@@ -1,0 +1,52 @@
+"""Architecture registry of the port: the archs whose block kinds the port
+runs, each with its published config and a reduced smoke variant.
+
+`get(name)` / `get_reduced(name)` take the public dashed ids, as in
+`repro.configs`.  The reference's other eight archs need blocks the port
+does not have yet; asking for one raises a `KeyError` that names the
+ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+from repro_torch.models.config import LM_SHAPES, ModelConfig, ShapeConfig
+
+_MODULES: Dict[str, str] = {
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2b",
+}
+
+_LATER: Dict[str, str] = {
+    "rwkv6-3b": "ROADMAP.md Queue 1 item 11 (RWKV6, the next slice)",
+    "dbrx-132b": "ROADMAP.md Queue 1 item 12 (MoE)",
+    "deepseek-v3-671b": "ROADMAP.md Queue 1 items 12-13 (MoE, MLA, MTP)",
+    "minicpm3-4b": "ROADMAP.md Queue 1 item 13 (MLA)",
+    "yi-34b": "ROADMAP.md Queue 1 item 14 (the other dense configs)",
+    "qwen3-14b": "ROADMAP.md Queue 1 item 14 (the other dense configs)",
+    "phi-3-vision-4.2b": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
+    "musicgen-large": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
+}
+
+ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name in _LATER:
+        raise KeyError(f"arch {name!r} is not ported yet: {_LATER[name]}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[name])
+
+
+def get(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).REDUCED
+
+
+def shapes() -> Tuple[ShapeConfig, ...]:
+    return LM_SHAPES

@@ -28,3 +28,13 @@ def get() -> torch.device:
             "available; call repro_torch.device.set_device('cpu') to run "
             "on the CPU")
     return _DEVICE
+
+
+def strict_numerics() -> None:
+    """Hold the card's arithmetic to the reference's: f32 matmuls and
+    convolutions in full f32 (no TF32), and bf16 products summed in f32
+    (the reference's `preferred_element_type=f32`).  Process-wide; the
+    entry points that run on the card call it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -1,2 +1,3 @@
-"""Hand-written Hopper kernels for the GP path (`gp_kernel`), their plain
-PyTorch versions (`ref`) and the dispatcher between them (`ops`)."""
+"""Hand-written Hopper kernels (`gp_kernel`, `flash_attention`,
+`mamba2_ssd`, built by `_build`), their plain PyTorch versions (`ref`) and
+the dispatcher between them (`ops`)."""

@@ -1,0 +1,82 @@
+"""CUDA causal GQA attention forward (`csrc/flash_attention.cu`), bound
+through a plain C interface.
+
+Replaces the Pallas kernel `repro/kernels/flash_attention.py`
+(`flash_attention` / `_attn_kernel`).  The library is compiled with
+`nvcc` for `sm_90a` at first use and loaded with `ctypes`
+(`_build.Library`).  The wrapper takes contiguous CUDA tensors of one
+type, float32 or bfloat16, and raises on anything else; it launches on
+`torch.cuda.current_stream()`, allocates its output with `torch.empty`
+and raises when the launch reports an error.  `launches` counts its
+launches.  What bounds the kernel on the H100, and what its design does
+about it, is written beside the kernel in the CUDA source.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+MAX_HEAD_DIM = 256        # kMaxHeadDim in the CUDA source
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = _build.Launches("flash_attention")
+reset_launches = launches.reset
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 9 + [p]
+    lib.flash_attention_fwd.restype = i
+    lib.flash_attention_max_head_dim.argtypes = []
+    lib.flash_attention_max_head_dim.restype = i
+    if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
+        raise RuntimeError("kernel's head-dim limit disagrees with the "
+                           "wrapper's")
+
+
+_LIB = _build.Library(SOURCE, _declare)
+load = _LIB.load
+build_info = _LIB.info
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv]
+    in q's dtype.  Query head h reads kv head h // (H / Hkv); with
+    `causal` the mask's diagonal is offset by Skv - Sq (so Sq <= Skv)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_cuda(name, t, 4, tuple(DTYPES))
+    _build.same_device(q, k, v)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v differ in dtype: {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    b, sq, h, dh = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[0] != b or k.shape[3] != dh
+            or tuple(v.shape[:3]) != (b, skv, hkv)):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
+    if not (1 <= dh <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims {dh}, {dv} outside 1..{MAX_HEAD_DIM}")
+    if sq < 1 or skv < 1 or (causal and sq > skv):
+        raise ValueError(f"need 1 <= Sq, 1 <= Skv and, with causal, "
+                         f"Sq <= Skv; got Sq {sq}, Skv {skv}")
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the grid's 65535")
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    lib = load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, h, hkv, dh, dv, int(causal), DTYPES[q.dtype], stream)
+    _build.raise_on(err, "flash_attention")
+    launches.count("flash_attention")
+    return out

@@ -7,9 +7,8 @@ Each wrapper replaces one Pallas kernel of `repro/kernels/gp_kernel.py`:
   * `gp_predict`         <- `gp_predict` (`_gp_predict_kernel`)
   * `gp_predict_experts` <- `gp_predict_experts` (`_gp_predict_experts_kernel`)
 
-The library is compiled with `nvcc` for `sm_90a` at first use into
-`build/repro_torch/` at the root of the checkout, named by a hash of the
-source so that an edited kernel is rebuilt, and loaded with `ctypes`.
+The library is compiled with `nvcc` for `sm_90a` at first use and loaded
+with `ctypes` (`_build.Library`).
 Wrappers take CUDA f32 contiguous tensors only and raise on anything else;
 they launch on `torch.cuda.current_stream()`, allocate outputs (and the
 predict's k0 scratch) with `torch.empty`, and raise when the launch
@@ -20,116 +19,49 @@ is written beside the kernel in the CUDA source.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gp_kernel.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KINDS = {"rbf": 0, "matern52": 1}
 MAX_DIM = 16           # kMaxDim in the CUDA source
 MAX_OUT = 4            # kMaxOut
 TILE_QUERIES = 32      # kPTile: queries per predict block
 
-launches: Dict[str, int] = {"gp_kernel_matrix": 0, "gp_predict": 0,
-                            "gp_predict_experts": 0}
-_count_lock = threading.Lock()
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-build_info: Dict[str, object] = {}     # path, seconds, ptxas log of the build
+launches = _build.Launches("gp_kernel_matrix", "gp_predict",
+                           "gp_predict_experts")
+reset_launches = launches.reset
 
 
-def reset_launches() -> None:
-    with _count_lock:
-        for k in launches:
-            launches[k] = 0
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gp_kernel_matrix_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.gp_kernel_matrix_f32.restype = i
+    lib.gp_predict_f32.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.gp_predict_f32.restype = i
+    for fn in ("gp_kernel_tile_queries", "gp_kernel_max_dim",
+               "gp_kernel_max_out"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = i
+    got = (lib.gp_kernel_tile_queries(), lib.gp_kernel_max_dim(),
+           lib.gp_kernel_max_out())
+    if got != (TILE_QUERIES, MAX_DIM, MAX_OUT):
+        raise RuntimeError(f"kernel constants {got} disagree with the "
+                           f"wrapper's")
 
 
-def _count(name: str) -> None:
-    with _count_lock:
-        launches[name] += 1
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME / nvcc) to "
-                           "build the GP kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build() -> Path:
-    """Compile the kernels' shared library unless a build of this exact
-    source exists; returns its path."""
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libgp_kernel_{digest}.so"
-    if out.exists():
-        build_info.update(path=str(out), seconds=0.0, log="(cached)")
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)   # atomic: concurrent builders never see half a file
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
-    return out
-
-
-def load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.gp_kernel_matrix_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
-            lib.gp_kernel_matrix_f32.restype = i
-            lib.gp_predict_f32.argtypes = [p] * 8 + [i] * 6 + [p]
-            lib.gp_predict_f32.restype = i
-            for fn in ("gp_kernel_tile_queries", "gp_kernel_max_dim",
-                       "gp_kernel_max_out"):
-                getattr(lib, fn).argtypes = []
-                getattr(lib, fn).restype = i
-            got = (lib.gp_kernel_tile_queries(), lib.gp_kernel_max_dim(),
-                   lib.gp_kernel_max_out())
-            if got != (TILE_QUERIES, MAX_DIM, MAX_OUT):
-                raise RuntimeError(f"kernel constants {got} disagree with "
-                                   f"the wrapper's")
-            _lib = lib
-        return _lib
+_LIB = _build.Library(SOURCE, _declare)
+load = _LIB.load
+build_info = _LIB.info     # path, seconds, ptxas log of the build
 
 
 def _check(name: str, t: torch.Tensor, ndim: int) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _same_device(*ts: torch.Tensor) -> None:
-    if len({t.device for t in ts}) != 1:
-        raise ValueError(f"operands on several devices: "
-                         f"{sorted({str(t.device) for t in ts})}")
+    _build.check_cuda(name, t, ndim, (torch.float32,))
 
 
 def _kind(kind: str) -> int:
@@ -138,18 +70,13 @@ def _kind(kind: str) -> int:
     return KINDS[kind]
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
 # --------------------------------------------------------------------------
 def _kernel_matrix_launch(x1, x2, lengthscale, variance, kind):
     _check("x1", x1, 2)
     _check("x2", x2, 2)
     _check("lengthscale", lengthscale, 1)
     _check("variance", variance, 0)
-    _same_device(x1, x2, lengthscale, variance)
+    _build.same_device(x1, x2, lengthscale, variance)
     n, d = x1.shape
     m = x2.shape[0]
     if x2.shape[1] != d or lengthscale.shape[0] != d:
@@ -169,8 +96,8 @@ def _kernel_matrix_launch(x1, x2, lengthscale, variance, kind):
             x1.data_ptr(), x2.data_ptr(), lengthscale.data_ptr(),
             variance.data_ptr(), out.data_ptr(), n, m, d, _kind(kind),
             stream)
-    _raise_on(err, "gp_kernel_matrix")
-    _count("gp_kernel_matrix")
+    _build.raise_on(err, "gp_kernel_matrix")
+    launches.count("gp_kernel_matrix")
     return out
 
 
@@ -219,7 +146,7 @@ def _predict_launch(name, x_train, x_star, lengthscale, variance, alpha,
                       ("variance", variance, 0), ("alpha", alpha, 3),
                       ("linv", linv, 3)):
         _check(nm, t, nd)
-    _same_device(x_train, x_star, lengthscale, variance, alpha, linv)
+    _build.same_device(x_train, x_star, lengthscale, variance, alpha, linv)
     e, n, d = x_train.shape
     s = x_star.shape[1]
     m = alpha.shape[2]
@@ -252,8 +179,8 @@ def _predict_launch(name, x_train, x_star, lengthscale, variance, alpha,
             alpha.data_ptr(), linv.data_ptr(), mean0.data_ptr(),
             qf0.data_ptr(), k0.data_ptr(), e, n, s, d, m, _kind(kind),
             stream)
-    _raise_on(err, name)
-    _count(name)
+    _build.raise_on(err, name)
+    launches.count(name)
     return variance * mean0, (variance * variance) * qf0
 
 

@@ -2,21 +2,40 @@
 
 The rule is the tensor's device, nothing else: operands on the CPU take
 the plain PyTorch version (`ref`); operands on a CUDA device take the
-hand-written kernel (`gp_kernel`), whose wrapper launches it or raises.
+hand-written kernel (`gp_kernel`, `flash_attention`, `mamba2_ssd`), whose
+wrapper launches it or raises.
 There is no automatic choice and no fallback from a kernel that fails to
 build or launch.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gp_kernel, ref
+from repro_torch.kernels import mamba2_ssd as ssd_kernel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q: [B,Sq,H,Dh]; k/v: [B,Skv,Hkv,Dh|Dv] -> [B,Sq,H,Dv]; GQA by the
+    kv-head index, causal diagonal offset Skv - Sq."""
+    if _on_cpu(q):
+        return ref.attention(q, k, v, causal=causal)
+    return fa_kernel.flash_attention(q, k, v, causal=causal)
+
+
+def mamba2_ssd(x, dt, a, b, c, d, state: Optional[torch.Tensor] = None, *,
+               chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba2 SSD: (y [B,S,H,P], final state [B,H,P,N] f32)."""
+    if _on_cpu(x):
+        return ref.mamba2_ssd(x, dt, a, b, c, d, state, chunk=chunk)
+    return ssd_kernel.mamba2_ssd(x, dt, a, b, c, d, state, chunk=chunk)
 
 
 def gp_kernel_matrix(x1, x2, lengthscale, variance, kind: str = "rbf"

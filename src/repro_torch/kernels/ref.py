@@ -1,18 +1,116 @@
-"""Plain PyTorch versions of the GP kernels (`repro/kernels/ref.py`, GP
-part).
+"""Plain PyTorch versions of the kernels (`repro/kernels/ref.py`).
 
-These are the reference the CUDA kernels in `gp_kernel` are held
-against on the card, and what the dispatcher runs for tensors on the
-CPU.  The formulas follow the JAX reference line for line (norms minus
-twice the cross term, clamped at 0), so that both round alike.
+These are the reference the CUDA kernels (`gp_kernel`, `flash_attention`,
+`mamba2_ssd`) are held against on the card, and what the dispatcher runs
+for tensors on the CPU.  The formulas follow the JAX reference line for
+line (for the GP: norms minus twice the cross term, clamped at 0), so
+that both round alike.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+
+# ==========================================================================
+# Attention
+# ==========================================================================
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv]
+    in q's dtype, computed in f32.  The causal mask's diagonal is offset
+    by Skv - Sq; masked scores are -1e30, as in the reference."""
+    h, hkv = q.shape[2], k.shape[2]
+    if h != hkv:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    sq, sk = q.shape[1], k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) / math.sqrt(q.shape[-1])
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        scores = scores.masked_fill(~mask, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+# ==========================================================================
+# Mamba2 SSD — scalar per-head decay.
+#   state_t = exp(dt_t * A_h) state_{t-1} + dt_t * B_t x_t^T
+#   y_t     = C_t . state_t + D_h * x_t
+# ==========================================================================
+def mamba2_ssd_scan(x, dt, a, b_in, c_in, d,
+                    state: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential recurrence, one step at a time: the oracle.
+    x: [B,S,H,P]; dt: [B,S,H]; a: [H] (negative); b, c: [B,S,N]; d: [H];
+    state: [B,H,P,N].  Returns (y [B,S,H,P] in x's dtype, final state
+    f32)."""
+    bb, s, h, p = x.shape
+    n = b_in.shape[-1]
+    st = (torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+          if state is None else state.float())
+    xf, dtf = x.float(), dt.float()
+    af, bf, cf, df = (t.float() for t in (a, b_in, c_in, d))
+    ys = []
+    for t in range(s):
+        dtt = dtf[:, t]                                        # [B,H]
+        dec = torch.exp(dtt * af[None])
+        dbx = torch.einsum("bh,bhp,bn->bhpn", dtt, xf[:, t], bf[:, t])
+        st = dec[..., None, None] * st + dbx
+        ys.append(torch.einsum("bhpn,bn->bhp", st, cf[:, t])
+                  + df[None, :, None] * xf[:, t])
+    return torch.stack(ys, 1).to(x.dtype), st
+
+
+def mamba2_ssd(x, dt, a, b_in, c_in, d, state: Optional[torch.Tensor] = None,
+               *, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (the Mamba2 state-space-dual form), the plain version
+    of the kernel.  Shapes as `mamba2_ssd_scan`.  The intra-chunk decay
+    exp(cum_t - cum_j) is taken only where j <= t: above the diagonal the
+    exponent is positive and overflows at long chunks, and the reference's
+    `exp(...) * tril` then gives inf * 0 = NaN."""
+    bb, s, h, p = x.shape
+    n = b_in.shape[-1]
+    st = (torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+          if state is None else state.float())
+    pad = (-s) % chunk
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    bf = F.pad(b_in.float(), (0, 0, 0, pad))
+    cf = F.pad(c_in.float(), (0, 0, 0, pad))
+    af, df = a.float(), d.float()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]
+    ys = []
+    for c0 in range(0, s + pad, chunk):
+        xc, dtc = xf[:, c0:c0 + chunk], dtf[:, c0:c0 + chunk]
+        bc, cc = bf[:, c0:c0 + chunk], cf[:, c0:c0 + chunk]
+        cum = torch.cumsum(dtc * af, dim=1)                    # [B,C,H]
+        # inter: y_t += exp(cum_t) * (C_t . st)
+        y_in = torch.einsum("btn,bhpn->bthp", cc, st) * torch.exp(cum)[..., None]
+        # intra: y_t += sum_{j<=t} (C_t . B_j) exp(cum_t - cum_j) dt_j x_j
+        g = torch.einsum("btn,bjn->btj", cc, bc)               # [B,C,C]
+        ratio = cum[:, :, None, :] - cum[:, None, :, :]        # [B,C,C,H]
+        l_mat = torch.where(tri, ratio, -math.inf).exp()
+        xdt = dtc[..., None] * xc                              # [B,C,H,P]
+        y_intra = torch.einsum("btjh,bjhp->bthp", g[..., None] * l_mat, xdt)
+        # state: st' = exp(cum_C) st + sum_j exp(cum_C - cum_j) xdt_j B_j^T
+        k_dec = torch.exp(cum[:, -1:] - cum)                   # [B,C,H]
+        st = (torch.exp(cum[:, -1])[..., None, None] * st
+              + torch.einsum("bjhp,bjn->bhpn", k_dec[..., None] * xdt, bc))
+        ys.append(y_in + y_intra + df[None, None, :, None] * xc)
+    return torch.cat(ys, 1)[:, :s].to(x.dtype), st
+
+
+# ==========================================================================
+# GP kernel matrix (RBF / Matern-5/2)
+# ==========================================================================
 
 def gp_kernel_matrix(x1: torch.Tensor, x2: torch.Tensor,
                      lengthscale: torch.Tensor, variance: torch.Tensor,

@@ -1,5 +1,5 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the GP path on the card against the port on the CPU.
+version, and the GP and LM paths on the card against the port on the CPU.
 
 Every test here is marked `gpu` and skips without a CUDA card.  The file
 imports only torch and `repro_torch`, so it runs where JAX is absent:
@@ -9,14 +9,23 @@ imports only torch and `repro_torch`, so it runs where JAX is absent:
 Tolerances: 2e-5 for the covariance matrix (same f32 formula, summation
 order of a D-term dot product), 1e-4 for the predict's mean and quadratic
 form (sums over the n training rows, accumulated in another order than
-the plain version's BLAS).
+the plain version's BLAS).  Attention: 2e-5 in f32 (a Dh-term dot
+product and a softmax summed in another order), 2e-2 in bf16 (both round
+an f32 result to bf16, a step of at most 2^-6 below 4).  SSD: 2e-3
+absolute and relative in f32 (the reference's own tolerance: chunked sums
+in another order), 2e-2 in bf16 (both round an f32 y to bf16 once).
+Reduced models, card against CPU: 1e-3 relative to max(|x|, 1) (f32
+matmuls and the kernels sum in other orders than the CPU's, through a few
+layers).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import device
+from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gp_kernel
+from repro_torch.kernels import mamba2_ssd as ssd_kernel
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.gpu
@@ -27,6 +36,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     device.set_device("cuda")
+    device.strict_numerics()
     return torch.device("cuda")
 
 
@@ -121,3 +131,128 @@ def test_gp_path_on_card_matches_port_on_cpu(cuda):
     part_cpu = engine.wrap_posterior(cpu, "partitioned", expert_cap=16)
     for a, b in zip(part.predict_batch(xq), part_cpu.predict_batch(xq)):
         torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# LM kernels
+# --------------------------------------------------------------------------
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, sq, h, dh, generator=g)
+    k = torch.randn(b, skv, hkv, dh, generator=g)
+    v = torch.randn(b, skv, hkv, dv, generator=g)
+    return [t.to(dtype).to(dev) for t in (q, k, v)]
+
+
+# (b, sq, skv, h, hkv, dh, dv)
+@pytest.mark.parametrize("shape", [
+    (1, 1, 128, 4, 2, 64, 64),         # one query row (decode-like)
+    (2, 64, 256, 8, 2, 64, 64),        # Sq < Skv: diagonal offset 192
+    (1, 37, 50, 4, 2, 24, 40),         # Dv != Dh, ragged tiles
+    (1, 777, 777, 32, 32, 80, 80),     # zamba2's heads, ragged S
+    (1, 300, 300, 24, 2, 128, 128),    # starcoder2's GQA group of 12
+    (1, 65, 65, 2, 1, 256, 256),       # widest head taken
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, shape, causal, dtype):
+    q, k, v = _attn_inputs(*shape, dtype, cuda)
+    before = fa_kernel.launches["flash_attention"]
+    got = fa_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (*q.shape[:3], v.shape[3])
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               ref.attention(q, k, v, causal=causal).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_attention_rejects_bad_operands(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        fa_kernel.flash_attention(q, k[:, :4], v[:, :4])
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="group"):
+        fa_kernel.flash_attention(q[:, :, :3].contiguous(), k, v)
+    wide = _attn_inputs(1, 4, 4, 1, 1, 264, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_kernel.flash_attention(*wide)
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, dev, with_state, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g))
+    a = -torch.exp(0.3 * torch.randn(h, generator=g))
+    bi = torch.randn(b, s, n, generator=g)
+    ci = torch.randn(b, s, n, generator=g)
+    d = torch.randn(h, generator=g)
+    st = 0.1 * torch.randn(b, h, p, n, generator=g) if with_state else None
+    out = [x.to(dtype), dt, a, bi.to(dtype), ci.to(dtype), d, st]
+    return [None if t is None else t.to(dev) for t in out]
+
+
+# (b, s, h, p, n)
+@pytest.mark.parametrize("shape", [
+    (2, 100, 3, 8, 16),
+    (1, 31, 1, 8, 8),
+    (2, 130, 4, 20, 128),      # P not a multiple of 16, widest N
+    (1, 777, 80, 64, 64),      # zamba2's widths, ragged S
+])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_matches_plain(cuda, shape, with_state, dtype):
+    args = _ssd_inputs(*shape, dtype, cuda, with_state)
+    before = ssd_kernel.launches["mamba2_ssd"]
+    y, st = ssd_kernel.mamba2_ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches["mamba2_ssd"] == before + 1
+    wy, wst = ref.mamba2_ssd(*args, chunk=256)
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    assert y.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, wst, atol=tol, rtol=tol)
+
+
+def test_mamba2_ssd_zero_dt_passes_state_through(cuda):
+    """With dt == 0 the state passes through exactly, and from a zero
+    state y is exactly the D-skip."""
+    x, dt, a, bi, ci, d, st = _ssd_inputs(1, 100, 2, 8, 16, torch.float32,
+                                          cuda, True)
+    dt = torch.zeros_like(dt)
+    y, fs = ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, st)
+    assert torch.equal(fs, st)
+    y, fs = ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, torch.zeros_like(st))
+    assert torch.equal(y, d[None, None, :, None] * x)
+    assert torch.equal(fs, torch.zeros_like(st))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "starcoder2-3b"])
+def test_reduced_model_on_card_matches_cpu(cuda, arch):
+    """The same weights forward on the card (through the kernels) and on
+    the CPU (plain versions), f32: logits at 1e-3 relative to max(|x|,1)."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get_reduced(arch)
+    card = model.init_params(cfg, seed=3, device=cuda)
+    cpu = model.LM(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(0))
+    fa_kernel.reset_launches()
+    ssd_kernel.reset_launches()
+    got, _, _ = model.forward(card, {"tokens": toks.to(cuda)}, cfg)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches["flash_attention"] >= 1
+    if arch == "zamba2-2.7b":
+        assert ssd_kernel.launches["mamba2_ssd"] == cfg.n_layers
+    want, _, _ = model.forward(cpu, {"tokens": toks}, cfg)
+    err = ((got.cpu() - want).abs() / want.abs().clamp_min(1.0)).max()
+    assert float(err) <= 1e-3

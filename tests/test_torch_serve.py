@@ -1,0 +1,121 @@
+"""Serving through the port (`repro_torch.launch.serve`), on the CPU.
+
+The port's `LMServer` with the reference's weights emits the same greedy
+tokens as the reference's `LMServer` (an exact match: argmax over f32
+logits that agree to ~1e-5, test_torch_models.py); its cached generation
+equals repeated full forwards; `serve_benchmark` runs end to end through
+the Executor for both archs; a fresh interpreter serving through the port
+loads neither `jax` nor `repro`; and without a card the default device
+raises.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.launch import serve as jserve
+from repro_torch import configs as tconfigs
+from repro_torch import device
+from repro_torch.launch import serve as tserve
+from repro_torch.models import model as tmodel
+from repro_torch.models.weights import params_from_numpy
+from torch_port_util import on_cpu  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("on_cpu")
+
+ARCHS = ["zamba2-2.7b", "starcoder2-3b"]
+SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_reference_server(arch):
+    """Same weights, same prompt: the same tokens.  The prompt length (11)
+    is bucketed to 16 for starcoder2 and exact for zamba2."""
+    jsrv = jserve.LMServer(jconfigs.get_reduced(arch), max_len=48, seed=2)
+    tsrv = tserve.LMServer(tconfigs.get_reduced(arch), max_len=48, seed=2)
+    tsrv.params = params_from_numpy(tsrv.cfg,
+                                    jax.tree.map(np.asarray, jsrv.params))
+    prompt = np.random.default_rng(1).integers(
+        0, tsrv.cfg.vocab_size, (1, 11)).astype(np.int32)
+    want = jsrv.generate(prompt, 6)
+    got = tsrv.generate(prompt, 6)
+    assert got.shape == (1, 6)
+    assert got.tolist() == np.asarray(want).tolist()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generation_matches_teacher_forced(arch):
+    """Bucketed prefill + cached decode emit the greedy tokens of repeated
+    full forwards (the port's twin of tests/test_serve.py)."""
+    cfg = tconfigs.get_reduced(arch)
+    srv = tserve.LMServer(cfg, max_len=64, seed=3)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 6))
+    out = srv.generate(prompt, 4)
+    toks, ref = prompt.copy(), []
+    for _ in range(4):
+        logits, _, _ = tmodel.forward(srv.params,
+                                      {"tokens": torch.from_numpy(toks)}, cfg)
+        ref.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
+        toks = np.concatenate([toks, [[ref[-1]]]], 1)
+    assert out[0].tolist() == ref
+
+
+def test_bucket_sizes_are_powers_of_two():
+    srv = tserve.LMServer.__new__(tserve.LMServer)
+    srv.cfg = tconfigs.get_reduced("starcoder2-3b")
+    srv.min_bucket, srv.max_len = 16, 256
+    assert [srv._bucket(s) for s in (5, 16, 17, 300)] == [16, 16, 32, 256]
+    srv.cfg = tconfigs.get_reduced("zamba2-2.7b")     # recurrent: exact
+    assert srv._bucket(5) == 5
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_benchmark_end_to_end(arch):
+    for persistent in (True, False):
+        out = tserve.serve_benchmark(arch, n_requests=3, max_new=2,
+                                     n_workers=1, persistent=persistent,
+                                     max_len=32)
+        assert out["tokens"] == 3 * 2
+        assert out["summary"].n_tasks == 3
+        assert len(out["records"]) == 3
+
+
+def test_serving_loads_neither_jax_nor_repro(tmp_path):
+    """A reduced zamba2 serve_benchmark through the port, in a fresh
+    interpreter: no `jax` or `repro` module is loaded."""
+    script = textwrap.dedent("""
+        import sys
+        from repro_torch import device
+        device.set_device("cpu")
+        from repro_torch.launch import serve
+        out = serve.serve_benchmark("zamba2-2.7b", n_requests=2, max_new=2,
+                                    n_workers=1, max_len=32)
+        loaded = sorted(m for m in sys.modules
+                        if m in ("jax", "repro") or m.startswith("jax.")
+                        or m.startswith("repro."))
+        assert out["tokens"] == 4
+        print("LOADED", loaded)
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_lm_server_without_card_raises(monkeypatch):
+    """With the default device (CUDA) and no card, the server raises
+    rather than carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    device.set_device("cuda")
+    try:
+        with pytest.raises(RuntimeError, match="set_device"):
+            tserve.LMServer(tconfigs.get_reduced("zamba2-2.7b"))
+    finally:
+        device.set_device("cpu")
