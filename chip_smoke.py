@@ -10,17 +10,22 @@ to the CPU:
   1. device   — a CUDA card is required; its name and power limit; the
                 card's arithmetic held to the reference's (no TF32, bf16
                 products summed in f32).
-  2. build    — compile the three kernel libraries (GP, flash attention,
-                Mamba2 SSD) from src/repro_torch/kernels/csrc into
-                build/repro_torch/, one nvcc each, all started together,
-                and load them.
+  2. build    — compile the four kernel libraries (GP, flash attention,
+                Mamba2 SSD, RWKV6 WKV) from src/repro_torch/kernels/csrc
+                into build/repro_torch/, one nvcc each, all started
+                together, and load them.
   3. kernels  — each kernel against its plain version at its path's
-                shapes, with its device time (torch.profiler), its time per
+                shapes, with its device time (torch.profiler; a window the
+                profiler returns empty is taken again, and after three
+                empty ones the row is timed with CUDA events and named in
+                the record's `event_timed`), its time per
                 back-to-back call (CUDA events), the plain version's device
                 time, the least time the card could take (bound) and, for
                 attention, PyTorch's scaled_dot_product_attention on the
                 same inputs as a yardstick (timed only; the port never
-                calls it).
+                calls it).  The WKV also at a strong decay (log w = -1.5,
+                where the reference's chunked form overflows), held against
+                the sequential recurrence.
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -36,15 +41,21 @@ to the CPU:
                 (prompts of 64-1023 tokens, 16 new tokens each), then 2 on
                 fresh servers.  The attention and SSD launch counters are
                 zeroed just before and must have risen just after.
-  6. serve_check — outside the timed window, at full width 2 groups (12
-                layers) deep in f32: greedy tokens equal the argmax of
-                repeated full forwards, and prefill logits on the card
-                match the port on the CPU with the same weights.
-  7. where    — outside the counted runs: one GS2 solve alone, and the
+  6. serve_rwkv — the same mix for rwkv6-3b at its published widths (32
+                layers, d_model 2560, vocab 65536, bf16): the WKV launch
+                counter is zeroed just before and must read at least one
+                launch per layer per request just after.
+  7. serve_check — outside the timed windows, in f32 at full width:
+                zamba2 2 groups (12 layers) deep and rwkv6 4 layers deep.
+                Greedy tokens equal the argmax of repeated full forwards,
+                and prefill logits on the card match the port on the CPU
+                with the same weights.
+  8. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
-                10,000-task re-cost and one zamba2 request (a 512-token
-                prefill, then prefill + 16 new tokens), with the operators
-                that take the device time in the serve windows.
+                10,000-task re-cost and one zamba2 and one rwkv6 request
+                each (a 512-token prefill, then prefill + 16 new tokens),
+                with the operators that take the device time in the serve
+                windows.
 
 Before the last line it prints one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  The full record
@@ -76,6 +87,7 @@ N_PARTITIONED = 8_192
 FIT_STEPS = 150
 
 SERVE_ARCH = "zamba2-2.7b"
+RWKV_ARCH = "rwkv6-3b"
 SERVE_REQUESTS = 8
 SERVE_FRESH = 2
 SERVE_MAX_NEW = 16
@@ -105,24 +117,39 @@ def call_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, warmup: int = 3) -> float:
+# the kernel rows whose device time the profiler did not see, timed with
+# CUDA events instead (logged, and kept in chiprun_out/chip_smoke.json)
+EVENT_TIMED: list = []
+
+
+def device_ms(fn, iters: int, warmup: int = 3, label: str = "") -> float:
     """Mean device time per call of `fn`: the summed time of every kernel
     it launched (torch.profiler), over `iters` calls.  Back-to-back event
     timing of a tens-of-microseconds kernel measures the wrapper's host
-    work instead, so this is the kernel's time."""
+    work instead, so this is the kernel's time.  The profiler now and then
+    returns a window with no device events at all; such a window is taken
+    again, and after three empty windows the calls are timed with CUDA
+    events (`call_ms`, an upper bound on the device time) and the row is
+    named in EVENT_TIMED."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = _device_busy_ms(prof)
-    if busy <= 0.0:
-        raise RuntimeError("the profiler recorded no device time")
-    return busy / iters
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = _device_busy_ms(prof)
+        if busy > 0.0:
+            return busy / iters
+        log("timing", label=label, window=attempt,
+            note="the profiler recorded no device time")
+    ms = call_ms(fn, iters, warmup=0)
+    EVENT_TIMED.append(dict(label=label, ms=ms))
+    log("timing", label=label, timer="cuda events", ms=ms)
+    return ms
 
 
 def _kernel_events(prof):
@@ -172,9 +199,10 @@ def phase_device():
 
 
 def phase_build():
-    """Build the three libraries at once (one nvcc each, from threads)."""
-    from repro_torch.kernels import flash_attention, gp_kernel, mamba2_ssd
-    mods = (gp_kernel, flash_attention, mamba2_ssd)
+    """Build the four libraries at once (one nvcc each, from threads)."""
+    from repro_torch.kernels import (flash_attention, gp_kernel, mamba2_ssd,
+                                     rwkv6_wkv)
+    mods = (gp_kernel, flash_attention, mamba2_ssd, rwkv6_wkv)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         for f in [pool.submit(m.load) for m in mods]:
@@ -225,9 +253,10 @@ def phase_kernels():
         if not err <= 2e-5:
             raise AssertionError(f"gp_kernel_matrix {kind}: {err} > 2e-5")
         run = (lambda: gp_kernel.gp_kernel_matrix(x, x, ls, var, kind))
-        ms, call = device_ms(run, 200), call_ms(run, 200)
-        plain = device_ms(lambda: ref.gp_kernel_matrix(x, x, ls, var,
-                                                       kind), 200)
+        ms = device_ms(run, 200, label=f"gp_kernel_matrix[{kind}]")
+        call = call_ms(run, 200)
+        plain = device_ms(lambda: ref.gp_kernel_matrix(x, x, ls, var, kind),
+                          200, label=f"plain gp_kernel_matrix[{kind}]")
         per_elem = 2 * d + 6 + (8 if kind == "matern52" else 2)
         b, by = bound_ms(4 * (2 * n * d + d + 1) + 4 * n * n,
                          n * n * per_elem + 2 * n * 2 * d)
@@ -251,9 +280,11 @@ def phase_kernels():
         err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
         if not err <= 1e-4:
             raise AssertionError(f"gp_predict n={n}: {err} > 1e-4")
-        ms = device_ms(lambda: gp_kernel.gp_predict(*args), 50)
+        ms = device_ms(lambda: gp_kernel.gp_predict(*args), 50,
+                       label=f"gp_predict[n={n}]")
         call = call_ms(lambda: gp_kernel.gp_predict(*args), 50)
-        plain = device_ms(lambda: ref.gp_predict(*args), 50)
+        plain = device_ms(lambda: ref.gp_predict(*args), 50,
+                          label=f"plain gp_predict[n={n}]")
         tri = n * (n + 1) // 2
         b, by = bound_ms(4 * (n * d + s * d + d + 1 + n * m + tri + s * m + s),
                          s * (2 * tri + n * (2 * d + 2 * m + 8)))
@@ -275,9 +306,11 @@ def phase_kernels():
     err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
     if not err <= 1e-4:
         raise AssertionError(f"gp_predict_experts: {err} > 1e-4")
-    ms = device_ms(lambda: gp_kernel.gp_predict_experts(*args), 50)
+    ms = device_ms(lambda: gp_kernel.gp_predict_experts(*args), 50,
+                   label="gp_predict_experts")
     call = call_ms(lambda: gp_kernel.gp_predict_experts(*args), 50)
-    plain = device_ms(lambda: ref.gp_predict_experts(*args), 50)
+    plain = device_ms(lambda: ref.gp_predict_experts(*args), 50,
+                      label="plain gp_predict_experts")
     tri = n * (n + 1) // 2
     b, by = bound_ms(4 * e * (n * d + s * d + n * m + tri + s * m + s)
                      + 4 * (d + 1),
@@ -322,15 +355,33 @@ def _ssd_bound(x, b_in, state):
     return bound_ms(n_bytes, 5 * bb * s * h * p * n)
 
 
+def _rwkv_bound(r, v, state):
+    """Bytes: r, k, v, u in their type and w in f32 read once, the state
+    read once when given, out written once in r's type and the final
+    state in f32.  Operations: the recurrence's 5 f32 operations per
+    (t, h, k, v) (decay, outer product, add, and the r . state
+    multiply-add), the least the function needs, at the f32 CUDA-core
+    peak: the state and decays are f32 in the reference."""
+    b, s, h, kd = r.shape
+    vd = v.shape[3]
+    elem = r.element_size()
+    n_bytes = (elem * (2 * r.numel() + 2 * v.numel() + h * kd)
+               + 4 * r.numel()
+               + 4 * b * h * kd * vd * (2 if state is not None else 1))
+    return bound_ms(n_bytes, 5 * b * s * h * kd * vd)
+
+
 def phase_lm_kernels():
-    """flash_attention and mamba2_ssd against their plain versions at the
-    serve path's shapes (zamba2: 32 heads of 80, 80 SSD heads of 64 with a
-    64-wide state; starcoder2: a GQA group of 12 with heads of 128)."""
+    """flash_attention, mamba2_ssd and rwkv6_wkv against their plain
+    versions at the serve paths' shapes (zamba2: 32 heads of 80, 80 SSD
+    heads of 64 with a 64-wide state; starcoder2: a GQA group of 12 with
+    heads of 128; rwkv6-3b: 40 WKV heads of 64)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
     g = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
 
@@ -356,13 +407,16 @@ def phase_lm_kernels():
         run = (lambda: fa.flash_attention(q, k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=h != hkv), 20)
+            qt, kt, vt, is_causal=True, enable_gqa=h != hkv), 200,
+            label=f"sdpa {label}")
         b, by = _attn_bound(q, k, v)
         rows.append(dict(
             name=f"flash_attention[{label}]", source=fa.SOURCE, tol=tol,
             shape=f"q{tuple(q.shape)} kv{tuple(k.shape)}", max_abs_err=err,
-            ms=device_ms(run, 20), call_ms=call_ms(run, 20),
-            plain_ms=device_ms(lambda: ref.attention(q, k, v), 10),
+            ms=device_ms(run, 20, label=f"flash_attention {label}"),
+            call_ms=call_ms(run, 20),
+            plain_ms=device_ms(lambda: ref.attention(q, k, v), 10,
+                               label=f"plain attention {label}"),
             bound_ms=b, bound_by=by, library_ms=library))
 
     h, p, n = 80, 64, 64
@@ -394,8 +448,62 @@ def phase_lm_kernels():
             name=f"mamba2_ssd[{label}]", source=ssd.SOURCE,
             tol="y 2e-2 + 2e-2|y|, state 2e-3 + 2e-3|s|",
             shape=f"x{tuple(x.shape)} n{n}", max_abs_err=err,
-            ms=device_ms(run, 20), call_ms=call_ms(run, 20),
-            plain_ms=device_ms(lambda: ref.mamba2_ssd(*args, chunk=256), 5),
+            ms=device_ms(run, 20, label=f"mamba2_ssd {label}"),
+            call_ms=call_ms(run, 20),
+            plain_ms=device_ms(lambda: ref.mamba2_ssd(*args, chunk=256), 5,
+                               label=f"plain mamba2_ssd {label}"),
+            bound_ms=b, bound_by=by, library_ms=None))
+
+    # rwkv6_wkv at rwkv6-3b's widths: r, k, v, u in the activation type,
+    # w f32 as the model makes it (exp(-exp(N(0, 0.5) - 1)), log w in about
+    # [-1, -0.1], as at random init), the f32 state from a cache
+    h, kd = 40, 64
+    for s, dtype, with_state, log_w, iters in (
+            (1024, bf16, False, None, 20), (777, bf16, False, None, 20),
+            (777, bf16, True, None, 20), (16384, bf16, False, None, 3),
+            (1024, f32, False, None, 20), (1024, bf16, True, -1.5, 20)):
+        r, k, v = (randn(1, s, h, kd, dtype=dtype) for _ in range(3))
+        if log_w is None:
+            w = torch.exp(-torch.exp(0.5 * randn(1, s, h, kd) - 1.0))
+        else:
+            w = torch.full((1, s, h, kd), math.exp(log_w), device=dev)
+        u = randn(h, kd, dtype=dtype)
+        st = 0.1 * randn(1, h, kd, kd) if with_state else None
+        args = (r, k, v, w, u, st)
+        got = wkv.rwkv6_wkv(*args)
+        torch.cuda.synchronize()
+        # the strong-decay row is held against the sequential recurrence
+        oracle = ref.rwkv6_wkv if log_w is None else ref.rwkv6_wkv_scan
+        want = oracle(*args)
+        if dtype == f32:
+            tol = "2e-4"
+            ok = all(((g - x).abs() <= 2e-4 + 2e-4 * x.abs()).all()
+                     for g, x in zip(got, want))
+        else:
+            tol = "out 2e-2 + 2e-2|y|, state 2e-3 + 2e-3|s|"
+            ok = (((got[0].float() - want[0].float()).abs()
+                   <= 2e-2 + 2e-2 * want[0].float().abs()).all()
+                  and ((got[1] - want[1]).abs()
+                       <= 2e-3 + 2e-3 * want[1].abs()).all())
+        finite = bool(torch.isfinite(got[0]).all()
+                      and torch.isfinite(got[1]).all())
+        err = max(max_err(got[0].float(), want[0].float()),
+                  max_err(got[1], want[1]))
+        label = (f"rwkv6 {'bf16' if dtype == bf16 else 'f32'} S={s}"
+                 f"{' +state' if with_state else ''}"
+                 f"{f' log w={log_w}' if log_w is not None else ''}")
+        if not (ok and finite):
+            raise AssertionError(f"rwkv6_wkv {label}: max error {err}, "
+                                 f"finite {finite}")
+        run = (lambda: wkv.rwkv6_wkv(*args))
+        b, by = _rwkv_bound(r, v, st)
+        rows.append(dict(
+            name=f"rwkv6_wkv[{label}]", source=wkv.SOURCE, tol=tol,
+            shape=f"r{tuple(r.shape)} v{tuple(v.shape)}", max_abs_err=err,
+            ms=device_ms(run, iters, label=f"rwkv6_wkv {label}"),
+            call_ms=call_ms(run, iters),
+            plain_ms=device_ms(lambda: ref.rwkv6_wkv(*args), 2, warmup=1,
+                               label=f"plain rwkv6_wkv {label}"),
             bound_ms=b, bound_by=by, library_ms=None))
     for r in rows:
         r["source"] = str(Path(r["source"]).relative_to(ROOT))
@@ -623,26 +731,28 @@ def phase_main():
     return out, launches
 
 
-def phase_serve():
-    """zamba2-2.7b at its published widths through the port's Executor:
-    a persistent server, then fresh servers.  The attention and SSD
-    launch counters are zeroed just before and read just after."""
+def _serve_path(arch):
+    """`arch` at its published widths through the port's Executor: a
+    persistent server, then fresh servers.  Every LM kernel's launch
+    counter is zeroed just before and read just after."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.launch import serve
 
+    counters = {"flash_attention": fa, "mamba2_ssd": ssd, "rwkv6_wkv": wkv}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    ssd.reset_launches()
+    for mod in counters.values():
+        mod.reset_launches()
     out = {}
     t_serve = time.perf_counter()
     for mode, n_req, persistent in (("persistent", SERVE_REQUESTS, True),
                                     ("fresh-server", SERVE_FRESH, False)):
         r = serve.serve_benchmark(
-            SERVE_ARCH, reduced=False, n_requests=n_req,
+            arch, reduced=False, n_requests=n_req,
             max_new=SERVE_MAX_NEW, n_workers=1, persistent=persistent,
             max_len=SERVE_MAX_LEN, min_prompt=SERVE_MIN_PROMPT, seed=0)
         torch.cuda.synchronize()
@@ -650,78 +760,109 @@ def phase_serve():
         init_ts = [rec.cpu_time - rec.compute_t for rec in r["records"]]
         init_share = 1 - s.total_compute / max(s.total_cpu_time, 1e-9)
         if r["tokens"] != n_req * SERVE_MAX_NEW:
-            raise AssertionError(f"serve {mode}: {r['tokens']} tokens")
+            raise AssertionError(f"serve {arch} {mode}: {r['tokens']} "
+                                 f"tokens")
         out[mode] = dict(
             requests=n_req, wall_s=r["wall"], cpu_s=s.total_cpu_time,
             compute_s=s.total_compute, init_share=init_share,
             tokens=r["tokens"], tokens_per_s=r["tokens"] / r["wall"],
             server_init_s=[t for t in init_ts if t > 0],
             makespan_s=s.makespan)
-        log("serve", mode=mode, requests=n_req, wall_s=f"{r['wall']:.3f}",
-            cpu_s=f"{s.total_cpu_time:.3f}", init_share=f"{init_share:.4f}",
+        log("serve", arch=arch, mode=mode, requests=n_req,
+            wall_s=f"{r['wall']:.3f}", cpu_s=f"{s.total_cpu_time:.3f}",
+            init_share=f"{init_share:.4f}",
             tokens_per_s=f"{r['tokens'] / r['wall']:.2f}",
             server_init_s=[f"{t:.3f}" for t in init_ts if t > 0])
+    torch.cuda.synchronize()
     out["serve_s"] = time.perf_counter() - t_serve
+    launches = {name: mod.launches[name] for name, mod in counters.items()}
     out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {"flash_attention": fa.launches["flash_attention"],
-                "mamba2_ssd": ssd.launches["mamba2_ssd"]}
-    missing = [k for k, v in launches.items() if v < 1]
-    if missing:
-        raise AssertionError(f"kernels never launched on the serve path: "
-                             f"{missing}")
     lens = np.random.default_rng(0).integers(
         SERVE_MIN_PROMPT, SERVE_MAX_LEN // 2, SERVE_REQUESTS)
     out["prompt_lens"] = lens.tolist()
-    log("serve.total", seconds=f"{out['serve_s']:.3f}",
+    log("serve.total", arch=arch, seconds=f"{out['serve_s']:.3f}",
         peak_device_gib=f"{out['peak_device_gib']:.2f}", **launches)
     return out, launches
 
 
+def phase_serve():
+    """zamba2-2.7b: the attention and SSD kernels must have launched."""
+    out, launches = _serve_path(SERVE_ARCH)
+    launches = {k: launches[k] for k in ("flash_attention", "mamba2_ssd")}
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serve path: "
+                             f"{missing}")
+    return out, launches
+
+
+def phase_serve_rwkv():
+    """rwkv6-3b: every prefill runs the WKV kernel once per layer, so the
+    counter must reach n_layers x requests (warm-ups add more)."""
+    from repro_torch import configs
+    out, launches = _serve_path(RWKV_ARCH)
+    need = configs.get(RWKV_ARCH).n_layers * (SERVE_REQUESTS + SERVE_FRESH)
+    if launches["rwkv6_wkv"] < need:
+        raise AssertionError(f"rwkv6_wkv launched {launches['rwkv6_wkv']} "
+                             f"times on the serve path, fewer than {need}")
+    return out, {"rwkv6_wkv": launches["rwkv6_wkv"]}
+
+
 def phase_serve_check():
-    """Outside the timed window: zamba2-2.7b at full width, 2 groups (12
-    layers) deep, f32.  (a) LMServer.generate's greedy tokens equal the
-    argmax of repeated full forwards (tests/test_serve.py's check);
-    (b) prefill logits on the card match the port on the CPU with the same
-    weights, within 5e-3 relative to max(|x|, 1): the same f32 formulas,
-    summed in other orders (cuBLAS and the kernels against the CPU's BLAS
-    and the plain versions) over d_model 2560 and d_ff 10240, through 12
-    random-weight layers; 1.3e-3 was measured on an H100."""
+    """Outside the timed windows, in f32 at full width: zamba2-2.7b 2
+    groups (12 layers) deep and rwkv6-3b 4 layers deep.  (a)
+    LMServer.generate's greedy tokens equal the argmax of repeated full
+    forwards (tests/test_serve.py's check); (b) prefill logits on the card
+    match the port on the CPU with the same weights, within 5e-3 relative
+    to max(|x|, 1): the same f32 formulas, summed in other orders (cuBLAS
+    and the kernels against the CPU's BLAS and the plain versions) over
+    d_model 2560 and d_ff 8960-10240, through random-weight layers;
+    1.3e-3 was measured on an H100 for zamba2."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model
 
-    cfg = configs.get(SERVE_ARCH).replace(
-        n_layers=2 * configs.get(SERVE_ARCH).shared_attn_every,
-        dtype="float32")
-    srv = serve.LMServer(cfg, max_len=64, seed=5)
-    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 40))
-    out = srv.generate(prompt, 4)
-    toks, want = prompt.copy(), []
-    for _ in range(4):
-        logits, _, _ = model.forward(
-            srv.params, {"tokens": torch.as_tensor(toks, device="cuda")}, cfg)
-        want.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
-        toks = np.concatenate([toks, [[want[-1]]]], 1)
-    if out[0].tolist() != want:
-        raise AssertionError(f"greedy tokens {out[0].tolist()} != "
-                             f"teacher-forced {want}")
+    out = {}
+    for arch, n_layers in (
+            (SERVE_ARCH, 2 * configs.get(SERVE_ARCH).shared_attn_every),
+            (RWKV_ARCH, 4)):
+        cfg = configs.get(arch).replace(n_layers=n_layers, dtype="float32")
+        srv = serve.LMServer(cfg, max_len=64, seed=5)
+        prompt = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                   (1, 40))
+        gen = srv.generate(prompt, 4)
+        toks, want = prompt.copy(), []
+        for _ in range(4):
+            logits, _, _ = model.forward(
+                srv.params, {"tokens": torch.as_tensor(toks, device="cuda")},
+                cfg)
+            want.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
+            toks = np.concatenate([toks, [[want[-1]]]], 1)
+        if gen[0].tolist() != want:
+            raise AssertionError(f"{arch}: greedy tokens {gen[0].tolist()} "
+                                 f"!= teacher-forced {want}")
 
-    batch = torch.as_tensor(prompt)
-    card, _, _ = model.prefill(srv.params, {"tokens": batch.cuda()}, cfg,
-                               model.init_cache(cfg, 1, 64, "cuda"))
-    cpu_params = model.LM(cfg, "cpu")
-    cpu_params.load_state_dict(srv.params.state_dict())
-    cpu, _, _ = model.prefill(cpu_params, {"tokens": batch}, cfg,
-                              model.init_cache(cfg, 1, 64, "cpu"))
-    err = float(((card.cpu() - cpu).abs() / cpu.abs().clamp_min(1.0)).max())
-    if not (torch.isfinite(card).all() and err <= 5e-3):
-        raise AssertionError(f"card vs CPU prefill logits: {err} > 5e-3")
-    log("serve_check", layers=cfg.n_layers, tokens=out[0].tolist(),
-        teacher_forced="equal", prefill_logits_err=f"{err:.3g}")
-    return dict(layers=cfg.n_layers, tokens=out[0].tolist(),
-                prefill_logits_err=err)
+        batch = torch.as_tensor(prompt)
+        card, _, _ = model.prefill(srv.params, {"tokens": batch.cuda()}, cfg,
+                                   model.init_cache(cfg, 1, 64, "cuda"))
+        cpu_params = model.LM(cfg, "cpu")
+        cpu_params.load_state_dict(srv.params.state_dict())
+        del srv
+        cpu, _, _ = model.prefill(cpu_params, {"tokens": batch}, cfg,
+                                  model.init_cache(cfg, 1, 64, "cpu"))
+        err = float(((card.cpu() - cpu).abs()
+                     / cpu.abs().clamp_min(1.0)).max())
+        if not (torch.isfinite(card).all() and err <= 5e-3):
+            raise AssertionError(f"{arch}: card vs CPU prefill logits: "
+                                 f"{err} > 5e-3")
+        log("serve_check", arch=arch, layers=cfg.n_layers,
+            tokens=gen[0].tolist(), teacher_forced="equal",
+            prefill_logits_err=f"{err:.3g}")
+        out[arch] = dict(layers=cfg.n_layers, tokens=gen[0].tolist(),
+                         prefill_logits_err=err)
+    return out
 
 
 def _top_device_ops(prof, k: int = 6):
@@ -735,9 +876,10 @@ def _top_device_ops(prof, k: int = 6):
 def phase_where():
     """Where the paths' time goes, outside the counted runs: one GS2
     solve alone on one thread, and the device's busy share (profiler)
-    during a solve, a 10,000-task re-cost, and one zamba2 request (a
-    512-token prefill alone, then prefill + 16 new tokens) on a warm
-    full-width server, with the operators that take the device time."""
+    during a solve, a 10,000-task re-cost, and one zamba2 and one rwkv6
+    request each (a 512-token prefill alone, then prefill + 16 new tokens)
+    on a warm full-width server, with the operators that take the device
+    time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -770,11 +912,19 @@ def phase_where():
                          seed=0)
     prompt = rng.integers(0, srv.cfg.vocab_size, (1, 512))
     srv.generate(prompt, 2)                      # first use off the clock
+    rwkv = serve.LMServer(configs.get(RWKV_ARCH), max_len=SERVE_MAX_LEN,
+                          seed=0)
+    rwkv_prompt = rng.integers(0, rwkv.cfg.vocab_size, (1, 512))
+    rwkv.generate(rwkv_prompt, 2)                # first use off the clock
     for name, fn in (("solve", lambda: gs2_proxy.solve(theta)),
                      ("recost_10k", lambda: pred.predict_many_with_sd(reqs)),
                      ("serve_prefill_512", lambda: srv.generate(prompt, 1)),
                      ("serve_request_512+16",
-                      lambda: srv.generate(prompt, SERVE_MAX_NEW))):
+                      lambda: srv.generate(prompt, SERVE_MAX_NEW)),
+                     ("rwkv_prefill_512", lambda: rwkv.generate(rwkv_prompt,
+                                                                1)),
+                     ("rwkv_request_512+16",
+                      lambda: rwkv.generate(rwkv_prompt, SERVE_MAX_NEW))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -787,7 +937,8 @@ def phase_where():
             busy = idle = None
         else:
             idle = 1 - busy / (wall * 1e3)
-        top = _top_device_ops(prof) if name.startswith("serve") else []
+        top = (_top_device_ops(prof)
+               if name not in ("solve", "recost_10k") else [])
         out[name] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
                          device_idle_share=idle, top_device_ops=top)
         log("where", window=name, wall_ms=f"{wall * 1e3:.3f}",
@@ -803,21 +954,25 @@ def phase_where():
 
 # ---------------------------------------------------------------------------
 def main() -> int:
+    t_script = time.perf_counter()
     name, smi = phase_device()
     build_s = phase_build()
     rows = phase_kernels() + phase_lm_kernels()
     main_out, launches = phase_main()
     serve_out, serve_launches = phase_serve()
+    rwkv_out, rwkv_launches = phase_serve_rwkv()
     serve_check = phase_serve_check()
     where = phase_where()
     launches.update(serve_launches)
+    launches.update(rwkv_launches)
     log("main.launches", **launches)
 
     replaces = {"gp_kernel_matrix": "src/repro/kernels/gp_kernel.py:23",
                 "gp_predict": "src/repro/kernels/gp_kernel.py:79",
                 "gp_predict_experts": "src/repro/kernels/gp_kernel.py:159",
                 "flash_attention": "src/repro/kernels/flash_attention.py:30",
-                "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:24"}
+                "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:24",
+                "rwkv6_wkv": "src/repro/kernels/rwkv6_scan.py:24"}
     kernels = []
     for r in rows:
         base = r["name"].split("[")[0]
@@ -827,9 +982,14 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], call_ms=r["call_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    script_s = time.perf_counter() - t_script
+    log("total", seconds=f"{script_s:.1f}")
     record = dict(device=name, nvidia_smi=smi, build_s=build_s,
+                  script_s=script_s,
                   kernels=kernels, launches=launches, main=main_out,
-                  serve=serve_out, serve_check=serve_check, where=where)
+                  serve=serve_out, serve_rwkv=rwkv_out,
+                  serve_check=serve_check, where=where,
+                  event_timed=EVENT_TIMED)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -2,13 +2,15 @@
 requests), the twin of examples/serve_lm.py.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --arch rwkv6-3b
     PYTHONPATH=src python examples/serve_lm_torch.py --arch zamba2-2.7b --full
 
 Variable-length prompts are dispatched to persistent model servers (the
 weights stay on the device) and to naive per-request servers (each
 request draws its weights anew).  `--full` serves the published widths
-(zamba2-2.7b: 54 layers, d_model 2560, bf16, random weights), which wants
-a card; the default is the reduced smoke config.
+(zamba2-2.7b: 54 layers, d_model 2560; rwkv6-3b: 32 layers, d_model 2560;
+bf16, random weights), which wants a card; the default is the reduced
+smoke config.
 """
 import argparse
 import sys

@@ -2,7 +2,7 @@
 runs, each with its published config and a reduced smoke variant.
 
 `get(name)` / `get_reduced(name)` take the public dashed ids, as in
-`repro.configs`.  The reference's other eight archs need blocks the port
+`repro.configs`.  The reference's other seven archs need blocks the port
 does not have yet; asking for one raises a `KeyError` that names the
 ROADMAP item that ports it.
 """
@@ -16,10 +16,10 @@ from repro_torch.models.config import LM_SHAPES, ModelConfig, ShapeConfig
 _MODULES: Dict[str, str] = {
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
 _LATER: Dict[str, str] = {
-    "rwkv6-3b": "ROADMAP.md Queue 1 item 11 (RWKV6, the next slice)",
     "dbrx-132b": "ROADMAP.md Queue 1 item 12 (MoE)",
     "deepseek-v3-671b": "ROADMAP.md Queue 1 items 12-13 (MoE, MLA, MTP)",
     "minicpm3-4b": "ROADMAP.md Queue 1 item 13 (MLA)",

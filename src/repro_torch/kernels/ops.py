@@ -2,8 +2,8 @@
 
 The rule is the tensor's device, nothing else: operands on the CPU take
 the plain PyTorch version (`ref`); operands on a CUDA device take the
-hand-written kernel (`gp_kernel`, `flash_attention`, `mamba2_ssd`), whose
-wrapper launches it or raises.
+hand-written kernel (`gp_kernel`, `flash_attention`, `mamba2_ssd`,
+`rwkv6_wkv`), whose wrapper launches it or raises.
 There is no automatic choice and no fallback from a kernel that fails to
 build or launch.
 """
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gp_kernel, ref
 from repro_torch.kernels import mamba2_ssd as ssd_kernel
+from repro_torch.kernels import rwkv6_wkv as wkv_kernel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -36,6 +37,15 @@ def mamba2_ssd(x, dt, a, b, c, d, state: Optional[torch.Tensor] = None, *,
     if _on_cpu(x):
         return ref.mamba2_ssd(x, dt, a, b, c, d, state, chunk=chunk)
     return ssd_kernel.mamba2_ssd(x, dt, a, b, c, d, state, chunk=chunk)
+
+
+def rwkv6_wkv(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
+              chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked RWKV6 WKV with the bonus u: (out [B,S,H,V] in r's dtype,
+    final state [B,H,K,V] f32)."""
+    if _on_cpu(r):
+        return ref.rwkv6_wkv(r, k, v, w, u, state, chunk=chunk)
+    return wkv_kernel.rwkv6_wkv(r, k, v, w, u, state, chunk=chunk)
 
 
 def gp_kernel_matrix(x1, x2, lengthscale, variance, kind: str = "rbf"

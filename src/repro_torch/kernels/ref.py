@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the kernels (`repro/kernels/ref.py`).
 
 These are the reference the CUDA kernels (`gp_kernel`, `flash_attention`,
-`mamba2_ssd`) are held against on the card, and what the dispatcher runs
-for tensors on the CPU.  The formulas follow the JAX reference line for
-line (for the GP: norms minus twice the cross term, clamped at 0), so
-that both round alike.
+`mamba2_ssd`, `rwkv6_wkv`) are held against on the card, and what the
+dispatcher runs for tensors on the CPU.  The formulas follow the JAX
+reference line for line (for the GP: norms minus twice the cross term,
+clamped at 0), so that both round alike.
 """
 from __future__ import annotations
 
@@ -106,6 +106,76 @@ def mamba2_ssd(x, dt, a, b_in, c_in, d, state: Optional[torch.Tensor] = None,
               + torch.einsum("bjhp,bjn->bhpn", k_dec[..., None] * xdt, bc))
         ys.append(y_in + y_intra + df[None, None, :, None] * xc)
     return torch.cat(ys, 1)[:, :s].to(x.dtype), st
+
+
+# ==========================================================================
+# RWKV6 (Finch) WKV recurrence — data-dependent per-channel decay.
+#   state_t = diag(w_t) state_{t-1} + k_t v_t^T
+#   out_t   = r_t^T (state_{t-1} + diag(u * k_t) v_t^T)
+# ==========================================================================
+def rwkv6_wkv_scan(r, k, v, w, u, state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential recurrence, one step at a time: the oracle.
+    r, k, w: [B,S,H,K]; v: [B,S,H,V]; u: [H,K]; state: [B,H,K,V].
+    Returns (out [B,S,H,V] in r's dtype, final state f32)."""
+    b, s, h, kd = r.shape
+    vd = v.shape[-1]
+    st = (torch.zeros((b, h, kd, vd), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()
+    outs = []
+    for t in range(s):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]               # [B,H,K,V]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt,
+                                 st + uf[..., :, None] * kv))
+        st = wt[..., :, None] * st + kv
+    return torch.stack(outs, 1).to(r.dtype), st
+
+
+def rwkv6_wkv(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
+              chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked gated-linear-attention form of the WKV6 recurrence, the
+    plain version of the kernel.  Shapes as `rwkv6_wkv_scan`.
+
+    The decays are taken relatively: exp(cum_{t-1} - cum_j) only where
+    j < t, and exp(cum_C - cum_j) for the state, so every exponent is
+    <= 0 and the result is finite for every w in (0, 1].  The reference's
+    `rwkv6_wkv_chunked` factors them as exp(cum_{t-1}) exp(-cum_j), and
+    exp(-cum_j) overflows once the log-decays of one chunk sum below
+    about -88.  The bonus is summed with the rest in f32 and the output
+    rounded to r's dtype once."""
+    b, s, h, kd = r.shape
+    vd = v.shape[-1]
+    st = (torch.zeros((b, h, kd, vd), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    pad = (-s) % chunk
+    rf, kf, vf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
+    wf = F.pad(w.float(), (0, 0, 0, 0, 0, pad), value=1.0)
+    uf = u.float()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool,
+                     device=r.device).tril(-1)[None, :, :, None, None]
+    outs = []
+    for c0 in range(0, s + pad, chunk):
+        rc, kc = rf[:, c0:c0 + chunk], kf[:, c0:c0 + chunk]   # [B,C,H,K]
+        vc, wc = vf[:, c0:c0 + chunk], wf[:, c0:c0 + chunk]
+        cum = torch.cumsum(torch.log(torch.clamp_min(wc, 1e-30)), dim=1)
+        cum_prev = F.pad(cum[:, :-1], (0, 0, 0, 0, 1, 0))      # cum_{t-1}
+        # inter: r_t . (prod_{i<t} w_i) state
+        out = torch.einsum("bthk,bhkv->bthv", rc * torch.exp(cum_prev), st)
+        # intra: A[t,j] = sum_k r_t k_j exp(cum_{t-1} - cum_j), j < t
+        dec = torch.where(tri, cum_prev[:, :, None] - cum[:, None], -math.inf)
+        a = torch.einsum("bthk,bjhk,btjhk->bhtj", rc, kc, dec.exp())
+        out = out + torch.einsum("bhtj,bjhv->bthv", a, vc)
+        # diagonal bonus: r_t . (u * k_t) v_t
+        diag = torch.einsum("bthk,hk,bthk->bth", rc, uf, kc)
+        outs.append(out + diag[..., None] * vc)
+        # state: st' = exp(cum_C) st + sum_j (k_j exp(cum_C - cum_j)) v_j^T
+        k_out = kc * torch.exp(cum[:, -1:] - cum)
+        st = (torch.exp(cum[:, -1])[..., None] * st
+              + torch.einsum("bjhk,bjhv->bhkv", k_out, vc))
+    return torch.cat(outs, 1)[:, :s].to(r.dtype), st
 
 
 # ==========================================================================

@@ -27,6 +27,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, ParamModule, embed_tokens,
                                        logits_from_hidden, mlp_apply,
                                        rms_norm)
+from repro_torch.models.rwkv import (RWKV6Layer, rwkv6_apply,
+                                     rwkv6_cache_shapes)
 from repro_torch.models.ssm import Mamba2, mamba2_apply, mamba2_cache_shapes
 
 Cache = Dict[str, Any]
@@ -36,14 +38,13 @@ Cache = Dict[str, Any]
 class Segment:
     name: str
     n_layers: int
-    kind: str                 # attn_mlp | mamba2 | zamba_group
+    kind: str                 # attn_mlp | mamba2 | rwkv6 | zamba_group
     cfg: ModelConfig
 
 
 def model_segments(cfg: ModelConfig) -> List[Segment]:
     if cfg.block_kind == "rwkv6":
-        raise NotImplementedError("rwkv6 blocks are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 11)")
+        return [Segment("layers", cfg.n_layers, "rwkv6", cfg)]
     if cfg.n_experts:
         raise NotImplementedError("MoE blocks (attn_moe) are not ported yet "
                                   "(ROADMAP.md Queue 1 item 12)")
@@ -95,7 +96,7 @@ class ZambaGroup(nn.Module):
 
 
 _LAYERS = {"attn_mlp": AttnMLPLayer, "mamba2": Mamba2Layer,
-           "zamba_group": ZambaGroup}
+           "rwkv6": RWKV6Layer, "zamba_group": ZambaGroup}
 
 
 def _layer_cache_shapes(kind: str, cfg: ModelConfig, batch: int,
@@ -104,6 +105,8 @@ def _layer_cache_shapes(kind: str, cfg: ModelConfig, batch: int,
         return gqa_cache_shapes(cfg, batch, max_len)
     if kind == "mamba2":
         return mamba2_cache_shapes(cfg, batch)
+    if kind == "rwkv6":
+        return rwkv6_cache_shapes(cfg, batch)
     if kind == "zamba_group":
         n = cfg.shared_attn_every
         return {"mamba": {k: (n,) + s for k, s in
@@ -136,6 +139,9 @@ def _layer_apply(kind: str, lp, x, cfg, *, positions, cache, decode_pos,
         out, new_c = mamba2_apply(lp.mamba, h, cfg, cache=cache,
                                   decode=decode_pos is not None)
         return x + out, new_c
+    if kind == "rwkv6":
+        return rwkv6_apply(lp, x, cfg, cache=cache,
+                           decode=decode_pos is not None)
     if kind == "zamba_group":
         x, _ = _run_stack("mamba2", lp.mamba, x, cfg, positions=positions,
                           caches=None if cache is None else cache["mamba"],

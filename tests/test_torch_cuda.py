@@ -14,6 +14,10 @@ product and a softmax summed in another order), 2e-2 in bf16 (both round
 an f32 result to bf16, a step of at most 2^-6 below 4).  SSD: 2e-3
 absolute and relative in f32 (the reference's own tolerance: chunked sums
 in another order), 2e-2 in bf16 (both round an f32 y to bf16 once).
+WKV: 2e-4 in f32 (the reference's own tolerance, tests/test_kernels.py:
+the kernel's exponentials are exp2 of log2 sums, and its sums run in
+another order); in bf16 out within 2e-2 + 2e-2 |y| (both round an f32
+result to bf16 once) and the f32 state within 2e-3 + 2e-3 |s|.
 Reduced models, card against CPU: 1e-3 relative to max(|x|, 1) (f32
 matmuls and the kernels sum in other orders than the CPU's, through a few
 layers).
@@ -27,6 +31,7 @@ from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gp_kernel
 from repro_torch.kernels import mamba2_ssd as ssd_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_wkv as wkv_kernel
 
 pytestmark = pytest.mark.gpu
 
@@ -234,7 +239,103 @@ def test_mamba2_ssd_zero_dt_passes_state_through(cuda):
     assert torch.equal(fs, torch.zeros_like(st))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "starcoder2-3b"])
+def _wkv_inputs(b, s, h, kd, vd, dtype, dev, with_state, log_w=None,
+                seed=9):
+    """r, k, v, u ~ N(0, 1) in `dtype`; w = exp(-exp(N(0, 0.5) - 1)) (log w
+    in about [-1, -0.1], as at random init) or the constant exp(log_w)."""
+    g = torch.Generator().manual_seed(seed)
+    r, k = (torch.randn(b, s, h, kd, generator=g) for _ in range(2))
+    v = torch.randn(b, s, h, vd, generator=g)
+    if log_w is None:
+        w = torch.exp(-torch.exp(0.5 * torch.randn(b, s, h, kd, generator=g)
+                                 - 1.0))
+    else:
+        w = torch.full((b, s, h, kd), float(np.exp(log_w)))
+    u = torch.randn(h, kd, generator=g)
+    st = 0.1 * torch.randn(b, h, kd, vd, generator=g) if with_state else None
+    out = [r.to(dtype), k.to(dtype), v.to(dtype), w, u.to(dtype), st]
+    return [None if t is None else t.to(dev) for t in out]
+
+
+def _assert_wkv_close(got, want, dtype):
+    (y, st), (wy, wst) = got, want
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, wy, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(st, wst, atol=2e-4, rtol=2e-4)
+    else:
+        yf, wyf = y.float(), wy.float()
+        assert ((yf - wyf).abs() <= 2e-2 + 2e-2 * wyf.abs()).all()
+        assert ((st - wst).abs() <= 2e-3 + 2e-3 * wst.abs()).all()
+
+
+# (b, s, h, k, v)
+@pytest.mark.parametrize("shape", [
+    (2, 130, 3, 16, 16),
+    (1, 33, 1, 8, 8),
+    (2, 100, 2, 32, 24),       # V not a multiple of 16
+    (1, 70, 2, 128, 16),       # widest K
+    (1, 777, 40, 64, 64),      # rwkv6-3b's widths, ragged S
+])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_wkv_matches_plain(cuda, shape, with_state, dtype):
+    args = _wkv_inputs(*shape, dtype, cuda, with_state)
+    before = wkv_kernel.launches["rwkv6_wkv"]
+    got = wkv_kernel.rwkv6_wkv(*args)
+    torch.cuda.synchronize()
+    assert wkv_kernel.launches["rwkv6_wkv"] == before + 1
+    _assert_wkv_close(got, ref.rwkv6_wkv(*args), dtype)
+
+
+@pytest.mark.parametrize("log_w", [-1.5, -3.0, -69.0])
+def test_rwkv6_wkv_strong_decay_matches_sequential(cuda, log_w):
+    """Where a chunk's log-decays sum far below -88 the kernel stays
+    finite and equals the sequential recurrence."""
+    args = _wkv_inputs(1, 200, 2, 64, 64, torch.float32, cuda, True,
+                       log_w=log_w)
+    got = wkv_kernel.rwkv6_wkv(*args)
+    _assert_wkv_close(got, ref.rwkv6_wkv_scan(*args), torch.float32)
+
+
+def test_rwkv6_wkv_unit_decay_and_zero_keys(cuda):
+    """With k = 0 the state only decays and the output is its readout;
+    with w = 1 as well the state passes through exactly."""
+    r, k, v, w, u, st = _wkv_inputs(1, 90, 2, 16, 16, torch.float32, cuda,
+                                    True)
+    k = torch.zeros_like(k)
+    _, fs = wkv_kernel.rwkv6_wkv(r, k, v, torch.ones_like(w), u, st)
+    assert torch.equal(fs, st)
+    y, fs = wkv_kernel.rwkv6_wkv(r, k, v, w, u, st)
+    _assert_wkv_close((y, fs), ref.rwkv6_wkv_scan(r, k, v, w, u, st),
+                      torch.float32)
+
+
+def test_rwkv6_wkv_rejects_bad_operands(cuda):
+    r, k, v, w, u, st = _wkv_inputs(1, 20, 2, 16, 16, torch.bfloat16, cuda,
+                                    True)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_kernel.rwkv6_wkv(r.cpu(), k, v, w, u, st)
+    with pytest.raises(ValueError, match="float32"):
+        wkv_kernel.rwkv6_wkv(r, k, v, w.to(torch.bfloat16), u, st)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wkv_kernel.rwkv6_wkv(r, k.float(), v, w, u, st)
+    with pytest.raises(ValueError, match="float32"):
+        wkv_kernel.rwkv6_wkv(r, k, v, w, u, st.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_kernel.rwkv6_wkv(r.transpose(1, 2), k, v, w, u, st)
+    with pytest.raises(ValueError, match="shape"):
+        wkv_kernel.rwkv6_wkv(r, k, v, w, u[:1].contiguous(), st)
+    with pytest.raises(ValueError, match="key width"):
+        wide = _wkv_inputs(1, 4, 1, 136, 8, torch.float32, cuda, False)
+        wkv_kernel.rwkv6_wkv(*wide)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv_kernel.rwkv6_wkv(r, k, v, w, u, st, chunk=0)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "starcoder2-3b",
+                                  "rwkv6-3b"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     """The same weights forward on the card (through the kernels) and on
     the CPU (plain versions), f32: logits at 1e-3 relative to max(|x|,1)."""
@@ -248,9 +349,13 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
                          generator=torch.Generator().manual_seed(0))
     fa_kernel.reset_launches()
     ssd_kernel.reset_launches()
+    wkv_kernel.reset_launches()
     got, _, _ = model.forward(card, {"tokens": toks.to(cuda)}, cfg)
     torch.cuda.synchronize()
-    assert fa_kernel.launches["flash_attention"] >= 1
+    if arch == "rwkv6-3b":
+        assert wkv_kernel.launches["rwkv6_wkv"] == cfg.n_layers
+    else:
+        assert fa_kernel.launches["flash_attention"] >= 1
     if arch == "zamba2-2.7b":
         assert ssd_kernel.launches["mamba2_ssd"] == cfg.n_layers
     want, _, _ = model.forward(cpu, {"tokens": toks}, cfg)

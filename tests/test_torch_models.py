@@ -1,13 +1,14 @@
 """The port's LM substrate against `repro.models`, on the CPU.
 
-Reduced zamba2-2.7b and starcoder2-3b (the archs the port's registry
-holds) with the reference's weights carried across by
+Reduced zamba2-2.7b, starcoder2-3b and rwkv6-3b (the archs the port's
+registry holds) with the reference's weights carried across by
 `weights.params_from_numpy`: forward logits, prefill caches and four
 decode steps against the reference on the same tokens.  Both run in f32;
 the tolerance, 1e-4 relative to max(|x|, 1), covers summation order in a
 few layers of f32 matmuls (XLA's and PyTorch's CPU kernels sum in other
-orders) and the chunked SSD at the reduced chunk (32) against the port's
-masked form.
+orders), the chunked SSD at the reduced chunk (32) against the port's
+masked form, and the chunked WKV (chunk 64) with its decays factored
+(the reference) or relative (the port).
 """
 import dataclasses
 
@@ -28,7 +29,7 @@ from torch_port_util import np32, on_cpu  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
-ARCHS = ["zamba2-2.7b", "starcoder2-3b"]
+ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b"]
 TOL = 1e-4
 
 
@@ -64,8 +65,8 @@ def test_configs_match_reference():
     assert tconfigs.get("zamba2-2.7b").activation_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "deepseek-v3-671b",
-                                  "qwen3-14b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen3-14b",
+                                  "musicgen-large"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item"):
         tconfigs.get(arch)
@@ -73,8 +74,7 @@ def test_unported_archs_name_their_roadmap_item(arch):
         tconfigs.get_reduced(arch)
 
 
-@pytest.mark.parametrize("kw", [dict(block_kind="rwkv6"),
-                                dict(n_experts=4, moe_top_k=2),
+@pytest.mark.parametrize("kw", [dict(n_experts=4, moe_top_k=2),
                                 dict(attn_kind="mla"), dict(mtp_depth=1)])
 def test_unported_blocks_raise(kw):
     cfg = ModelConfig("x", "dense", 2, 16, 32, 64, n_heads=2, n_kv_heads=2,

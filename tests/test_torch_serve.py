@@ -4,7 +4,7 @@ The port's `LMServer` with the reference's weights emits the same greedy
 tokens as the reference's `LMServer` (an exact match: argmax over f32
 logits that agree to ~1e-5, test_torch_models.py); its cached generation
 equals repeated full forwards; `serve_benchmark` runs end to end through
-the Executor for both archs; a fresh interpreter serving through the port
+the Executor for every arch; a fresh interpreter serving through the port
 loads neither `jax` nor `repro`; and without a card the default device
 raises.
 """
@@ -29,14 +29,14 @@ from torch_port_util import on_cpu  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
-ARCHS = ["zamba2-2.7b", "starcoder2-3b"]
+ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b"]
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_matches_reference_server(arch):
     """Same weights, same prompt: the same tokens.  The prompt length (11)
-    is bucketed to 16 for starcoder2 and exact for zamba2."""
+    is bucketed to 16 for starcoder2 and exact for the recurrent archs."""
     jsrv = jserve.LMServer(jconfigs.get_reduced(arch), max_len=48, seed=2)
     tsrv = tserve.LMServer(tconfigs.get_reduced(arch), max_len=48, seed=2)
     tsrv.params = params_from_numpy(tsrv.cfg,
@@ -71,8 +71,9 @@ def test_bucket_sizes_are_powers_of_two():
     srv.cfg = tconfigs.get_reduced("starcoder2-3b")
     srv.min_bucket, srv.max_len = 16, 256
     assert [srv._bucket(s) for s in (5, 16, 17, 300)] == [16, 16, 32, 256]
-    srv.cfg = tconfigs.get_reduced("zamba2-2.7b")     # recurrent: exact
-    assert srv._bucket(5) == 5
+    for arch in ("zamba2-2.7b", "rwkv6-3b"):          # recurrent: exact
+        srv.cfg = tconfigs.get_reduced(arch)
+        assert [srv._bucket(s) for s in (5, 16, 17, 255)] == [5, 16, 17, 255]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -87,19 +88,20 @@ def test_serve_benchmark_end_to_end(arch):
 
 
 def test_serving_loads_neither_jax_nor_repro(tmp_path):
-    """A reduced zamba2 serve_benchmark through the port, in a fresh
-    interpreter: no `jax` or `repro` module is loaded."""
+    """Reduced zamba2 and rwkv6 serve_benchmarks through the port, in a
+    fresh interpreter: no `jax` or `repro` module is loaded."""
     script = textwrap.dedent("""
         import sys
         from repro_torch import device
         device.set_device("cpu")
         from repro_torch.launch import serve
-        out = serve.serve_benchmark("zamba2-2.7b", n_requests=2, max_new=2,
-                                    n_workers=1, max_len=32)
+        for arch in ("zamba2-2.7b", "rwkv6-3b"):
+            out = serve.serve_benchmark(arch, n_requests=2, max_new=2,
+                                        n_workers=1, max_len=32)
+            assert out["tokens"] == 4, arch
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "repro") or m.startswith("jax.")
                         or m.startswith("repro."))
-        assert out["tokens"] == 4
         print("LOADED", loaded)
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
