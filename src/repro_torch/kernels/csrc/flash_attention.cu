@@ -3,8 +3,8 @@
 // Replaces the Pallas kernel repro/kernels/flash_attention.py
 // (_attn_kernel / flash_attention): online-softmax attention, K and V read
 // through the kv-head index h / (H / Hkv) and never repeated, causal mask
-// with diagonal offset skv - sq, Dv != Dh allowed, f32 softmax statistics
-// and accumulator, output in the inputs' type (f32 or bf16).
+// with diagonal offset skv - sq, Dv != Dh allowed (each 1..256), f32
+// softmax statistics and accumulator, output in the inputs' type.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (repro_torch/kernels/flash_attention.py).  The entry launches on
@@ -12,52 +12,92 @@
 //
 // Layout: q [B, Sq, H, Dh], k [B, Skv, Hkv, Dh], v [B, Skv, Hkv, Dv],
 // o [B, Sq, H, Dv], all contiguous: the kernel indexes the heads in place,
-// so the wrapper transposes nothing.
+// so the wrapper transposes nothing.  Two routes, picked by the type.
+//
+// bf16 route: the products on the tensor cores.
 //
 // What bounds it on the H100.  At zamba2's prefill (S = 1024, H = 32,
-// Dh = 80, bf16) the function moves ~21 MB and does ~5.4 GFLOP of
-// products: at the bf16 tensor-core rate both take a few microseconds, so
-// the bound is the tensor cores and HBM together.  This first version does
-// the products on the CUDA cores in f32 (an FMA per multiply-add, operands
-// from shared memory), so it is bound by shared-memory loads and FMA
-// issue, tens of times above the bound; wgmma tiles fed by TMA are the
-// next step (see PERF.md).
+// Dh = Dv = 80, causal) the function reads q, k, v and writes o once:
+// 21 MB, 6.3 us at 3.35 TB/s; its products are 2 (Dh + Dv) flops per
+// visible (query, key) pair, 5.4 GFLOP, 5.4 us at the 989 TFLOP/s of the
+// bf16 tensor cores.  So bytes and tensor-core operations bound it about
+// equally, and only the tensor cores get near either: on the CUDA cores
+// in f32 the products alone take 80 us.
 //
-// Design.  One block of 256 threads owns a tile of 64 query rows of one
-// (batch, head).  It stages the Q tile once (scaled by 1/sqrt(Dh), in f32)
-// and walks the KV dimension in tiles of 64 rows, so shared memory stays
-// O(tile) at any sequence length (the Pallas spec stages all of K and V per
-// head, which does not fit in 227 KB once S reaches a few thousand).  KV
-// tiles wholly above the causal diagonal are never read.  Each thread holds
-// a 4 x 4 patch of the score tile and a 4 x (16 NJ) patch of the output
-// accumulator, with rows ty + 16 i and columns tx + 16 j, so that the 16
-// threads that share a row sit in one half-warp and the row max and row
-// sum are shuffles.  Q and K rows are padded to Dh + 1 floats so that the
-// 16 threads reading 16 K rows hit 16 banks.  Masked scores are -1e30 and
-// their probabilities exactly 0, as in the reference.
+// Design (FlashAttention-2's).  A block of 4 warps owns 64 query rows of
+// one (batch, head), each warp 16 of them.  Q's tile is copied to shared
+// memory once and read into registers as mma A-fragments (ldmatrix); for
+// padded widths above 128 the fragments are read again from shared memory
+// at each k-step, so that registers hold only the output.  K and V are
+// walked in tiles of 64 rows (32 where a padded width exceeds 128) through
+// a two-stage ring: the next tile's 16-byte cp.async.cg copies are issued
+// right after the one barrier per tile and fly while the current tile is
+// multiplied.  S = Q K^T runs through mma.sync m16n8k16 bf16 with f32
+// sums, K's B-fragments read by ldmatrix; each thread keeps its part of
+// the 16 x BKV score tile in registers.  The row max is taken on the
+// unscaled f32 scores, and the scale log2(e) / sqrt(Dh) joins the
+// exponent as one FFMA before exp2f; the row max and row sum live in the
+// quad of lanes that share an mma row (the sum is reduced across the quad
+// once, at the end).  P is rounded to bf16 in registers and becomes the
+// A-fragment of O += P V, with V's B-fragments read by ldmatrix.trans from
+// the row-major [key, Dv] tile; O stays in f32 registers and is rounded
+// once.  Rounding P is the one rounding the
+// reference does not do: at most 2^-9 relative per probability.
+//
+// KV tiles wholly above the causal diagonal of the block are never
+// loaded, and a warp skips those wholly above its own 16 rows; only tiles
+// that cross the diagonal or the ragged end are masked (score -1e30 and
+// probability exactly 0, as in the reference), the rest take an unmasked
+// path.  In shared memory Dh and Dv are both zero-padded to the larger of
+// the two rounded up to a multiple of 16, with one template instance per
+// padded width (zamba2's 80 runs 5 k-steps exactly); rows are padded by
+// 16 more bytes, so a row's pitch is an odd multiple of 16 bytes modulo
+// 128 and the 8 rows an ldmatrix reads hit 8 distinct 16-byte bank
+// groups.  Where a row is not 16-byte aligned in device memory (Dh or
+// Dv not a multiple of 8, or an operand offset from its allocation) the
+// same kernel loads element by element instead of by cp.async.  Q tiles
+// with the most KV tiles are launched first (blockIdx.x reversed), so that
+// the short causal blocks fill in behind the long ones.
+//
+// f32 route: the products on the CUDA cores.
+//
+// The reference computes f32 attention with f32 products and the port
+// allows no TF32 (repro_torch.device.strict_numerics), so f32 has no
+// tensor-core route: at zamba2's shape its 5.4 GFLOP of f32 products need
+// 80 us at the card's 67 TFLOP/s.  One block of 256 threads owns a tile of 64
+// query rows of one (batch, head).  It stages the Q tile once (scaled by
+// 1/sqrt(Dh), in f32) and walks the KV dimension in tiles of 64 rows, so
+// shared memory stays O(tile) at any sequence length (the Pallas spec
+// stages all of K and V per head, which does not fit in 227 KB once S
+// reaches a few thousand).  KV tiles wholly above the causal diagonal are
+// never read.  Each thread holds a 4 x 4 patch of the score tile and a
+// 4 x (16 NJ) patch of the output accumulator, with rows ty + 16 i and
+// columns tx + 16 j, so that the 16 threads that share a row sit in one
+// half-warp and the row max and row sum are shuffles.  Q and K rows are
+// padded to Dh + 1 floats so that the 16 threads reading 16 K rows hit 16
+// banks.  Masked scores are -1e30 and their probabilities exactly 0, as
+// in the reference.  It is bound by shared-memory loads and FMA issue.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBKV = 64;         // key rows per tile
-constexpr int kThreads = 256;    // 16 x 16
+constexpr int kBQ = 64;          // query rows per block (both routes)
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
 
+// ---------------------------------------------------------------------------
+// f32 route
+// ---------------------------------------------------------------------------
+constexpr int kBKV = 64;         // key rows per tile
+constexpr int kThreads = 256;    // 16 x 16
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 // reduce over the 16 lanes of a half-warp
@@ -78,7 +118,6 @@ size_t smem_bytes(int dh, int dv) {
                           (size_t)kBKV * dv + (size_t)kBQ * (kBKV + 1));
 }
 
-// NJ: output columns per thread / 16, so 16 NJ >= Dv
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -235,18 +274,359 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int b, int sq, int skv, int h, int hkv, int dh, int dv,
-                     int causal, cudaStream_t stream) {
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
+                         void* o, int b, int sq, int skv, int h, int hkv,
+                         int dh, int dv, int causal, cudaStream_t stream) {
   if (dv <= 64)
-    return launch<T, 4>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
-                        stream);
+    return launch<float, 4>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
+                            stream);
   if (dv <= 128)
-    return launch<T, 8>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
-                        stream);
-  return launch<T, 16>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
-                       stream);
+    return launch<float, 8>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
+                            stream);
+  return launch<float, 16>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
+                           stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 route
+// ---------------------------------------------------------------------------
+constexpr int kWarps = 4;                 // 16 query rows each
+constexpr int kTcThreads = 32 * kWarps;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, of which the first `src_bytes`
+// (16 or 0) are read and the rest filled with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
+// matrix i, and register i receives its fragment
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as one register of two bf16, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Copy rows r0 .. r0 + ROWS - 1 (columns 0 .. DP - 1) of a [n_rows, d]
+// operand with row stride `stride` into a shared tile of pitch LD; rows at
+// or past n_rows and columns at or past d become zeros.  `vec`: rows are
+// 16-byte aligned and d is a multiple of 8, so 16-byte cp.async copies
+// (zero-filled where out of range); otherwise element by element.
+template <int ROWS, int DP, int LD>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          size_t stride, int r0, int n_rows,
+                                          int d, bool vec) {
+  if (vec) {
+    constexpr int kChunks = DP / 8;
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, c = (i - r * kChunks) * 8;
+      const int gr = r0 + r;
+      const bool in = gr < n_rows && c < d;
+      cp_async16(smem_addr(s + r * LD + c), in ? g + gr * stride + c : g,
+                 in ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.0f);
+    for (int i = threadIdx.x; i < ROWS * DP; i += kTcThreads) {
+      const int r = i / DP, c = i - r * DP;
+      const int gr = r0 + r;
+      s[r * LD + c] = gr < n_rows && c < d ? g[gr * stride + c] : zero;
+    }
+  }
+}
+
+template <int D>
+struct TcShape {
+  static constexpr int kBKV = D > 128 ? 32 : 64;
+  static constexpr int kL = D + 8;      // shared pitch of Q, K and V rows
+  static constexpr size_t kSmem =
+      sizeof(bf16) * ((size_t)kBQ * kL + 4 * (size_t)kBKV * kL);
+};
+
+// D: the larger of Dh and Dv padded to a multiple of 16
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int skv,
+    int h, int hkv, int dh, int dv, int causal, int vec, float scale_log2) {
+  constexpr int BKV = TcShape<D>::kBKV, L = TcShape<D>::kL;
+  constexpr int KQ = D / 16;       // k-steps of Q K^T
+  constexpr int NS = BKV / 8;      // n-tiles of a warp's score tile
+  constexpr int NO = D / 8;        // n-tiles of a warp's output
+  constexpr bool kQInRegs = D <= 128;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][L]
+  bf16* s_k = s_q + kBQ * L;                       // [2][BKV][L]
+  bf16* s_v = s_k + 2 * BKV * L;                   // [2][BKV][L]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int quad_row = lane >> 2, quad_col = 2 * (lane & 3);
+  const int bh = blockIdx.y, b = bh / h, head = bh - b * h;
+  const int kvh = head / (h / hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest first
+  const int off = skv - sq;            // causal diagonal offset
+
+  const size_t q_row = (size_t)h * dh, k_row = (size_t)hkv * dh;
+  const size_t v_row = (size_t)hkv * dv, o_row = (size_t)h * dv;
+  const bf16* qb = q + (size_t)b * sq * q_row + (size_t)head * dh;
+  const bf16* kb = k + (size_t)b * skv * k_row + (size_t)kvh * dh;
+  const bf16* vb = v + (size_t)b * skv * v_row + (size_t)kvh * dv;
+  bf16* ob = o + (size_t)b * sq * o_row + (size_t)head * dv;
+
+  int n_tiles = (skv + BKV - 1) / BKV;
+  if (causal) {   // the highest key any row of this tile can see
+    const int last_key = min(q0 + kBQ, sq) - 1 + off;
+    n_tiles = min(n_tiles, last_key / BKV + 1);
+  }
+
+  load_tile<kBQ, D, L>(s_q, qb, q_row, q0, sq, dh, vec);
+  load_tile<BKV, D, L>(s_k, kb, k_row, 0, skv, dh, vec);
+  load_tile<BKV, D, L>(s_v, vb, v_row, 0, skv, dv, vec);
+  cp_async_commit();
+
+  // this lane's rows of the warp's 16: w_row0 + quad_row and + 8
+  const int w_row0 = q0 + 16 * warp;
+  const int row_a = w_row0 + quad_row, row_b = row_a + 8;
+  // ldmatrix row addresses: A (Q) rows lane & 15, column half lane >> 4;
+  // B of Q K^T (K rows) key lane & 7 + 8 (lane >> 4), column half
+  // (lane >> 3) & 1; B of P V (V rows, transposed) key lane & 7 +
+  // 8 ((lane >> 3) & 1), column half lane >> 4
+  const uint32_t q_addr = smem_addr(
+      s_q + (16 * warp + (lane & 15)) * L + 8 * (lane >> 4));
+  const int k_off = ((lane & 7) + 8 * (lane >> 4)) * L + 8 * ((lane >> 3) & 1);
+  const int v_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * L + 8 * (lane >> 4);
+
+  uint32_t qf[kQInRegs ? KQ : 1][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    cp_async_wait_all();
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next copies overwrite
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      const int k1 = (t + 1) * BKV, nxt = stage ^ 1;
+      load_tile<BKV, D, L>(s_k + nxt * BKV * L, kb, k_row, k1, skv, dh, vec);
+      load_tile<BKV, D, L>(s_v + nxt * BKV * L, vb, v_row, k1, skv, dv, vec);
+      cp_async_commit();
+    }
+    if constexpr (kQInRegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KQ; ++ks) ldmatrix_x4(qf[ks], q_addr + ks * 32);
+      }
+    }
+    const int k0 = t * BKV;
+    if (causal && k0 > w_row0 + 15 + off) continue;   // above this warp
+
+    const bf16* sk = s_k + stage * BKV * L;
+    const bf16* sv = s_v + stage * BKV * L;
+    const uint32_t k_base = smem_addr(sk + k_off);
+    const uint32_t v_base = smem_addr(sv + v_off);
+
+    // S = Q K^T for the warp's 16 rows and the tile's BKV keys
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KQ; ++ks) {
+      uint32_t a[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      } else {
+        ldmatrix_x4(a, q_addr + ks * 32);
+      }
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, k_base + (jp * 16 * L + ks * 16) * 2);
+        mma_bf16(s[2 * jp], a, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // mask only a tile that crosses the diagonal or the ragged end
+    if (k0 + BKV > skv || (causal && k0 + BKV - 1 > w_row0 + off)) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + quad_col + (e & 1);
+          const int qpos = e < 2 ? row_a : row_b;
+          if (!(kpos < skv && (!causal || kpos <= qpos + off)))
+            s[j][e] = kNegInf;
+        }
+    }
+    // online softmax on the unscaled scores; the scale log2(e) / sqrt(Dh)
+    // joins the exponent as one FFMA
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float corr[2], m_scaled[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f((m[i] - mx[i]) * scale_log2);
+      m[i] = mx[i];
+      m_scaled[i] = mx[i] * scale_log2;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked: exp2 of about -1e29, exactly 0
+        const float p = exp2f(fmaf(s[j][e], scale_log2, -m_scaled[e >> 1]));
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    // O += P V, P rounded to bf16 as the A-fragment
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int jp = 0; jp < NO / 2; ++jp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, v_base + (kk * 16 * L + jp * 16) * 2);
+        mma_bf16(acc[2 * jp], a, bv[0], bv[1]);
+        mma_bf16(acc[2 * jp + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // the quad's partial row sums, then O / l rounded once
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.0f / fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_a : row_b;
+    if (row >= sq) continue;
+    bf16* orow = ob + row * o_row;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int col = 8 * j + quad_col;
+      const float x0 = acc[j][2 * i] * inv[i], x1 = acc[j][2 * i + 1] * inv[i];
+      if (vec && col + 1 < dv) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < dv) orow[col] = __float2bfloat16(x0);
+        if (col + 1 < dv) orow[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* o, int b, int sq, int skv, int h, int hkv,
+                        int dh, int dv, int causal, cudaStream_t stream) {
+  const size_t bytes = TcShape<D>::kSmem;
+  auto kernel = flash_attention_bf16_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  // 16-byte rows in device memory for cp.async: Dh, Dv multiples of 8
+  // and every operand 16-byte aligned
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) |
+                        reinterpret_cast<uintptr_t>(o);
+  const int vec = dh % 8 == 0 && dv % 8 == 0 && any % 16 == 0;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)dh);
+  const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
+  kernel<<<grid, kTcThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, skv, h, hkv,
+      dh, dv, causal, vec, scale_log2);
+  return cudaGetLastError();
+}
+
+// One instance per padded width; where Dh and Dv differ, both are padded
+// to the larger.
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
+                          void* o, int b, int sq, int skv, int h, int hkv,
+                          int dh, int dv, int causal, cudaStream_t stream) {
+#define FA_ARGS q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal, stream
+  switch ((max(dh, dv) + 15) / 16 * 16) {
+#define FA_WIDTH(d) \
+  case d:           \
+    return launch_bf16<d>(FA_ARGS);
+    FA_WIDTH(16) FA_WIDTH(32) FA_WIDTH(48) FA_WIDTH(64)
+    FA_WIDTH(80) FA_WIDTH(96) FA_WIDTH(112) FA_WIDTH(128)
+    FA_WIDTH(144) FA_WIDTH(160) FA_WIDTH(176) FA_WIDTH(192)
+    FA_WIDTH(208) FA_WIDTH(224) FA_WIDTH(240) FA_WIDTH(256)
+#undef FA_WIDTH
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FA_ARGS
 }
 
 }  // namespace
@@ -265,10 +645,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (sq == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0
-          ? dispatch<float>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal, s)
-          : dispatch<__nv_bfloat16>(q, k, v, o, b, sq, skv, h, hkv, dh, dv,
-                                    causal, s);
+      dtype == 0 ? dispatch_f32(q, k, v, o, b, sq, skv, h, hkv, dh, dv,
+                                causal, s)
+                 : dispatch_bf16(q, k, v, o, b, sq, skv, h, hkv, dh, dv,
+                                 causal, s);
   return (int)err;
 }
 

@@ -8,8 +8,16 @@ Replaces the Pallas kernel `repro/kernels/flash_attention.py`
 type, float32 or bfloat16, and raises on anything else; it launches on
 `torch.cuda.current_stream()`, allocates its output with `torch.empty`
 and raises when the launch reports an error.  `launches` counts its
-launches.  What bounds the kernel on the H100, and what its design does
-about it, is written beside the kernel in the CUDA source.
+launches.
+
+The source has two routes, picked by the type.  bfloat16 runs both
+products on the tensor cores (`mma.sync` bf16 tiles with f32 sums, K and
+V tiles copied by `cp.async` one tile ahead); it rounds each probability
+to bf16 before the P V product, which the reference does not, at most
+2^-9 relative.  float32 runs its products in f32 on the CUDA cores, as
+the reference does (no TF32).  What bounds each route on the H100, and
+what its design does about it, is written beside the kernel in the CUDA
+source.
 """
 from __future__ import annotations
 
@@ -47,8 +55,10 @@ build_info = _LIB.info
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv]
-    in q's dtype.  Query head h reads kv head h // (H / Hkv); with
-    `causal` the mask's diagonal is offset by Skv - Sq (so Sq <= Skv)."""
+    in q's dtype, with Dh and Dv each in 1..256.  Query head h reads kv
+    head h // (H / Hkv); with `causal` the mask's diagonal is offset by
+    Skv - Sq (so Sq <= Skv).  Softmax statistics and the accumulator are
+    f32 on both routes; the output is rounded once."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_cuda(name, t, 4, tuple(DTYPES))
     _build.same_device(q, k, v)

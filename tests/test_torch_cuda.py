@@ -10,8 +10,12 @@ Tolerances: 2e-5 for the covariance matrix (same f32 formula, summation
 order of a D-term dot product), 1e-4 for the predict's mean and quadratic
 form (sums over the n training rows, accumulated in another order than
 the plain version's BLAS).  Attention: 2e-5 in f32 (a Dh-term dot
-product and a softmax summed in another order), 2e-2 in bf16 (both round
-an f32 result to bf16, a step of at most 2^-6 below 4).  SSD: 2e-3
+product and a softmax summed in another order), 2e-2 in bf16: both round
+an f32 result to bf16 (a step of at most 2^-6 below 4), and the kernel
+also rounds each probability to bf16 before the P V product on the
+tensor cores (at most 2^-9 relative each; tests/test_torch_lm_kernels.py
+holds a plain emulation of that arithmetic to the reference on the CPU).
+SSD: 2e-3
 absolute and relative in f32 (the reference's own tolerance: chunked sums
 in another order), 2e-2 in bf16 (both round an f32 y to bf16 once).
 WKV: 2e-4 in f32 (the reference's own tolerance, tests/test_kernels.py:
@@ -160,6 +164,9 @@ def _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, dev, seed=0):
     (1, 777, 777, 32, 32, 80, 80),     # zamba2's heads, ragged S
     (1, 300, 300, 24, 2, 128, 128),    # starcoder2's GQA group of 12
     (1, 65, 65, 2, 1, 256, 256),       # widest head taken
+    (1, 50, 50, 4, 2, 20, 12),         # rows not 16-byte aligned
+    (1, 130, 130, 4, 4, 192, 128),     # MLA's Dh 192, Dv 128
+    (1, 2048, 2048, 8, 8, 80, 80),     # serve max_len: many KV stages
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -174,6 +181,33 @@ def test_flash_attention_matches_plain(cuda, shape, causal, dtype):
     torch.testing.assert_close(got.float(),
                                ref.attention(q, k, v, causal=causal).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 300, 300, 8, 8, 80, 80),       # zamba2's heads
+    (1, 300, 300, 24, 2, 128, 128),    # starcoder2's GQA group of 12
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_peaked_softmax(cuda, shape, causal):
+    """q scaled by 8: scores of spread ~8, a softmax close to one-hot,
+    where the bf16 rounding of P before P V weighs most."""
+    q, k, v = _attn_inputs(*shape, torch.bfloat16, cuda, seed=2)
+    q = q * 8
+    got = fa_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               ref.attention(q, k, v, causal=causal).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_bf16_is_deterministic(cuda):
+    """No atomics and no order that varies: two calls give the same bits."""
+    q, k, v = _attn_inputs(1, 777, 777, 32, 32, 80, 80, torch.bfloat16,
+                           cuda, seed=3)
+    first = fa_kernel.flash_attention(q, k, v)
+    second = fa_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_attention_rejects_bad_operands(cuda):

@@ -15,7 +15,15 @@ Dh-term dot product and a softmax over at most 257 keys); attention bf16
 2e-2 (both round an f32 result to bf16, whose step at |x| < 4 is at most
 2^-6); SSD 2e-3 (the reference's own, tests/test_kernels.py: chunked and
 sequential sums differ in order over up to 100 steps).
+
+The CUDA kernel's bf16 route rounds one value more than the reference:
+each probability, to bf16, before the P V product on the tensor cores.  A
+plain emulation of its arithmetic is held to the reference here at the
+same 2e-2, so that the tolerance budget is known to cover that rounding
+before a card sees it.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,6 +87,55 @@ def test_attention_value_width_differs_from_key_width():
     assert got.shape == (1, 37, 4, 40)
     np.testing.assert_allclose(np32(got), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
+
+
+def _tensor_core_attention(q, k, v, causal=True):
+    """The arithmetic of the CUDA kernel's bf16 route, in plain PyTorch:
+    products of bf16 values summed in f32 (exact products, so only the
+    order of summation differs from the reference), the scale applied to
+    the f32 scores, probabilities summed in f32 for the row sum but
+    rounded to bf16 for P V (f32 sums), the output rounded once."""
+    h, hkv = q.shape[2], k.shape[2]
+    k = k.repeat_interleave(h // hkv, dim=2)
+    v = v.repeat_interleave(h // hkv, dim=2)
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(q.shape[-1])
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool).tril(diagonal=sk - sq)
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), v.float())
+    return (o / p.sum(-1).transpose(1, 2)[..., None]).bfloat16()
+
+
+# (b, sq, skv, h, hkv, dh, dv): zamba2's heads of 80, starcoder2's GQA
+# group of 12 with heads of 128, MLA's Dh 192 / Dv 128
+@pytest.mark.parametrize("shape", [(1, 200, 200, 32, 32, 80, 80),
+                                   (1, 200, 200, 24, 2, 128, 128),
+                                   (1, 70, 130, 4, 4, 192, 128)])
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_probabilities_stay_within_tolerance(shape, q_scale, causal):
+    """bf16 inputs (q scaled by 8 for a peaked softmax): the emulation of
+    the kernel's arithmetic is within 2e-2 of the reference's attention
+    and of the port's plain version, which the card holds the kernel to."""
+    b, sq, skv, h, hkv, dh, dv = shape
+    rng = np.random.default_rng(7)
+    q = (q_scale * rng.standard_normal((b, sq, h, dh))).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, dv)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = _tensor_core_attention(tq, tk, tv, causal=causal)
+    want = jref.attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                          causal=causal)
+    np.testing.assert_allclose(np32(got.float()),
+                               np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(
+        np32(got.float()),
+        np32(tref.attention(tq, tk, tv, causal=causal).float()),
+        atol=2e-2, rtol=2e-2)
 
 
 def _ssd_inputs(b, s, h, p, n, seed=5, with_state=False):
