@@ -25,7 +25,10 @@ to the CPU:
                 same inputs as a yardstick (timed only; the port never
                 calls it).  The WKV also at a strong decay (log w = -1.5,
                 where the reference's chunked form overflows), held against
-                the sequential recurrence.
+                the sequential recurrence.  A WKV call is three kernels
+                (chunk states, the scan over chunks, the output): its row
+                sums their device time, gives each one's (`phase_ms`), and
+                states the kernels per call and the scratch bytes.
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -122,30 +125,51 @@ def call_ms(fn, iters: int, warmup: int = 3) -> float:
 EVENT_TIMED: list = []
 
 
-def device_ms(fn, iters: int, warmup: int = 3, label: str = "") -> float:
+def device_ms(fn, iters: int, warmup: int = 3, label: str = "",
+              by_kernel: dict | None = None, expect: int = 0) -> float:
     """Mean device time per call of `fn`: the summed time of every kernel
     it launched (torch.profiler), over `iters` calls.  Back-to-back event
     timing of a tens-of-microseconds kernel measures the wrapper's host
-    work instead, so this is the kernel's time.  The profiler now and then
-    returns a window with no device events at all; such a window is taken
-    again, and after three empty windows the calls are timed with CUDA
+    work instead, so this is the kernel's time.  Each window opens with a
+    warm-up step of one untimed call, so that the tracer is running before
+    the timed calls start (a window opened cold can miss its first
+    kernel).  The profiler now and then still returns a window with no
+    device events at all, or, where `expect` says each call launches that
+    many kernels, fewer kernel events than `expect * iters`; such a window
+    is taken again, and after three of them the calls are timed with CUDA
     events (`call_ms`, an upper bound on the device time) and the row is
-    named in EVENT_TIMED."""
+    named in EVENT_TIMED.  `by_kernel`, where given, receives each
+    kernel's name and its (device ms, launches) per call from the profiler
+    window; it stays empty when the calls were event-timed."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy = _device_busy_ms(prof)
-        if busy > 0.0:
+            prof.step()
+        events = _kernel_events(prof)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        seen = sum(e.count for e in events)
+        if busy > 0.0 and seen >= expect * iters:
+            if by_kernel is not None:
+                for e in events:
+                    by_kernel[e.key] = (e.self_device_time_total / 1e3
+                                        / iters, e.count / iters)
             return busy / iters
         log("timing", label=label, window=attempt,
-            note="the profiler recorded no device time")
+            note=("the profiler recorded no device time" if busy == 0.0
+                  else f"the profiler saw {seen} of the "
+                       f"{expect * iters} kernel launches"))
     ms = call_ms(fn, iters, warmup=0)
     EVENT_TIMED.append(dict(label=label, ms=ms))
     log("timing", label=label, timer="cuda events", ms=ms)
@@ -355,6 +379,37 @@ def _ssd_bound(x, b_in, state):
     return bound_ms(n_bytes, 5 * bb * s * h * p * n)
 
 
+# the three kernels of one rwkv6_wkv call, in launch order (their names as
+# the profiler shows them contain these)
+WKV_PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
+
+
+def _wkv_phases(by_kernel: dict):
+    """From one profiler window of WKV calls: each of the three kernels'
+    device ms per call, and the kernels launched per call.  Each name of
+    WKV_PHASES must match exactly one kernel, launched once per call.
+    (None, None) where the window was event-timed (no kernel seen)."""
+    if not by_kernel:
+        return None, None
+    phase_ms, per_call = {}, 0.0
+    for p in WKV_PHASES:
+        hits = [key for key in by_kernel if p in key]
+        if len(hits) != 1 or by_kernel[hits[0]][1] != 1.0:
+            raise AssertionError(f"{p}: expected one kernel launched once "
+                                 f"per call, profiler saw {hits} "
+                                 f"{[by_kernel[h] for h in hits]}")
+        phase_ms[p], count = by_kernel[hits[0]]
+        per_call += count
+    return phase_ms, per_call
+
+
+def _wkv_scratch_bytes(r, v, chunk: int) -> int:
+    """The f32 scratch a call allocates: each chunk's [K, V] state and
+    its [K] total decay, [B, H, NC, K, V + 1], NC = ceil(S / chunk)."""
+    b, s, h, kd = r.shape
+    return 4 * b * h * -(-s // chunk) * kd * (v.shape[3] + 1)
+
+
 def _rwkv_bound(r, v, state):
     """Bytes: r, k, v, u in their type and w in f32 read once, the state
     read once when given, out written once in r's type and the final
@@ -497,14 +552,23 @@ def phase_lm_kernels():
                                  f"finite {finite}")
         run = (lambda: wkv.rwkv6_wkv(*args))
         b, by = _rwkv_bound(r, v, st)
+        kernels = {}
+        ms = device_ms(run, iters, label=f"rwkv6_wkv {label}",
+                       by_kernel=kernels, expect=len(WKV_PHASES))
+        phase_ms, per_call = _wkv_phases(kernels)
         rows.append(dict(
             name=f"rwkv6_wkv[{label}]", source=wkv.SOURCE, tol=tol,
             shape=f"r{tuple(r.shape)} v{tuple(v.shape)}", max_abs_err=err,
-            ms=device_ms(run, iters, label=f"rwkv6_wkv {label}"),
-            call_ms=call_ms(run, iters),
+            ms=ms, call_ms=call_ms(run, iters),
             plain_ms=device_ms(lambda: ref.rwkv6_wkv(*args), 2, warmup=1,
                                label=f"plain rwkv6_wkv {label}"),
-            bound_ms=b, bound_by=by, library_ms=None))
+            bound_ms=b, bound_by=by, library_ms=None,
+            kernel_launches_per_call=per_call, phase_ms=phase_ms,
+            scratch_bytes=_wkv_scratch_bytes(r, v, wkv.CHUNK),
+            note="ms sums the device time of the call's three kernels "
+                 "(chunk states, state scan, output); the launches per "
+                 "call and phase_ms are counted in the profiler window, "
+                 "null where it was event-timed"))
     for r in rows:
         r["source"] = str(Path(r["source"]).relative_to(ROOT))
         log("kernel", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
@@ -981,7 +1045,9 @@ def main() -> int:
             replaces=replaces[base], launches=launches[base],
             max_abs_err=r["max_abs_err"], ms=r["ms"], call_ms=r["call_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **{k: r[k] for k in ("kernel_launches_per_call", "scratch_bytes",
+                                 "phase_ms", "note") if k in r}))
     script_s = time.perf_counter() - t_script
     log("total", seconds=f"{script_s:.1f}")
     record = dict(device=name, nvidia_smi=smi, build_s=build_s,

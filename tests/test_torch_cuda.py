@@ -311,6 +311,11 @@ def _assert_wkv_close(got, want, dtype):
     (2, 100, 2, 32, 24),       # V not a multiple of 16
     (1, 70, 2, 128, 16),       # widest K
     (1, 777, 40, 64, 64),      # rwkv6-3b's widths, ragged S
+    (2, 333, 5, 64, 64),       # B = 2, ragged S: every phase's (chunk,
+                               # batch * head) indexing crossed
+    (2, 150, 3, 20, 100),      # K not a multiple of 8; two V slices
+    (1, 130, 2, 64, 128),      # vectorised loads over two V slices
+    (2, 65, 2, 7, 10),         # padded K, V not a multiple of 4
 ])
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -331,6 +336,27 @@ def test_rwkv6_wkv_strong_decay_matches_sequential(cuda, log_w):
                        log_w=log_w)
     got = wkv_kernel.rwkv6_wkv(*args)
     _assert_wkv_close(got, ref.rwkv6_wkv_scan(*args), torch.float32)
+
+
+@pytest.mark.parametrize("s1", [1, 100, 777])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_wkv_split_prefill_equals_one(cuda, s1, dtype):
+    """wkv(S1 + S2) against wkv(S2, state = wkv(S1)): serving feeds the
+    cached state back this way.  S1 is not a multiple of the chunk, so
+    the two runs cut the sequence at different steps."""
+    r, k, v, w, u, st = _wkv_inputs(1, s1 + 300, 40, 64, 64, dtype, cuda,
+                                    True, seed=11)
+    whole = wkv_kernel.rwkv6_wkv(r, k, v, w, u, st)
+    y1, st1 = wkv_kernel.rwkv6_wkv(r[:, :s1].contiguous(),
+                                   k[:, :s1].contiguous(),
+                                   v[:, :s1].contiguous(),
+                                   w[:, :s1].contiguous(), u, st)
+    y2, st2 = wkv_kernel.rwkv6_wkv(r[:, s1:].contiguous(),
+                                   k[:, s1:].contiguous(),
+                                   v[:, s1:].contiguous(),
+                                   w[:, s1:].contiguous(), u, st1)
+    torch.cuda.synchronize()
+    _assert_wkv_close((torch.cat([y1, y2], 1), st2), whole, dtype)
 
 
 def test_rwkv6_wkv_unit_decay_and_zero_keys(cuda):

@@ -6,8 +6,10 @@ on the card by tests/test_torch_cuda.py) and `rwkv6_wkv_scan` (the
 sequential oracle) against the reference's `rwkv6_wkv` (sequential) and
 `rwkv6_wkv_chunked`, on the same numpy inputs; one port `rwkv6_apply`
 layer against the reference's, prefill and decode, with the same weights;
-and the overflow of the reference's chunked form under strong decay, which
-the port does not share.
+the overflow of the reference's chunked form under strong decay, which
+the port does not share; and a plain emulation of the CUDA kernel's own
+arithmetic (64-step chunks, states handed from chunk to chunk,
+pivot-factored score tile) against the reference.
 
 Tolerances: 2e-4 absolute and relative for the WKV, the reference's own
 (tests/test_kernels.py: chunked and sequential sums differ in order over
@@ -156,6 +158,16 @@ def test_dispatcher_takes_plain_wkv_on_cpu():
         wkv_kernel.rwkv6_wkv(*targs)
 
 
+@pytest.mark.parametrize("s, nc", [(1, 1), (64, 1), (65, 2)])
+def test_wkv_scratch_holds_one_state_per_chunk(s, nc):
+    """The kernel's scratch: a [K, V] f32 state and a [K] f32 decay for
+    each 64-step chunk, ceil(S / 64) chunks, nothing filled."""
+    ds, clast = wkv_kernel.scratch(2, s, 3, 5, 7, "cpu")
+    assert ds.shape == (2, 3, nc, 5, 7) and clast.shape == (2, 3, nc, 5)
+    assert ds.dtype == clast.dtype == torch.float32
+    assert ds.is_contiguous() and clast.is_contiguous()
+
+
 # --------------------------------------------------------------------------
 # One layer, the reduced config, the reference's weights
 # --------------------------------------------------------------------------
@@ -226,3 +238,96 @@ def test_cache_shapes_match_reference():
         want = {k: d.shape for k, d in jrwkv.rwkv6_cache_defs(
             getattr(jconfigs, get)("rwkv6-3b"), 3).items()}
         assert trwkv.rwkv6_cache_shapes(cfg, 3) == want
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------
+def _kernel_emulation(r, k, v, w, u, state=None):
+    """What `csrc/rwkv6_wkv.cu` computes, step for step, in plain f32:
+    log2 running sums per 64-step chunk; phase 1 writes each chunk's
+    state increment dS and its total log2 decay; phase 2 scans the chunk
+    states S_c; phase 3 builds the [64, 64] score tile with exponentials
+    per (t, j, k) only inside the four 16-step diagonal sub-blocks (the
+    bonus on their diagonal) and pivot-factored products elsewhere, and
+    reads out (r_t 2^{c_{t-1}}) . S_c + A v.  Every exponent is <= 0."""
+    C, L = 64, 16
+    b, s, h, kd = r.shape
+    vd = v.shape[-1]
+    nc = -(-s // C)
+    pad = nc * C - s
+
+    def chunks(x, value=0.0):          # [B,S,H,E] -> [B,H,NC,C,E]
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad),
+                                    value=value)
+        return x.reshape(b, nc, C, h, x.shape[-1]).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc = chunks(r), chunks(k), chunks(v)
+    c = torch.cumsum(torch.log2(chunks(w, 1.0).clamp_min(1e-30)), dim=3)
+    clast = c[..., -1, :]                                    # [B,H,NC,K]
+    # phase 1: dS_c = sum_j (k_j 2^{c_last - c_j}) v_j^T
+    ds = torch.einsum("bhnjk,bhnjv->bhnkv",
+                      kc * torch.exp2(clast[..., None, :] - c), vc)
+    # phase 2: S_{c+1} = 2^{c_last} o S_c + dS_c
+    st = (torch.zeros(b, h, kd, vd) if state is None else state.float())
+    starts = []
+    for n in range(nc):
+        starts.append(st)
+        st = torch.exp2(clast[:, :, n])[..., None] * st + ds[:, :, n]
+    s_c = torch.stack(starts, 2)                             # [B,H,NC,K,V]
+    # phase 3: the row pivot of block I is step 16 I - 1 (c_{-1} = 0), the
+    # column pivot of block J its last step 16 J + 15
+    cprev = torch.nn.functional.pad(c[..., :-1, :], (0, 0, 1, 0))
+    blk = torch.arange(C) // L
+    c_row = cprev[..., blk * L, :]                           # c_{16 I - 1}
+    rt = rc * torch.exp2(cprev - c_row)
+    kt = kc * torch.exp2(c[..., blk * L + L - 1, :] - c)
+    a = torch.zeros(b, h, nc, C, C)
+    uf = u.float()[None, :, None, None, :]
+    for i in range(C // L):
+        ti = slice(i * L, (i + 1) * L)
+        for j in range(i):
+            tj = slice(j * L, (j + 1) * L)
+            d = torch.exp2(c[..., i * L - 1, :] - c[..., j * L + L - 1, :])
+            a[..., ti, tj] = torch.einsum("bhntk,bhnk,bhnjk->bhntj",
+                                          rt[..., ti, :], d, kt[..., tj, :])
+        low = torch.ones(L, L, dtype=torch.bool).tril(-1)[..., None]
+        expo = torch.where(low, cprev[..., ti, None, :] - c[..., None, ti, :],
+                           -torch.inf)
+        blk_a = torch.einsum("bhntk,bhnjk,bhntjk->bhntj", rc[..., ti, :],
+                             kc[..., ti, :], torch.exp2(expo))
+        bonus = (rc[..., ti, :] * uf * kc[..., ti, :]).sum(-1)
+        a[..., ti, ti] = blk_a + torch.diag_embed(bonus)
+    rhat = rt * torch.exp2(c_row)                            # r_t 2^{c_{t-1}}
+    out = (torch.einsum("bhntk,bhnkv->bhntv", rhat, s_c)
+           + torch.einsum("bhntj,bhnjv->bhntv", a, vc))
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, nc * C, h, vd)[:, :s]
+    return out.to(r.dtype), st
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES + [
+    (1, s, 2, 8, 8) for s in (1, 16, 17, 63, 64, 65, 200)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_kernel_emulation_matches_reference(shape, with_state):
+    """The kernel's arithmetic against the reference's sequential
+    recurrence, at 2e-4."""
+    targs, jargs = _both(_wkv_inputs(*shape, seed=4, with_state=with_state))
+    out, st = _kernel_emulation(*targs)
+    assert out.shape == targs[2].shape and st.dtype == torch.float32
+    want_out, want_st = jref.rwkv6_wkv(*jargs)
+    _close(out, want_out)
+    _close(st, want_st)
+
+
+@pytest.mark.parametrize("log_w", [-1.5, -3.0, -69.0])
+def test_kernel_emulation_is_finite_under_strong_decay(log_w):
+    """Every exponent the kernel takes is <= 0: finite, and equal to the
+    port's sequential oracle where the reference's chunked form is NaN."""
+    targs, _ = _both(_wkv_inputs(1, 200, 2, 16, 16, seed=3, log_w=log_w,
+                                 with_state=True))
+    out, st = _kernel_emulation(*targs)
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    seq_out, seq_st = tref.rwkv6_wkv_scan(*targs)
+    _close(out, seq_out)
+    _close(st, seq_st)
+

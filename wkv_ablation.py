@@ -1,0 +1,138 @@
+"""Where the WKV kernel's time goes: its device time with one stage taken
+out at a time.  A profiling aid beside chip_smoke.py; the port never
+imports it.
+
+    python3 wkv_ablation.py        # from the repo root, on a card
+
+Each variant is `src/repro_torch/kernels/csrc/rwkv6_wkv.cu` with the loop
+of one stage emptied (its results are wrong by design), built into
+`build/repro_torch/ablation/` with the kernels' own build, called through
+the library's C entry (the port's wrapper is not touched), and timed with
+torch.profiler at rwkv6-3b's prefill (S = 1024, 40 heads of 64, bf16,
+seed 1), every variant in one process on one card, in two rounds.  The
+drop in a kernel's time when a stage goes is that stage's share;
+`loads_only` keeps the loads, the running sums, the barriers and the
+stores.  A stage whose text is not found exactly once in the source stops
+the script: after an edit of the kernel, bring STAGES up to date.  Prints
+one JSON line per variant and round and writes them all to
+`chiprun_out/wkv_ablation.json`.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# stage -> (text in the source, the text that empties it)
+STAGES = {
+    "diag": ("    if (e >= kDiagExp + kC) continue;",
+             "    if (e >= 0) continue;"),
+    "offdiag": ("  if (half < 2) {\n    const int kh",
+                "  if (half < 0) {\n    const int kh"),
+    "readout": ("#pragma unroll 4\n  for (int c = 0; c < kp; c += 4) {\n"
+                "    float4 a[4], bb[4];",
+                "  for (int c = 0; c < 0; c += 4) {\n    float4 a[4], bb[4];"),
+    "a_v": ("  for (int j = 0; j <= rt0 + 3; ++j)",
+            "  for (int j = 0; j < 0; ++j)"),
+    "scale": ("    s_r[t * ldk + c] *= exp2f(cprev - cpiv);\n"
+              "    if (t < kKT)", "    if (t < 0)"),
+    "state_product": ("#pragma unroll 4\n    for (int j = 0; j < kC; ++j)",
+                      "    for (int j = 0; j < 0; ++j)"),
+}
+PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
+
+
+def variants(src: str) -> dict:
+    def without(*stages):
+        text = src
+        for st in stages:
+            old, new = STAGES[st]
+            if text.count(old) != 1:
+                raise RuntimeError(f"stage {st!r} not found once in the "
+                                   "kernel's source")
+            text = text.replace(old, new)
+        return text
+
+    out = {"full": src}
+    out.update({f"no_{st}": without(st) for st in STAGES})
+    out["loads_only"] = without(*STAGES)
+    return out
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    if not torch.cuda.is_available():
+        print("wkv_ablation.py needs a CUDA card", file=sys.stderr)
+        return 1
+    device.strict_numerics()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    src_dir = _build.BUILD_DIR / "ablation"
+    src_dir.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for name, text in variants(wkv.SOURCE.read_text()).items():
+        path = src_dir / f"rwkv6_wkv_{name}.cu"
+        path.write_text(text)
+        libs[name] = _build.Library(path, wkv._declare)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        cdlls = dict(zip(libs, pool.map(lambda lib: lib.load(),
+                                        libs.values())))
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b, s, h, kd, bf16 = 1, 1024, 40, 64, torch.bfloat16
+    r, k, v = (torch.randn(b, s, h, kd, generator=g, device="cuda").to(bf16)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(b, s, h, kd, generator=g,
+                                               device="cuda") - 1.0))
+    u = torch.randn(h, kd, generator=g, device="cuda").to(bf16)
+    out = torch.empty_like(v)
+    final = torch.empty((b, h, kd, kd), dtype=torch.float32, device="cuda")
+    ds, clast = wkv.scratch(b, s, h, kd, kd, "cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(cdll):
+        err = cdll.rwkv6_wkv_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None, out.data_ptr(), final.data_ptr(),
+            ds.data_ptr(), clast.data_ptr(), b, s, h, kd, kd,
+            wkv.DTYPES[bf16], stream)
+        _build.raise_on(err, "rwkv6_wkv")
+
+    rows, iters = [], 20
+    for rnd in range(2):
+        for name, cdll in cdlls.items():
+            for _ in range(3):
+                call(cdll)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    call(cdll)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            ms = {p: sum(e.self_device_time_total for e in ev
+                         if p in e.key) / 1e3 / iters for p in PHASES}
+            row = dict(variant=name, round=rnd, ms=ms,
+                       total_ms=sum(ms.values()), device=smi)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "wkv_ablation.json").write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
