@@ -25,10 +25,11 @@ to the CPU:
                 same inputs as a yardstick (timed only; the port never
                 calls it).  The WKV also at a strong decay (log w = -1.5,
                 where the reference's chunked form overflows), held against
-                the sequential recurrence.  A WKV call is three kernels
-                (chunk states, the scan over chunks, the output): its row
-                sums their device time, gives each one's (`phase_ms`), and
-                states the kernels per call and the scratch bytes.
+                the sequential recurrence.  An SSD or WKV call is three
+                kernels (chunk states, the scan over chunks, the output):
+                its row sums their device time, gives each one's
+                (`phase_ms`), and states the kernels per call (exactly
+                three, asserted) and the scratch bytes.
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -43,7 +44,8 @@ to the CPU:
                 through the Executor: 8 requests on one persistent server
                 (prompts of 64-1023 tokens, 16 new tokens each), then 2 on
                 fresh servers.  The attention and SSD launch counters are
-                zeroed just before and must have risen just after.
+                zeroed just before; attention must have launched, and the
+                SSD at least once per layer per request.
   6. serve_rwkv — the same mix for rwkv6-3b at its published widths (32
                 layers, d_model 2560, vocab 65536, bf16): the WKV launch
                 counter is zeroed just before and must read at least one
@@ -379,20 +381,22 @@ def _ssd_bound(x, b_in, state):
     return bound_ms(n_bytes, 5 * bb * s * h * p * n)
 
 
-# the three kernels of one rwkv6_wkv call, in launch order (their names as
-# the profiler shows them contain these)
+# the three kernels of one mamba2_ssd and of one rwkv6_wkv call, in launch
+# order (their names as the profiler shows them contain these)
+SSD_PHASES = ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output")
 WKV_PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
 
 
-def _wkv_phases(by_kernel: dict):
-    """From one profiler window of WKV calls: each of the three kernels'
-    device ms per call, and the kernels launched per call.  Each name of
-    WKV_PHASES must match exactly one kernel, launched once per call.
-    (None, None) where the window was event-timed (no kernel seen)."""
+def _phases(by_kernel: dict, names):
+    """From one profiler window of calls: each named kernel's device ms
+    per call, and the kernels launched per call.  Each of `names` must
+    match exactly one kernel, launched once per call, and the window must
+    hold no other kernel.  (None, None) where the window was event-timed
+    (no kernel seen)."""
     if not by_kernel:
         return None, None
     phase_ms, per_call = {}, 0.0
-    for p in WKV_PHASES:
+    for p in names:
         hits = [key for key in by_kernel if p in key]
         if len(hits) != 1 or by_kernel[hits[0]][1] != 1.0:
             raise AssertionError(f"{p}: expected one kernel launched once "
@@ -400,7 +404,18 @@ def _wkv_phases(by_kernel: dict):
                                  f"{[by_kernel[h] for h in hits]}")
         phase_ms[p], count = by_kernel[hits[0]]
         per_call += count
+    others = [k for k in by_kernel if not any(p in k for p in names)]
+    if others:
+        raise AssertionError(f"kernels other than {names} in the window: "
+                             f"{others}")
     return phase_ms, per_call
+
+
+def _ssd_scratch_bytes(x, b_in, chunk: int) -> int:
+    """The f32 scratch a call allocates: each chunk's [P, N] state and its
+    total decay, [B, H, NC, P N + 1], NC = ceil(S / chunk)."""
+    b, s, h, p = x.shape
+    return 4 * b * h * -(-s // chunk) * (p * b_in.shape[2] + 1)
 
 
 def _wkv_scratch_bytes(r, v, chunk: int) -> int:
@@ -475,39 +490,58 @@ def phase_lm_kernels():
             bound_ms=b, bound_by=by, library_ms=library))
 
     h, p, n = 80, 64, 64
-    for s, with_state in ((1024, False), (1024, True), (777, False),
-                          (777, True)):
-        x = randn(1, s, h, p, dtype=bf16)
+    for s, dtype, with_state, iters in (
+            (1024, bf16, False, 20), (1024, bf16, True, 20),
+            (777, bf16, False, 20), (777, bf16, True, 20),
+            (16384, bf16, False, 3), (1024, f32, False, 20)):
+        x = randn(1, s, h, p, dtype=dtype)
         dt = F.softplus(randn(1, s, h))
         a = -torch.ones(h, device=dev)        # zamba2's a_log init is 0
-        b_in, c_in = randn(1, s, n, dtype=bf16), randn(1, s, n, dtype=bf16)
-        d = torch.ones(h, device=dev, dtype=bf16)
+        b_in, c_in = (randn(1, s, n, dtype=dtype),
+                      randn(1, s, n, dtype=dtype))
+        d = torch.ones(h, device=dev, dtype=dtype)
         st = 0.1 * randn(1, h, p, n) if with_state else None
         args = (x, dt, a, b_in, c_in, d, st)
         got = ssd.mamba2_ssd(*args, chunk=256)
         torch.cuda.synchronize()
         want = ref.mamba2_ssd(*args, chunk=256)
-        # y: both round an f32 result to bf16 once, 2e-2 absolute and
-        # relative; the f32 state at 2e-3 (the reference's tolerance)
+        # bf16 y: both round an f32 result to bf16 once, 2e-2 absolute and
+        # relative; f32 y and the f32 state at 2e-3 (the reference's
+        # tolerance)
+        tol_y = 2e-2 if dtype == bf16 else 2e-3
         ok_y = ((got[0].float() - want[0].float()).abs()
-                <= 2e-2 + 2e-2 * want[0].float().abs()).all()
+                <= tol_y + tol_y * want[0].float().abs()).all()
         ok_s = ((got[1] - want[1]).abs() <= 2e-3 + 2e-3 * want[1].abs()).all()
+        finite = bool(torch.isfinite(got[0]).all()
+                      and torch.isfinite(got[1]).all())
         err = max(max_err(got[0].float(), want[0].float()),
                   max_err(got[1], want[1]))
-        label = f"zamba2 bf16 S={s}{' +state' if with_state else ''}"
-        if not (ok_y and ok_s):
-            raise AssertionError(f"mamba2_ssd {label}: max error {err}")
+        label = (f"zamba2 {'bf16' if dtype == bf16 else 'f32'} S={s}"
+                 f"{' +state' if with_state else ''}")
+        if not (ok_y and ok_s and finite):
+            raise AssertionError(f"mamba2_ssd {label}: max error {err}, "
+                                 f"finite {finite}")
         run = (lambda: ssd.mamba2_ssd(*args, chunk=256))
         b, by = _ssd_bound(x, b_in, st)
+        kernels = {}
+        ms = device_ms(run, iters, label=f"mamba2_ssd {label}",
+                       by_kernel=kernels, expect=len(SSD_PHASES))
+        phase_ms, per_call = _phases(kernels, SSD_PHASES)
         rows.append(dict(
             name=f"mamba2_ssd[{label}]", source=ssd.SOURCE,
-            tol="y 2e-2 + 2e-2|y|, state 2e-3 + 2e-3|s|",
+            tol=f"y {tol_y:g} + {tol_y:g}|y|, state 2e-3 + 2e-3|s|",
             shape=f"x{tuple(x.shape)} n{n}", max_abs_err=err,
-            ms=device_ms(run, 20, label=f"mamba2_ssd {label}"),
-            call_ms=call_ms(run, 20),
-            plain_ms=device_ms(lambda: ref.mamba2_ssd(*args, chunk=256), 5,
+            ms=ms, call_ms=call_ms(run, iters),
+            plain_ms=device_ms(lambda: ref.mamba2_ssd(*args, chunk=256),
+                               2 if s > 4096 else 5, warmup=1,
                                label=f"plain mamba2_ssd {label}"),
-            bound_ms=b, bound_by=by, library_ms=None))
+            bound_ms=b, bound_by=by, library_ms=None,
+            kernel_launches_per_call=per_call, phase_ms=phase_ms,
+            scratch_bytes=_ssd_scratch_bytes(x, b_in, ssd.CHUNK),
+            note="ms sums the device time of the call's three kernels "
+                 "(chunk states, state scan, output); the launches per "
+                 "call and phase_ms are counted in the profiler window, "
+                 "null where it was event-timed"))
 
     # rwkv6_wkv at rwkv6-3b's widths: r, k, v, u in the activation type,
     # w f32 as the model makes it (exp(-exp(N(0, 0.5) - 1)), log w in about
@@ -555,7 +589,7 @@ def phase_lm_kernels():
         kernels = {}
         ms = device_ms(run, iters, label=f"rwkv6_wkv {label}",
                        by_kernel=kernels, expect=len(WKV_PHASES))
-        phase_ms, per_call = _wkv_phases(kernels)
+        phase_ms, per_call = _phases(kernels, WKV_PHASES)
         rows.append(dict(
             name=f"rwkv6_wkv[{label}]", source=wkv.SOURCE, tol=tol,
             shape=f"r{tuple(r.shape)} v{tuple(v.shape)}", max_abs_err=err,
@@ -850,13 +884,21 @@ def _serve_path(arch):
 
 
 def phase_serve():
-    """zamba2-2.7b: the attention and SSD kernels must have launched."""
+    """zamba2-2.7b: the attention kernel must have launched, and every
+    prefill runs the SSD kernel once per layer, so its counter must reach
+    n_layers x requests (warm-ups add more)."""
+    from repro_torch import configs
     out, launches = _serve_path(SERVE_ARCH)
     launches = {k: launches[k] for k in ("flash_attention", "mamba2_ssd")}
-    missing = [k for k, v in launches.items() if v < 1]
-    if missing:
-        raise AssertionError(f"kernels never launched on the serve path: "
-                             f"{missing}")
+    if launches["flash_attention"] < 1:
+        raise AssertionError("flash_attention never launched on the serve "
+                             "path")
+    need = configs.get(SERVE_ARCH).n_layers * (SERVE_REQUESTS + SERVE_FRESH)
+    if launches["mamba2_ssd"] < need:
+        raise AssertionError(f"mamba2_ssd launched {launches['mamba2_ssd']} "
+                             f"times on the serve path, fewer than {need}")
+    log("serve.launches", arch=SERVE_ARCH, mamba2_ssd=launches["mamba2_ssd"],
+        need=need)
     return out, launches
 
 

@@ -1,229 +1,672 @@
 // Mamba2 state-space-dual (SSD) scan for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel repro/kernels/mamba2_ssd.py (_ssd_kernel /
-// mamba2_ssd).  Per (batch, head), with xdt = dt x and la = dt A, and cum
-// the running sum of la inside a chunk:
-//   y_t  = exp(cum_t) C_t . S + sum_{j <= t} (C_t . B_j) exp(cum_t - cum_j) xdt_j
-//   S'   = exp(cum_last) S + sum_j exp(cum_last - cum_j) xdt_j B_j^T
-// with S the [P, N] state carried from chunk to chunk.  The D-skip term is
-// stateless and added by the wrapper, as in the reference; y leaves the
-// kernel in f32 so that the wrapper rounds y + D x to x's type once (a
-// bf16 y rounded before the add would cancel against D x to two steps of
-// the addends' size).
+// mamba2_ssd) together with the D-skip term its wrapper adds.  Per (batch,
+// head h), with S the [P, N] state carried from chunk to chunk and cum_t
+// the running sum of dt A_h inside a 64-step chunk:
+//   y_t = exp(cum_t) C_t . S
+//       + sum_{j <= t} (C_t . B_j) exp(cum_t - cum_j) dt_j x_j + D_h x_t
+//   S'  = exp(cum_last) S + sum_j exp(cum_last - cum_j) dt_j x_j B_j^T
+// A_h < 0 and dt >= 0, so every exponent taken is <= 0: the decay is taken
+// only where j <= t (above the diagonal the exponent is positive, and the
+// reference's exp(...) * tril gives inf * 0 = NaN at long chunks).  The
+// D-skip is summed with the rest in f32 and y is rounded to x's type once.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
-// ctypes (repro_torch/kernels/mamba2_ssd.py).  The entry launches on the
-// stream it is given, allocates nothing and returns cudaGetLastError().
+// ctypes (repro_torch/kernels/mamba2_ssd.py).  The entry makes three
+// launches on the stream it is given, checks each with cudaGetLastError()
+// and returns the first error; it allocates nothing.
 //
 // Layout: x [B, S, H, P] (f32 or bf16), dt [B, S, H] f32, a [H] f32,
 // b, c [B, S, N] in x's type (shared by every head: read by batch index,
-// never expanded per head), state0 [B, H, P, N] f32 or null (zeros);
-// y [B, S, H, P] f32, state_out [B, H, P, N] f32.
+// never expanded per head), d [H] f32 or in x's type, state0 [B, H, P, N]
+// f32 or null (zeros); y [B, S, H, P] in x's type, state_out [B, H, P, N]
+// f32.  Scratch from the caller: ds [B, H, NC, P, N] f32 and clast
+// [B, H, NC] f32, NC = ceil(S / 64).
 //
 // What bounds it on the H100.  At zamba2's prefill (S = 1024, H = 80,
-// P = N = 64, bf16) the function reads and writes ~24 MB and needs ~1.7
-// GFLOP of f32 work (the recurrence: five operations per (t, h, p, n)), so
-// the bound is the f32 CUDA-core rate, ~25 us.  This version does the
-// chunked form in f32 on the CUDA cores, operands from shared memory: it
-// is bound by shared-memory loads, above the bound by the chunked form's
-// extra work (C B^T per chunk) and the loads.
+// P = N = 64, bf16) the function reads and writes ~24 MB, ~7 us at 3.35
+// TB/s, and needs 1.68 GFLOP of f32 work (the recurrence: five operations
+// per (t, h, p, n)), ~25 us on the CUDA cores, so the bound is the f32
+// rate.  The chunked form below does about that much f32 work (chunk
+// states 2, readout 2, intra-chunk product about 1 flop per (t, h, p, n))
+// and moves each chunk's [P, N] state through device memory: 21 MB each
+// way at S = 1024, most of it in the 50 MB L2.
 //
-// Design.  The TPU kernel carries S through a sequential grid and an
-// aliased output; on Hopper blocks run in no order, so the chunk loop is
-// inside the block.  A block owns one (batch, head) and a slice of 16 rows
-// p of the state (rows of S are independent, so the split is exact and the
-// grid is B H P/16 blocks, 320 at zamba2's widths, not B H = 80), and walks
-// sub-chunks of 64 steps in order with its [16, N] slice of S in shared
-// memory.  The result does not depend on the sub-chunk length beyond
-// rounding; 64 keeps the decayed [64, 64] C B^T tile in shared memory
-// (a 256 x 256 f32 tile would not fit).  dt is folded in here (no xdt or la
-// pass in the wrapper).  The decay exp(cum_t - cum_j) is taken only where
-// j <= t: above the diagonal the exponent is positive and can overflow, and
-// inf * 0 would be NaN.  Steps past the end of the sequence carry dt = 0:
-// they neither decay nor feed the state.
+// Design: the chunked form of the Pallas kernel, with the state hand-off
+// that the TPU made through its sequential grid and an aliased output
+// made through device memory.  No block walks more than one chunk.
+//   1. ssd_chunk_state, grid (NC, B H, P / 64): a chunk's increment
+//      dS = sum_j (exp(cum_last - cum_j) dt_j x_j) B_j^T, an outer-product
+//      sum over the 64 steps, and its cum_last.
+//   2. ssd_state_scan, one thread per (b, h, p, n): walks the chunks,
+//      S_{c+1} = exp(cum_last,c) S_c + dS_c, writing S_c over dS_c in
+//      place, and writes state_out = S_NC.  The decay is one scalar per
+//      (b, h, chunk).
+//   3. ssd_chunk_output, grid (NC, B H, P / 64): one block holds a chunk's
+//      whole [64, 64] output.  It builds the masked tile
+//      G[t, j] = (C_t . B_j) exp(cum_t - cum_j) dt_j (j <= t, else 0), then
+//      y = exp(cum_t) C S_c^T + G x + D x in 4 x 4 register tiles.  On the
+//      bf16 route C B^T runs on the tensor cores (mma.sync m16n8k16, bf16
+//      operands from ldmatrix, f32 sums): products of two bf16 values are
+//      exact in f32, so this rounds nothing new, and the tile that every
+//      head shares costs a few hundred instructions per block.  The f32
+//      route takes it on the CUDA cores (the port allows no TF32).  The
+//      readout C S^T and G x are f32 on the CUDA cores: their right
+//      operands (the f32 state, and G with dt and the decay folded in)
+//      would round on the tensor cores.
+// Loads: every tile of a chunk is in flight at once (16-byte cp.async;
+// bf16 x and phase 1's bf16 B go through registers and are stored as f32),
+// and the chunk state, needed last, arrives while G is built.  N = 64
+// (zamba2) is fixed at compile time; other N up to 128 take general
+// instances.  Steps past the end of S carry dt = 0 and x = B = C = 0, and
+// their output is not written.
+//
+// What still holds it back (zamba2 bf16, S = 1024, on an H100): the
+// output kernel takes about 58% of the call, the chunk states 28% and the
+// scan 13%.  The first two are f32 FMA chains on the CUDA cores (C S^T,
+// G x and the chunk states' sum: 2.5 x 64^3 FMA per chunk and head) plus
+// their shared-memory loads; a bf16 hi/lo split of their f32 operands on
+// the tensor cores would take them over.  At S = 16,384 the chunk states'
+// round trip through device memory (336 MB each way) makes the scan a
+// third of the call.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kL = 64;           // sub-chunk length (steps)
-constexpr int kPS = 16;          // state rows per block
+constexpr int kC = 64;           // chunk length (steps)
+constexpr int kPB = 64;          // P columns per block
 constexpr int kThreads = 256;
 constexpr int kMaxState = 128;   // widest N taken (zamba2: 64)
+constexpr int kLdG = kC + 4;     // row stride of G^T [j][t]
+constexpr int kLdX = kPB + 4;    // row stride of the f32 x tiles
+// 16-byte loads of a bf16 [kC][kMaxState] tile per thread, at most
+constexpr int kMaxGroups = kC * kMaxState / 8 / kThreads;
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+// the two bf16 halves of a 32-bit word, first element in the low half
+__device__ __forceinline__ float bf16_lo(unsigned v) {
+  return __uint_as_float(v << 16);
 }
-size_t smem_bytes(int n) {
-  const size_t ldn = n + 1;
-  return sizeof(float) * (2 * kL * ldn + kPS * ldn + kL * (kL + 1) +
-                          kL * kPS + 3 * kL);
+__device__ __forceinline__ float bf16_hi(unsigned v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) {
+  *p = __float2bfloat16(v);
 }
 
+// 4 consecutive elements of a shared tile as f32 (16- or 8-byte aligned)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+
+// acc[i][j] += a[i] b[j]: one step of an outer-product (register-tile) sum
+__device__ __forceinline__ void outer(float (&acc)[4][4], float4 a,
+                                      const float (&b)[4]) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
+}
+
+// acc[i][j] += a[i] . b[j]: four steps of a row-times-row sum
+__device__ __forceinline__ void rows_by_rows(float (&acc)[4][4],
+                                             const float4 (&a)[4],
+                                             const float4 (&b)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float x = fmaf(a[i].x, b[j].x, acc[i][j]);
+      x = fmaf(a[i].y, b[j].y, x);
+      x = fmaf(a[i].z, b[j].z, x);
+      acc[i][j] = fmaf(a[i].w, b[j].w, x);
+    }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy from global to shared memory, in flight until a
+// cp_async_wait covers its group; an invalid one writes zeros and reads
+// nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `kPending` of the latest committed groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
+// matrix i, and register i receives its fragment
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The tiles of one chunk.  dst[t][c] (row stride ld) = src[t * rstride +
+// col0 + c] for t < nrows and col0 + c < width, 0 elsewhere, c < ncols.
+// In the vector route ncols, width and col0 are multiples of 8 and src is
+// 16-byte aligned: 16-byte cp.async copies, same type in and out.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) mamba2_ssd_kernel(
+__device__ __forceinline__ void async_tile(T* dst, int ld, const T* src,
+                                           size_t rstride, int nrows,
+                                           int col0, int ncols, int width) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int ng = ncols / kPer;
+  for (int e = threadIdx.x; e < kC * ng; e += kThreads) {
+    const int t = e / ng, c = kPer * (e - t * ng);
+    const bool ok = t < nrows && col0 + c < width;
+    cp_async16(dst + t * ld + c, ok ? src + t * rstride + col0 + c : src, ok);
+  }
+}
+
+// element by element, any alignment and width; Tout is T or float
+template <typename T, typename Tout>
+__device__ __forceinline__ void scalar_tile(Tout* dst, int ld,
+                                            const T* __restrict__ src,
+                                            size_t rstride, int nrows,
+                                            int col0, int ncols, int width) {
+  for (int e = threadIdx.x; e < kC * ncols; e += kThreads) {
+    const int t = e / ncols, c = e - t * ncols;
+    const float v = (t < nrows && col0 + c < width)
+                        ? to_f32(src[t * rstride + col0 + c])
+                        : 0.0f;
+    dst[t * ld + c] = Tout(v);   // exact: v came from a Tout or is 0
+  }
+}
+
+// bf16 tile through registers: every 16-byte load issued before the first
+// is stored (fetch), then stored as f32, each row t times scale[t] (put)
+__device__ __forceinline__ void fetch_bf16(uint4 (&v)[kMaxGroups],
+                                           const bf16* src, size_t rstride,
+                                           int nrows, int col0, int ncols,
+                                           int width) {
+  const int ng = ncols / 8;
+#pragma unroll
+  for (int i = 0; i < kMaxGroups; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int t = e / ng, c = 8 * (e - t * ng);
+    v[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (e < kC * ng && t < nrows && col0 + c < width)
+      v[i] = *reinterpret_cast<const uint4*>(src + t * rstride + col0 + c);
+  }
+}
+
+__device__ __forceinline__ void put_bf16(float* dst, int ld,
+                                         const uint4 (&v)[kMaxGroups],
+                                         int ncols, const float* scale) {
+  const int ng = ncols / 8;
+#pragma unroll
+  for (int i = 0; i < kMaxGroups; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (e >= kC * ng) break;
+    const int t = e / ng, c = 8 * (e - t * ng);
+    const float w = scale != nullptr ? scale[t] : 1.0f;
+    float* q = dst + t * ld + c;
+    *reinterpret_cast<float4*>(q) =
+        make_float4(w * bf16_lo(v[i].x), w * bf16_hi(v[i].x),
+                    w * bf16_lo(v[i].y), w * bf16_hi(v[i].y));
+    *reinterpret_cast<float4*>(q + 4) =
+        make_float4(w * bf16_lo(v[i].z), w * bf16_hi(v[i].z),
+                    w * bf16_lo(v[i].w), w * bf16_hi(v[i].w));
+  }
+}
+
+// Warp 0 only: the chunk's running sum of dt A_h, two steps per lane
+// (steps past the end count dt = 0).  Lane l holds steps 2l and 2l + 1:
+// dt in d[], cum in cum[]; returns cum_last.
+__device__ __forceinline__ float chunk_cumsum(const float* __restrict__ dtb,
+                                              size_t stride, int nrows,
+                                              float a_h, float (&d)[2],
+                                              float (&cum)[2]) {
+  const int lane = threadIdx.x, t = 2 * lane;
+  d[0] = t < nrows ? dtb[t * stride] : 0.0f;
+  d[1] = t + 1 < nrows ? dtb[(t + 1) * stride] : 0.0f;
+  const float la0 = d[0] * a_h, la1 = d[1] * a_h;
+  float inc = la0 + la1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += u;
+  }
+  const float prev = __shfl_up_sync(0xffffffffu, inc, 1);
+  const float before = lane == 0 ? 0.0f : prev;
+  cum[0] = before + la0;
+  cum[1] = cum[0] + la1;
+  return __shfl_sync(0xffffffffu, cum[1], 31);
+}
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
+
+size_t smem_state_bytes(int np) {
+  return sizeof(float) * (kC * kLdX + kC * (np + 4) + kC);
+}
+
+// Phase 1: dS = sum_j (exp(cum_last - cum_j) dt_j x_j) B_j^T for one chunk,
+// one (b, h) and 64 columns of P; clast = cum_last.  NPF: N padded to a
+// multiple of 16, fixed at compile time (64, zamba2's), or 0 to derive it
+// from n.
+template <typename T, int NPF>
+__global__ void __launch_bounds__(kThreads, 5) ssd_chunk_state(
     const T* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ a, const T* __restrict__ bm,
-    const T* __restrict__ cm, const float* __restrict__ state0,
-    float* __restrict__ y, float* __restrict__ state_out, int s, int h,
-    int p, int n) {
-  extern __shared__ float smem[];
-  const int ldn = n + 1;            // odd row stride: conflict-free columns
-  const int ldg = kL + 1;
-  float* s_b = smem;                // [kL][ldn]   B of the sub-chunk
-  float* s_c = s_b + kL * ldn;      // [kL][ldn]   C
-  float* s_s = s_c + kL * ldn;      // [kPS][ldn]  state slice
-  float* s_g = s_s + kPS * ldn;     // [kL][ldg]   decayed, masked C B^T
-  float* s_x = s_g + kL * ldg;      // [kL][kPS]   xdt
-  float* s_cum = s_x + kL * kPS;    // [kL]        running sum of dt A
-  float* s_w = s_cum + kL;          // [kL]        exp(cum_last - cum_j)
-  float* s_e = s_w + kL;            // [kL]        exp(cum_t)
+    float* __restrict__ ds, float* __restrict__ clast, int s, int h, int p,
+    int n, int nc, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int np = NPF > 0 ? NPF : round16(n), ldb = np + 4;
+  float* s_x = smem;                 // [kC][kLdX]  w_j x_j
+  float* s_b = s_x + kC * kLdX;      // [kC][ldb]   B
+  float* s_w = s_b + kC * ldb;       // [kC]  exp(cum_last - cum_j) dt_j
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y, b = bh / h, head = bh - b * h;
-  const int p0 = blockIdx.x * kPS;
-  const float a_h = a[head];
-  const size_t bs = (size_t)b * s;
+  const int chunk = blockIdx.x, bh = blockIdx.y, p0 = blockIdx.z * kPB;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const T* xb = x + (row0 * h + head) * p;
+  const T* bb = bm + row0 * n;
+  const size_t rx = (size_t)h * p;
 
-  for (int e = tid; e < kPS * n; e += kThreads) {
-    const int r = e / n, c = e - r * n;
-    const int gp = p0 + r;
-    s_s[r * ldn + c] = (state0 != nullptr && gp < p)
-                           ? state0[((size_t)bh * p + gp) * n + c]
-                           : 0.0f;
+  uint4 xv[kMaxGroups], bv[kMaxGroups];   // bf16 tiles, stored once
+                                         // the decays are known
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      async_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
+      async_tile(s_b, ldb, bb, (size_t)n, nrows, 0, np, n);
+      cp_async_commit();
+    } else {
+      fetch_bf16(xv, xb, rx, nrows, p0, kPB, p);
+      fetch_bf16(bv, bb, (size_t)n, nrows, 0, np, n);
+    }
+  } else {
+    scalar_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
+    scalar_tile(s_b, ldb, bb, (size_t)n, nrows, 0, np, n);
   }
-
-  for (int t0 = 0; t0 < s; t0 += kL) {
-    __syncthreads();   // the last sub-chunk's readers and state writes done
-    for (int e = tid; e < kL * n; e += kThreads) {
-      const int r = e / n, c = e - r * n;
-      const int t = t0 + r;
-      const size_t gi = (bs + t) * n + c;
-      s_b[r * ldn + c] = t < s ? to_f32(bm[gi]) : 0.0f;
-      s_c[r * ldn + c] = t < s ? to_f32(cm[gi]) : 0.0f;
-    }
-    for (int e = tid; e < kL * kPS; e += kThreads) {
-      const int r = e / kPS, c = e - r * kPS;
-      const int t = t0 + r, gp = p0 + c;
-      float v = 0.0f;
-      if (t < s && gp < p) {
-        const size_t row = (bs + t) * h + head;
-        v = to_f32(x[row * p + gp]) * dt[row];
-      }
-      s_x[r * kPS + c] = v;
-    }
-    if (tid < 32) {   // inclusive scan of dt A, two steps per lane
-      const int t = t0 + 2 * tid;
-      const float la0 = t < s ? dt[(bs + t) * h + head] * a_h : 0.0f;
-      const float la1 = t + 1 < s ? dt[(bs + t + 1) * h + head] * a_h : 0.0f;
-      const float pair = la0 + la1;
-      float inc = pair;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, inc, o);
-        if (tid >= o) inc += u;
-      }
-      const float prev = __shfl_up_sync(0xffffffffu, inc, 1);
-      const float before = tid == 0 ? 0.0f : prev;
-      s_cum[2 * tid] = before + la0;
-      s_cum[2 * tid + 1] = before + la0 + la1;
-    }
-    __syncthreads();
-
-    const float cum_last = s_cum[kL - 1];
-    if (tid < kL) {
-      s_w[tid] = expf(cum_last - s_cum[tid]);
-      s_e[tid] = expf(s_cum[tid]);
-    }
-    {   // G[t][j] = (C_t . B_j) exp(cum_t - cum_j) for j <= t, else 0
-      const int tx = tid & 15, ty = tid >> 4;
-      float g[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) g[i][j] = 0.0f;
-#pragma unroll 4
-      for (int c = 0; c < n; ++c) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = s_c[(ty + 16 * i) * ldn + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = s_b[(tx + 16 * j) * ldn + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int jj = tx + 16 * j;
-          s_g[t * ldg + jj] =
-              jj <= t ? g[i][j] * expf(s_cum[t] - s_cum[jj]) : 0.0f;
-        }
-      }
-    }
-    __syncthreads();
-
-    {   // y_t = exp(cum_t) C_t . S + sum_{j <= t} G[t][j] xdt_j
-      const int pc = tid & 15, ty = tid >> 4;
-      const int gp = p0 + pc;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        float inter = 0.0f;
-#pragma unroll 4
-        for (int c = 0; c < n; ++c)
-          inter = fmaf(s_c[t * ldn + c], s_s[pc * ldn + c], inter);
-        float intra = 0.0f;
-        for (int j = 0; j <= t; ++j)
-          intra = fmaf(s_g[t * ldg + j], s_x[j * kPS + pc], intra);
-        if (t0 + t < s && gp < p)
-          y[((bs + t0 + t) * h + head) * p + gp] = inter * s_e[t] + intra;
-      }
-    }
-    __syncthreads();
-
-    {   // S = exp(cum_last) S + sum_j exp(cum_last - cum_j) xdt_j B_j
-      const float dec = expf(cum_last);
-      for (int e = tid; e < kPS * n; e += kThreads) {
-        const int r = e / n, c = e - r * n;
-        float acc = 0.0f;
-#pragma unroll 4
-        for (int j = 0; j < kL; ++j)
-          acc = fmaf(s_w[j] * s_x[j * kPS + r], s_b[j * ldn + c], acc);
-        s_s[r * ldn + c] = dec * s_s[r * ldn + c] + acc;
-      }
+  if (tid < 32) {
+    float d[2], cum[2];
+    const float last = chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows,
+                                    a[head], d, cum);
+    s_w[2 * tid] = expf(last - cum[0]) * d[0];
+    s_w[2 * tid + 1] = expf(last - cum[1]) * d[1];
+    if (tid == 0 && blockIdx.z == 0) clast[(size_t)bh * nc + chunk] = last;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (sizeof(T) == 2 && vec) {
+    put_bf16(s_b, ldb, bv, np, nullptr);
+    put_bf16(s_x, kLdX, xv, kPB, s_w);
+  } else {
+    for (int e = tid; e < kC * kPB; e += kThreads) {
+      const int t = e / kPB, c = e - t * kPB;
+      s_x[t * kLdX + c] *= s_w[t];
     }
   }
   __syncthreads();
 
-  for (int e = tid; e < kPS * n; e += kThreads) {
-    const int r = e / n, c = e - r * n;
-    const int gp = p0 + r;
-    if (gp < p) state_out[((size_t)bh * p + gp) * n + c] = s_s[r * ldn + c];
+  // dS[p0 + pr][nc0 ..] in 4 x 4 tiles: rows pr .. pr + 3 of the P slice,
+  // columns nc0 .. nc0 + 3 of N
+  float* out = ds + (((size_t)bh * nc + chunk) * p) * n;
+  const bool vec_out = (n & 3) == 0;
+  const int ngc = np / 4;
+  for (int q = tid; q < (kPB / 4) * ngc; q += kThreads) {
+    const int pr = 4 * (q / ngc), n0 = 4 * (q % ngc);
+    float acc[4][4] = {};
+#pragma unroll 8
+    for (int j = 0; j < kC; ++j) {
+      const float4 bj = ld4(s_b + j * ldb + n0);
+      const float bvals[4] = {bj.x, bj.y, bj.z, bj.w};
+      outer(acc, ld4(s_x + j * kLdX + pr), bvals);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pp = p0 + pr + i;
+      if (pp >= p) break;
+      float* row = out + (size_t)pp * n + n0;
+      if (vec_out && n0 + 3 < n) {
+        *reinterpret_cast<float4*>(row) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (n0 + jj < n) row[jj] = acc[i][jj];
+      }
+    }
   }
 }
 
+// Phase 2: per (b, h, p, n), S_{c+1} = exp(clast_c) S_c + dS_c over the
+// chunks; S_c is written over dS_c, S_NC to state_out.
+__global__ void __launch_bounds__(kThreads) ssd_state_scan(
+    const float* __restrict__ state0, float* __restrict__ ds,
+    const float* __restrict__ clast, float* __restrict__ state_out, int nbh,
+    int pn, int nc) {
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)nbh * pn) return;
+  const size_t bh = e / pn, rem = e - bh * pn;
+  float st = state0 != nullptr ? state0[e] : 0.0f;
+  float* d = ds + bh * nc * pn + rem;
+  const float* cl = clast + bh * nc;
+  constexpr int kAhead = 8;          // chunks whose loads are in flight
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+    float inc[kAhead], dec[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (c0 + i < nc) {
+        inc[i] = d[(size_t)(c0 + i) * pn];
+        dec[i] = cl[c0 + i];
+      }
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (c0 + i < nc) {
+        d[(size_t)(c0 + i) * pn] = st;
+        st = fmaf(expf(dec[i]), st, inc[i]);
+      }
+  }
+  state_out[e] = st;
+}
+
+// Row stride (elements) of phase 3's C and B tiles: bf16 rows an odd
+// multiple of 16 bytes (conflict-free ldmatrix), f32 rows 4 floats past a
+// multiple of 8 (conflict-free 16-byte loads of 8 rows)
 template <typename T>
+__host__ __device__ constexpr int pad_ld(int w) {
+  return w + (sizeof(T) == 2 ? 8 : 4);
+}
+
+template <typename T>
+size_t smem_output_bytes(int np) {
+  return sizeof(T) * (2 * kC * pad_ld<T>(np)) +
+         sizeof(float) * (kC * kLdX + kPB * (np + 4) + kC * kLdG + 3 * kC);
+}
+
+// Phase 3: y for one chunk, one (b, h) and 64 columns of P.  NPF as in
+// phase 1.  The bf16 N = 64 instance (zamba2's) runs three blocks per SM
+// (80 registers, no spills); the others two.
+template <typename T, int NPF>
+__global__ void __launch_bounds__(
+    kThreads, sizeof(T) == 2 && NPF == 64 ? 3 : 2) ssd_chunk_output(
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ bm,
+    const T* __restrict__ cm, const void* __restrict__ dskip, int d_bf16,
+    const float* __restrict__ ds, T* __restrict__ y, int s, int h, int p,
+    int n, int nc, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int np = NPF > 0 ? NPF : round16(n);
+  const int ldt = pad_ld<T>(np), lds = np + 4;
+  T* s_c = reinterpret_cast<T*>(smem_raw);   // [kC][ldt]  C
+  T* s_b = s_c + kC * ldt;                   // [kC][ldt]  B
+  float* s_x = reinterpret_cast<float*>(s_b + kC * ldt);   // [kC][kLdX] x
+  float* s_s = s_x + kC * kLdX;              // [kPB][lds] S_c
+  float* s_g = s_s + kPB * lds;              // [kC][kLdG] G^T, masked
+  float* s_cum = s_g + kC * kLdG;            // [kC]
+  float* s_dt = s_cum + kC;                  // [kC]
+  float* s_e = s_dt + kC;                    // [kC]  exp(cum_t)
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x, bh = blockIdx.y, p0 = blockIdx.z * kPB;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const T* xb = x + (row0 * h + head) * p;
+  const T* bb = bm + row0 * n;
+  const T* cb = cm + row0 * n;
+  const float* sb = ds + (((size_t)bh * nc + chunk) * p + p0) * n;
+  const size_t rx = (size_t)h * p;
+  const int prow = min(kPB, p - p0);       // state rows of this slice
+
+  uint4 xv[kMaxGroups];   // a bf16 x tile, stored as f32 below
+  if (vec) {
+    async_tile(s_c, ldt, cb, (size_t)n, nrows, 0, np, n);
+    async_tile(s_b, ldt, bb, (size_t)n, nrows, 0, np, n);
+    if constexpr (sizeof(T) == 4)
+      async_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
+    else
+      fetch_bf16(xv, xb, rx, nrows, p0, kPB, p);
+    cp_async_commit();
+    for (int e = tid; e < kPB * (np / 4); e += kThreads) {
+      const int r = e / (np / 4), c = 4 * (e - r * (np / 4));
+      const bool ok = r < prow && c < n;
+      cp_async16(s_s + r * lds + c, ok ? sb + (size_t)r * n + c : sb, ok);
+    }
+    cp_async_commit();
+  } else {
+    scalar_tile(s_c, ldt, cb, (size_t)n, nrows, 0, np, n);
+    scalar_tile(s_b, ldt, bb, (size_t)n, nrows, 0, np, n);
+    scalar_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
+    for (int e = tid; e < kPB * np; e += kThreads) {
+      const int r = e / np, c = e - r * np;
+      s_s[r * lds + c] = (r < prow && c < n) ? sb[(size_t)r * n + c] : 0.0f;
+    }
+  }
+  if (tid < 32) {
+    float d[2], cum[2];
+    chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows, a[head], d, cum);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s_cum[2 * tid + i] = cum[i];
+      s_dt[2 * tid + i] = d[i];
+      s_e[2 * tid + i] = expf(cum[i]);
+    }
+  }
+  if constexpr (sizeof(T) == 2)
+    if (vec) put_bf16(s_x, kLdX, xv, kPB, nullptr);
+  cp_async_wait<1>();                // C, B, x; the chunk state later
+  __syncthreads();
+
+  // G^T[j][t] = (C_t . B_j) exp(cum_t - cum_j) dt_j for j <= t, else 0
+  if constexpr (sizeof(T) == 2) {
+    // warp w: rows 16 (w / 2) .., columns 32 (w % 2) ..; the two warps
+    // wholly above the diagonal do nothing (what they would write is
+    // never read)
+    const int warp = tid >> 5, lane = tid & 31;
+    const int mt = warp >> 1, nh = warp & 1;
+    if (32 * nh <= 16 * mt + 15) {
+      float g[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) g[i][e] = 0.0f;
+      const uint32_t a_addr = smem_addr(
+          s_c + (16 * mt + (lane & 15)) * ldt + 8 * (lane >> 4));
+      const uint32_t b_addr = smem_addr(
+          s_b + (32 * nh + (lane & 7) + 8 * (lane >> 4)) * ldt +
+          8 * ((lane >> 3) & 1));
+#pragma unroll 4
+      for (int ks = 0; ks < np / 16; ++ks) {
+        uint32_t af[4];
+        ldmatrix_x4(af, a_addr + ks * 32);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, b_addr + (jp * 16 * ldt + ks * 16) * 2);
+          mma_bf16(g[2 * jp], af, bfr[0], bfr[1]);
+          mma_bf16(g[2 * jp + 1], af, bfr[2], bfr[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 16 * mt + (lane >> 2) + 8 * (e >> 1);
+          const int j = 32 * nh + 8 * nt + 2 * (lane & 3) + (e & 1);
+          s_g[j * kLdG + t] =
+              j <= t ? g[nt][e] * (expf(s_cum[t] - s_cum[j]) * s_dt[j])
+                     : 0.0f;
+        }
+    }
+  } else {
+    const int tx = tid & 15, ty = tid >> 4;
+    float g[4][4] = {};
+    for (int c = 0; c < np; c += 4) {
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = ld4(s_c + (4 * ty + i) * ldt + c);
+        bv[i] = ld4(s_b + (tx + 16 * i) * ldt + c);
+      }
+      rows_by_rows(g, av, bv);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int t = 4 * ty + i, j = tx + 16 * jj;
+        s_g[j * kLdG + t] =
+            j <= t ? g[i][jj] * (expf(s_cum[t] - s_cum[j]) * s_dt[j]) : 0.0f;
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // rows 4 ty .. 4 ty + 3, columns tx + 16 jj of the slice:
+  // exp(cum_t) C_t . S_c[p] + sum_{j <= t} G[t][j] x_j[p] + D x_t[p]
+  const int tx = tid & 15, ty = tid >> 4, tr = 4 * ty;
+  float o[4][4] = {};
+#pragma unroll 4
+  for (int c = 0; c < np; c += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = ld4(s_c + (tr + i) * ldt + c);
+      bv[i] = ld4(s_s + (tx + 16 * i) * lds + c);
+    }
+    rows_by_rows(o, av, bv);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float e = s_e[tr + i];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) o[i][jj] *= e;
+  }
+  for (int j = 0; j <= tr + 3; ++j) {
+    float xv[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      xv[jj] = s_x[j * kLdX + tx + 16 * jj];
+    outer(o, ld4(s_g + j * kLdG + tr), xv);
+  }
+  const float d_h = d_bf16 ? to_f32(static_cast<const bf16*>(dskip)[head])
+                           : static_cast<const float*>(dskip)[head];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = tr + i;
+    if (t >= nrows) break;
+    T* row = y + ((row0 + t) * h + head) * p + p0;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tx + 16 * jj;
+      if (p0 + c < p)
+        store1(row + c, fmaf(d_h, s_x[t * kLdX + c], o[i][jj]));
+    }
+  }
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// The kernels' shared-memory limits, raised once per instance to what the
+// widest N needs (thread-safe: a function-local static).
+template <typename T, int NPF>
+cudaError_t configure() {
+  static const cudaError_t err = [] {
+    const int np = NPF > 0 ? NPF : kMaxState;
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_chunk_state<T, NPF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_state_bytes(np));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_chunk_output<T, NPF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_output_bytes<T>(np));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_chunk_output<T, NPF>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  return err;
+}
+
+template <typename T, int NPF>
 cudaError_t launch(const void* x, const float* dt, const float* a,
-                   const void* bm, const void* cm, const float* state0,
-                   float* y, float* state_out, int batch, int s, int h, int p,
-                   int n, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(n);
-  auto kernel = mamba2_ssd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                   const void* bm, const void* cm, const void* d, int d_bf16,
+                   const float* state0, void* y, float* state_out, float* ds,
+                   float* clast, int batch, int s, int h, int p, int n,
+                   cudaStream_t stream) {
+  cudaError_t err = configure<T, NPF>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((p + kPS - 1) / kPS, batch * h);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), dt, a, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), state0, y, state_out, s, h, p, n);
+  const int np = round16(n);
+  const int nc = (s + kC - 1) / kC, nbh = batch * h;
+  const bool vec = n % 8 == 0 && p % 8 == 0 && aligned16(x) &&
+                   aligned16(bm) && aligned16(cm);
+  const dim3 grid(nc, nbh, (p + kPB - 1) / kPB);
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(bm);
+
+  ssd_chunk_state<T, NPF><<<grid, kThreads, smem_state_bytes(np), stream>>>(
+      xt, dt, a, bt, ds, clast, s, h, p, n, nc, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t n2 = (size_t)nbh * p * n;
+  ssd_state_scan<<<(unsigned)((n2 + kThreads - 1) / kThreads), kThreads, 0,
+                   stream>>>(state0, ds, clast, state_out, nbh, p * n, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  ssd_chunk_output<T, NPF>
+      <<<grid, kThreads, smem_output_bytes<T>(np), stream>>>(
+          xt, dt, a, bt, static_cast<const T*>(cm), d, d_bf16, ds,
+          static_cast<T*>(y), s, h, p, n, nc, vec);
   return cudaGetLastError();
+}
+
+// N = 64 (zamba2) takes the instances with the state width fixed at
+// compile time; any other N the general ones.
+template <typename T>
+cudaError_t launch_any(const void* x, const float* dt, const float* a,
+                       const void* bm, const void* cm, const void* d,
+                       int d_bf16, const float* state0, void* y,
+                       float* state_out, float* ds, float* clast, int batch,
+                       int s, int h, int p, int n, cudaStream_t stream) {
+  if (n == 64)
+    return launch<T, 64>(x, dt, a, bm, cm, d, d_bf16, state0, y, state_out,
+                         ds, clast, batch, s, h, p, n, stream);
+  return launch<T, 0>(x, dt, a, bm, cm, d, d_bf16, state0, y, state_out, ds,
+                      clast, batch, s, h, p, n, stream);
 }
 
 }  // namespace
@@ -231,26 +674,32 @@ cudaError_t launch(const void* x, const float* dt, const float* a,
 extern "C" {
 
 int mamba2_ssd_max_state() { return kMaxState; }
+int mamba2_ssd_chunk() { return kC; }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, b and c alike; y is float32)
+// dtype: 0 = float32, 1 = bfloat16 (x, b, c and y alike); d_dtype the same
+// code for d (float32, or x's type).  ds [B, H, NC, P, N] and clast
+// [B, H, NC]: f32 scratch, NC = ceil(S / 64).
 int mamba2_ssd_fwd(const void* x, const void* dt, const void* a,
-                   const void* bm, const void* cm, const void* state0,
-                   void* y, void* state_out, int batch, int s, int h, int p,
-                   int n, int dtype, void* stream) {
-  if (n < 1 || n > kMaxState || p < 1 || h < 1 || batch < 1 || dtype < 0 ||
-      dtype > 1)
+                   const void* bm, const void* cm, const void* d,
+                   const void* state0, void* y, void* state_out, void* ds,
+                   void* clast, int batch, int s, int h, int p, int n,
+                   int dtype, int d_dtype, void* stream) {
+  if (n < 1 || n > kMaxState || p < 1 || h < 1 || batch < 1 || s < 1 ||
+      batch * h > 65535 || dtype < 0 || dtype > 1 ||
+      (d_dtype != 0 && d_dtype != dtype))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
   const float* s0 = static_cast<const float*>(state0);
-  float* yf = static_cast<float*>(y);
   float* so = static_cast<float*>(state_out);
+  float* dsf = static_cast<float*>(ds);
+  float* cl = static_cast<float*>(clast);
   const cudaError_t err =
-      dtype == 0 ? launch<float>(x, dtf, af, bm, cm, s0, yf, so, batch, s,
-                                 h, p, n, st)
-                 : launch<__nv_bfloat16>(x, dtf, af, bm, cm, s0, yf, so,
-                                         batch, s, h, p, n, st);
+      dtype == 0 ? launch_any<float>(x, dtf, af, bm, cm, d, 0, s0, y, so,
+                                     dsf, cl, batch, s, h, p, n, st)
+                 : launch_any<bf16>(x, dtf, af, bm, cm, d, d_dtype, s0, y,
+                                    so, dsf, cl, batch, s, h, p, n, st);
   return (int)err;
 }
 

@@ -244,6 +244,10 @@ def _ssd_inputs(b, s, h, p, n, dtype, dev, with_state, seed=5):
     (1, 31, 1, 8, 8),
     (2, 130, 4, 20, 128),      # P not a multiple of 16, widest N
     (1, 777, 80, 64, 64),      # zamba2's widths, ragged S
+    (1, 1, 4, 64, 64),         # one step
+    (1, 64, 4, 64, 64),        # exactly one chunk
+    (2, 65, 3, 64, 64),        # one step into a second chunk
+    (1, 4096, 8, 64, 64),      # 64 chunks of state passing
 ])
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -271,6 +275,109 @@ def test_mamba2_ssd_zero_dt_passes_state_through(cuda):
     y, fs = ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, torch.zeros_like(st))
     assert torch.equal(y, d[None, None, :, None] * x)
     assert torch.equal(fs, torch.zeros_like(st))
+
+
+def test_mamba2_ssd_strong_decay_matches_sequential(cuda):
+    """A = -8: a chunk's log decays sum to about -550, far below where
+    exp(-cum) overflows; the kernel stays finite and equals the
+    sequential recurrence."""
+    x, dt, _, bi, ci, d, st = _ssd_inputs(1, 300, 4, 64, 64, torch.float32,
+                                          cuda, True)
+    a = torch.full((4,), -8.0, device=cuda)
+    y, fs = ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, st)
+    assert torch.isfinite(y).all() and torch.isfinite(fs).all()
+    wy, wfs = ref.mamba2_ssd_scan(x, dt, a, bi, ci, d, st)
+    torch.testing.assert_close(y, wy, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(fs, wfs, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_split_prefill_equals_one(cuda, dtype):
+    """ssd(300 + 200) against ssd(200, state = ssd(300)): serving feeds
+    the cached state back this way, and 300 is not a multiple of the
+    chunk, so the two runs cut the sequence at different steps."""
+    x, dt, a, bi, ci, d, st = _ssd_inputs(1, 500, 8, 64, 64, dtype, cuda,
+                                          True, seed=11)
+    whole = ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, st)
+    parts = [t[:, :300].contiguous() for t in (x, dt, bi, ci)]
+    y1, st1 = ssd_kernel.mamba2_ssd(parts[0], parts[1], a, parts[2],
+                                    parts[3], d, st)
+    parts = [t[:, 300:].contiguous() for t in (x, dt, bi, ci)]
+    y2, st2 = ssd_kernel.mamba2_ssd(parts[0], parts[1], a, parts[2],
+                                    parts[3], d, st1)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(torch.cat([y1, y2], 1).float(),
+                               whole[0].float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st2, whole[1], atol=2e-3, rtol=2e-3)
+
+
+def test_mamba2_ssd_d_in_the_activation_type(cuda):
+    """The model passes its bf16 D-skip as it is: d in x's type matches the
+    plain version, which takes d in f32 after the same rounding."""
+    x, dt, a, bi, ci, d, st = _ssd_inputs(2, 130, 8, 64, 64, torch.bfloat16,
+                                          cuda, True)
+    d16 = d.to(torch.bfloat16)
+    y, fs = ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d16, st)
+    wy, wfs = ref.mamba2_ssd(x, dt, a, bi, ci, d16.float(), st, chunk=256)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), wy.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(fs, wfs, atol=2e-3, rtol=2e-3)
+
+
+def test_mamba2_ssd_launches_three_kernels_per_call(cuda):
+    """One wrapper call is the three phases and nothing else on the device
+    (no cast or D-skip pass): a profiler window of calls holds exactly
+    three kernels per call, one of each phase.  The profiler now and
+    then drops a launch from a window, so a short window is taken
+    again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    args = _ssd_inputs(1, 300, 8, 64, 64, torch.bfloat16, cuda, True)
+    calls = 4
+    ssd_kernel.mamba2_ssd(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            ssd_kernel.mamba2_ssd(*args)
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                ssd_kernel.mamba2_ssd(*args)
+            torch.cuda.synchronize()
+            prof.step()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        assert sum(counts.values()) <= 3 * calls, counts
+        if sum(counts.values()) == 3 * calls:
+            break
+    assert len(counts) == 3, counts
+    for phase in ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output"):
+        assert [c for k, c in counts.items() if phase in k] == [calls], counts
+
+
+def test_mamba2_ssd_rejects_bad_operands(cuda):
+    x, dt, a, bi, ci, d, st = _ssd_inputs(1, 20, 2, 16, 16, torch.bfloat16,
+                                          cuda, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.mamba2_ssd(x.cpu(), dt, a, bi, ci, d, st)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_kernel.mamba2_ssd(x, dt, a, bi.float(), ci, d, st)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d.double(), st)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_kernel.mamba2_ssd(x, dt.to(torch.bfloat16), a, bi, ci, d, st)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_kernel.mamba2_ssd(x.transpose(1, 2), dt, a, bi, ci, d, st)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d[:1].contiguous(), st)
+    with pytest.raises(ValueError, match="state width"):
+        wide = _ssd_inputs(1, 4, 1, 8, 136, torch.float32, cuda, False)
+        ssd_kernel.mamba2_ssd(*wide)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, st, chunk=0)
 
 
 def _wkv_inputs(b, s, h, kd, vd, dtype, dev, with_state, log_w=None,

@@ -21,6 +21,14 @@ each probability, to bf16, before the P V product on the tensor cores.  A
 plain emulation of its arithmetic is held to the reference here at the
 same 2e-2, so that the tolerance budget is known to cover that rounding
 before a card sees it.
+
+The CUDA SSD kernel is chunk-parallel (each 64-step chunk's state
+increment, a scan over the chunks, then each chunk's output with dt and
+the decay folded into the masked C B^T tile and the D-skip added before
+the one rounding).  `_ssd_kernel_emulation` does that arithmetic in plain
+f32 and is held to the sequential oracle: in f32 at 2e-3, and from bf16
+inputs with y within 2e-2 + 2e-2 |y| (one rounding of an f32 result to
+bf16) and the f32 state within 2e-3 + 2e-3 |s|.
 """
 import math
 
@@ -28,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa_kernel
@@ -224,6 +233,123 @@ def test_mamba2_ssd_zero_dt_passes_state_through():
     inter = torch.einsum("bhpn,btn->bthp", args[6], args[4])
     torch.testing.assert_close(y, inter + args[5][None, None, :, None]
                                * args[0], atol=1e-5, rtol=1e-5)
+
+
+def _ssd_kernel_emulation(x, dt, a, b_in, c_in, d, state=None):
+    """The CUDA kernel's arithmetic (`csrc/mamba2_ssd.cu`) in plain f32:
+    64-step chunks; each chunk's increment dS = sum_j exp(cum_last -
+    cum_j) dt_j x_j B_j^T and its total log decay (phase 1); the scan
+    S_{c+1} = exp(cum_last) S_c + dS_c (phase 2); the masked tile
+    G[t, j] = (C_t . B_j) exp(cum_t - cum_j) dt_j, its exponential taken
+    only where j <= t, and y = exp(cum_t) C_t . S_c + G x + D x summed in
+    f32 and rounded to x's dtype once (phase 3)."""
+    chunk = ssd_kernel.CHUNK
+    bb, s, h, p = x.shape
+    n = b_in.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(bb, nc, chunk, h, p)
+    dtf = F.pad(dt.float(), (0, 0, 0, pad)).reshape(bb, nc, chunk, h)
+    bf = F.pad(b_in.float(), (0, 0, 0, pad)).reshape(bb, nc, chunk, n)
+    cf = F.pad(c_in.float(), (0, 0, 0, pad)).reshape(bb, nc, chunk, n)
+    cum = torch.cumsum(dtf * a.float(), dim=2)                 # [B,NC,L,H]
+    last = cum[:, :, -1]                                       # [B,NC,H]
+    w = torch.exp(last[:, :, None] - cum) * dtf
+    ds = torch.einsum("bcjh,bcjhp,bcjn->bchpn", w, xf, bf)
+    st = (torch.zeros((bb, h, p, n)) if state is None else state.float())
+    starts = []
+    for c in range(nc):
+        starts.append(st)
+        st = torch.exp(last[:, c])[..., None, None] * st + ds[:, c]
+    s_c = torch.stack(starts, 1)                               # [B,NC,H,P,N]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()[..., None]
+    diff = cum[:, :, :, None] - cum[:, :, None]                # [B,NC,t,j,H]
+    dec = torch.where(tri, diff, -math.inf).exp()
+    g = (torch.einsum("bctn,bcjn->bctj", cf, bf)[..., None] * dec
+         * dtf[:, :, None])
+    y = (torch.exp(cum)[..., None]
+         * torch.einsum("bctn,bchpn->bcthp", cf, s_c)
+         + torch.einsum("bctjh,bcjhp->bcthp", g, xf)
+         + d.float()[:, None] * xf)
+    return y.reshape(bb, nc * chunk, h, p)[:, :s].to(x.dtype), st
+
+
+def _emulation_against_oracle(shape, with_state, dtype):
+    """The emulation and the sequential JAX oracle on the same inputs; in
+    bf16, x, B, C and D are rounded to bf16 first and the oracle gets the
+    rounded values in f32."""
+    args = [None if t is None else torch.from_numpy(t)
+            for t in _ssd_inputs(*shape, with_state=with_state)]
+    if dtype == torch.bfloat16:
+        for i in (0, 3, 4, 5):
+            args[i] = args[i].to(dtype)
+    y, st = _ssd_kernel_emulation(*args)
+    wy, wst = jref.mamba2_ssd(*[None if t is None else jnp.asarray(np32(
+        t.float())) for t in args])
+    assert y.dtype == dtype and st.dtype == torch.float32
+    wy, wst = np.asarray(wy), np.asarray(wst)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(np32(y), wy, atol=2e-3, rtol=2e-3)
+    else:
+        assert (np.abs(np32(y.float()) - wy) <= 2e-2 + 2e-2 * np.abs(wy)).all()
+    np.testing.assert_allclose(np32(st), wst, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("s", [1, 31, 63, 64, 65, 200])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_emulation_matches_sequential_reference(s, with_state,
+                                                           dtype):
+    """Around the kernel's 64-step chunk: one step, ragged first chunk,
+    exactly one chunk, one step into a second, several chunks."""
+    _emulation_against_oracle((2, s, 3, 8, 16), with_state, dtype)
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES + [(2, 130, 2, 20, 128)])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_emulation_at_reference_shapes(shape, with_state, dtype):
+    """tests/test_kernels.py's SSD shapes, and P = 20 with the widest N
+    (the card tests' shape)."""
+    _emulation_against_oracle(shape, with_state, dtype)
+
+
+def test_ssd_kernel_emulation_is_finite_under_strong_decay():
+    """A = -8: a 64-step chunk's log decays sum to about -550, far below
+    where exp(-cum) overflows; every exponent the kernel takes is <= 0, so
+    the result is finite and equals the port's sequential recurrence."""
+    x, dt, _, bi, ci, d, st = _ssd_inputs(1, 300, 2, 8, 16, seed=13,
+                                          with_state=True)
+    args = [torch.from_numpy(t) for t in (x, dt, np.full(2, -8.0, np.float32),
+                                          bi, ci, d, st)]
+    y, fs = _ssd_kernel_emulation(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(fs).all()
+    wy, wfs = tref.mamba2_ssd_scan(*args)
+    torch.testing.assert_close(y, wy, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(fs, wfs, atol=2e-3, rtol=2e-3)
+
+
+def test_ssd_kernel_emulation_zero_dt():
+    """dt = 0: the state passes through exactly, and from a zero state y
+    is exactly D x (the D-skip is one product added to an exact zero)."""
+    x, _, a, bi, ci, d, st = _ssd_inputs(1, 100, 2, 8, 16, with_state=True)
+    args = [torch.from_numpy(t) for t in (x, np.zeros((1, 100, 2),
+                                                      np.float32),
+                                          a, bi, ci, d, st)]
+    _, fs = _ssd_kernel_emulation(*args)
+    assert torch.equal(fs, args[6])
+    y, fs = _ssd_kernel_emulation(*args[:6], torch.zeros_like(args[6]))
+    assert torch.equal(y, args[5][None, None, :, None] * args[0])
+    assert torch.equal(fs, torch.zeros_like(args[6]))
+
+
+def test_ssd_scratch_shapes():
+    """One chunk's [P, N] state and total log decay per (b, h, chunk),
+    NC = ceil(S / 64)."""
+    ds, clast = ssd_kernel.scratch(2, 130, 3, 20, 16, "cpu")
+    assert tuple(ds.shape) == (2, 3, 3, 20, 16)
+    assert tuple(clast.shape) == (2, 3, 3)
+    assert ds.dtype == clast.dtype == torch.float32
 
 
 def test_dispatcher_takes_plain_versions_on_cpu():
