@@ -266,84 +266,83 @@ def phase_kernels():
     src = "src/repro_torch/kernels/csrc/gp_kernel.cu"
     d = 7
 
-    # gp_kernel_matrix: K(X, X) of a 2,048-point GS2 training set
-    n = 2048
-    x = randn(n, d)
-    ls = torch.exp(0.2 * randn(d))
+    # gp_kernel_matrix: K(X, X) of a 2,048-point GS2 training set, both
+    # kinds; then the main path's own shapes (rbf, its kind): the GP fit
+    # at n = 256 (N_SIMS), the partitioned fit's subsample of 512 and an
+    # expert of expert_cap = 128
     var = torch.tensor(1.7, device=dev)
-    for kind in ("rbf", "matern52"):
+    for n, kind, label in ((2048, "rbf", "rbf"), (2048, "matern52", "matern52"),
+                           (256, "rbf", "rbf n=256"), (512, "rbf", "rbf n=512"),
+                           (128, "rbf", "rbf n=128")):
+        x = randn(n, d)
+        ls = torch.exp(0.2 * randn(d))
         got = gp_kernel.gp_kernel_matrix(x, x, ls, var, kind)
         torch.cuda.synchronize()
         want = ref.gp_kernel_matrix(x, x, ls, var, kind)
         err = max_err(got, want)
         if not err <= 2e-5:
-            raise AssertionError(f"gp_kernel_matrix {kind}: {err} > 2e-5")
+            raise AssertionError(f"gp_kernel_matrix {label}: {err} > 2e-5")
         run = (lambda: gp_kernel.gp_kernel_matrix(x, x, ls, var, kind))
-        ms = device_ms(run, 200, label=f"gp_kernel_matrix[{kind}]")
+        ms = device_ms(run, 200, label=f"gp_kernel_matrix[{label}]")
         call = call_ms(run, 200)
         plain = device_ms(lambda: ref.gp_kernel_matrix(x, x, ls, var, kind),
-                          200, label=f"plain gp_kernel_matrix[{kind}]")
+                          200, label=f"plain gp_kernel_matrix[{label}]")
         per_elem = 2 * d + 6 + (8 if kind == "matern52" else 2)
         b, by = bound_ms(4 * (2 * n * d + d + 1) + 4 * n * n,
                          n * n * per_elem + 2 * n * 2 * d)
-        rows.append(dict(name=f"gp_kernel_matrix[{kind}]", shape=f"{n}x{n}x{d}",
+        rows.append(dict(name=f"gp_kernel_matrix[{label}]", shape=f"{n}x{n}x{d}",
                          max_abs_err=err, tol=2e-5, ms=ms, call_ms=call,
                          plain_ms=plain, bound_ms=b, bound_by=by))
 
     # gp_predict: the predictor's 256-point posterior and a 2,048-point
-    # one, against the top bucket (1,024 queries), two outputs
-    s, m = 1024, 2
-    for n in (256, 2048):
-        xt, xs = randn(n, d), randn(s, d)
+    # one, against the top bucket (1,024 queries), two outputs; then
+    # gp_predict_experts: 64 experts of expert_cap=128, 1,024 queries
+    # each, one output.  A call is three kernels (K0 and the mean's
+    # partials, the triangular product, the reduction with the scaling):
+    # its row sums their device time, gives each one's (phase_ms), and
+    # states the kernels per call (exactly three, asserted) and the
+    # scratch bytes.
+    for name, e, n, s, m in (("gp_predict", 1, 256, 1024, 2),
+                             ("gp_predict", 1, 2048, 1024, 2),
+                             ("gp_predict_experts", 64, 128, 1024, 1)):
+        xt, xs = randn(e, n, d), randn(e, s, d)
         ls = 2.0 * torch.exp(0.2 * randn(d))
         var = torch.tensor(1.3, device=dev)
         linv = _linv(ref.gp_kernel_matrix(xt, xt, ls, var))
-        alpha = randn(n, m)
+        alpha = randn(e, n, m)
         args = (xt, xs, ls, var, alpha, linv)
-        got = gp_kernel.gp_predict(*args)
+        if e == 1:
+            args = tuple(a[0] if a.dim() == 3 else a for a in args)
+        fn = getattr(gp_kernel, name)
+        got = fn(*args)
         torch.cuda.synchronize()
-        want = ref.gp_predict(*args)
+        want = getattr(ref, name)(*args)
         err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        label = f"{name}[n={n}]" if e == 1 else name
         if not err <= 1e-4:
-            raise AssertionError(f"gp_predict n={n}: {err} > 1e-4")
-        ms = device_ms(lambda: gp_kernel.gp_predict(*args), 50,
-                       label=f"gp_predict[n={n}]")
-        call = call_ms(lambda: gp_kernel.gp_predict(*args), 50)
-        plain = device_ms(lambda: ref.gp_predict(*args), 50,
-                          label=f"plain gp_predict[n={n}]")
+            raise AssertionError(f"{label}: {err} > 1e-4")
+        run = (lambda: fn(*args))
+        kernels = {}
+        ms = device_ms(run, 50, label=label, by_kernel=kernels,
+                       expect=len(GP_PREDICT_PHASES))
+        phase_ms, per_call = _phases(kernels, GP_PREDICT_PHASES)
+        plain = device_ms(lambda: getattr(ref, name)(*args), 50,
+                          label=f"plain {label}")
         tri = n * (n + 1) // 2
-        b, by = bound_ms(4 * (n * d + s * d + d + 1 + n * m + tri + s * m + s),
-                         s * (2 * tri + n * (2 * d + 2 * m + 8)))
-        rows.append(dict(name=f"gp_predict[n={n}]", shape=f"n{n} s{s} m{m}",
-                         max_abs_err=err, tol=1e-4, ms=ms, call_ms=call,
-                         plain_ms=plain, bound_ms=b, bound_by=by))
-
-    # gp_predict_experts: 64 experts of expert_cap=128, 1,024 queries each
-    e, n, s, m = 64, 128, 1024, 1
-    xt, xs = randn(e, n, d), randn(e, s, d)
-    ls = 2.0 * torch.exp(0.2 * randn(d))
-    var = torch.tensor(1.3, device=dev)
-    linv = _linv(ref.gp_kernel_matrix(xt, xt, ls, var))
-    alpha = randn(e, n, m)
-    args = (xt, xs, ls, var, alpha, linv)
-    got = gp_kernel.gp_predict_experts(*args)
-    torch.cuda.synchronize()
-    want = ref.gp_predict_experts(*args)
-    err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
-    if not err <= 1e-4:
-        raise AssertionError(f"gp_predict_experts: {err} > 1e-4")
-    ms = device_ms(lambda: gp_kernel.gp_predict_experts(*args), 50,
-                   label="gp_predict_experts")
-    call = call_ms(lambda: gp_kernel.gp_predict_experts(*args), 50)
-    plain = device_ms(lambda: ref.gp_predict_experts(*args), 50,
-                      label="plain gp_predict_experts")
-    tri = n * (n + 1) // 2
-    b, by = bound_ms(4 * e * (n * d + s * d + n * m + tri + s * m + s)
-                     + 4 * (d + 1),
-                     e * s * (2 * tri + n * (2 * d + 2 * m + 8)))
-    rows.append(dict(name="gp_predict_experts", shape=f"e{e} n{n} s{s} m{m}",
-                     max_abs_err=err, tol=1e-4, ms=ms, call_ms=call,
-                     plain_ms=plain, bound_ms=b, bound_by=by))
+        b, by = bound_ms(4 * e * (n * d + s * d + n * m + tri + s * m + s)
+                         + 4 * (d + 1),
+                         e * s * (2 * tri + n * (2 * d + 2 * m + 8)))
+        rows.append(dict(
+            name=label, shape=f"e{e} n{n} s{s} m{m}", max_abs_err=err,
+            tol=1e-4, ms=ms, call_ms=call_ms(run, 50), plain_ms=plain,
+            bound_ms=b, bound_by=by, kernel_launches_per_call=per_call,
+            phase_ms=phase_ms, scratch_bytes=4 * sum(
+                math.prod(shape) for shape in
+                gp_kernel.predict_scratch(e, n, s, m).values()),
+            note="ms sums the device time of the call's three kernels "
+                 "(K0, triangular product, reduction); the launches per "
+                 "call and phase_ms are counted in the profiler window, "
+                 "null where it was event-timed"))
     for r in rows:
         r.update(source=src, library_ms=None)
         log("kernel", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
@@ -381,8 +380,10 @@ def _ssd_bound(x, b_in, state):
     return bound_ms(n_bytes, 5 * bb * s * h * p * n)
 
 
-# the three kernels of one mamba2_ssd and of one rwkv6_wkv call, in launch
-# order (their names as the profiler shows them contain these)
+# the three kernels of one gp_predict / gp_predict_experts, one mamba2_ssd
+# and one rwkv6_wkv call, in launch order (their names as the profiler
+# shows them contain these)
+GP_PREDICT_PHASES = ("gp_predict_k0", "gp_predict_tri", "gp_predict_reduce")
 SSD_PHASES = ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output")
 WKV_PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
 
@@ -655,6 +656,7 @@ def phase_main():
     torch.cuda.synchronize()
 
     gp_kernel.reset_launches()
+    gp_lib.predict_batch_shapes.clear()
     t_main = time.perf_counter()
 
     # 1-2. GS2 solves on the executor: persistent workers, then naive
@@ -808,6 +810,15 @@ def phase_main():
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     log("main.launches", **launches)
+    # batched-predict launches per (training rows, query bucket); the
+    # partitioned engine's keys are ("part", experts, rows per expert,
+    # bucket)
+    shapes = {" ".join(map(str, k)): v
+              for k, v in sorted(gp_lib.predict_batch_shapes.items(),
+                                 key=lambda kv: str(kv[0]))}
+    out["predict_batch_shapes"] = shapes
+    log("main.predict_batch_shapes", **{k.replace(" ", "_"): v
+                                        for k, v in shapes.items()})
 
     # the card's batched predict against the port on the CPU, same
     # posterior (1e-4: same f32 formulas, different summation order)

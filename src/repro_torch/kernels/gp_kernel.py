@@ -1,5 +1,5 @@
-"""CUDA kernels for the GP path: covariance assembly and the fused
-batched predict (`csrc/gp_kernel.cu`), bound through a plain C interface.
+"""CUDA kernels for the GP path: covariance assembly and the batched
+predict (`csrc/gp_kernel.cu`), bound through a plain C interface.
 
 Each wrapper replaces one Pallas kernel of `repro/kernels/gp_kernel.py`:
 
@@ -10,17 +10,24 @@ Each wrapper replaces one Pallas kernel of `repro/kernels/gp_kernel.py`:
 The library is compiled with `nvcc` for `sm_90a` at first use and loaded
 with `ctypes` (`_build.Library`).
 Wrappers take CUDA f32 contiguous tensors only and raise on anything else;
-they launch on `torch.cuda.current_stream()`, allocate outputs (and the
-predict's k0 scratch) with `torch.empty`, and raise when the launch
-reports an error.  `launches` counts the kernel launches of each wrapper.
-What bounds each kernel on the H100, and what its design does about it,
-is written beside the kernel in the CUDA source.
+they launch on `torch.cuda.current_stream()`, allocate outputs with
+`torch.empty`, and raise when a launch reports an error.
+
+A predict call (`gp_predict`, `gp_predict_experts`) is three kernels and
+nothing else on the device: K0 and the mean's partial sums per 32-row
+block (`gp_predict_k0`), the triangular product L^-1 K0 with each row
+block's sum of squares (`gp_predict_tri`), and the fixed-order reduction
+that also applies the variance and its square (`gp_predict_reduce`).
+Its f32 scratch (`predict_scratch`) is allocated with `torch.empty` per
+call.  `launches` counts one per wrapper call, whatever the kernels per
+call.  What bounds each kernel on the H100, and what its design does
+about it, is written beside the kernel in the CUDA source.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,7 +38,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "gp_kernel.cu"
 KINDS = {"rbf": 0, "matern52": 1}
 MAX_DIM = 16           # kMaxDim in the CUDA source
 MAX_OUT = 4            # kMaxOut
-TILE_QUERIES = 32      # kPTile: queries per predict block
+TILE_QUERIES = 64      # kQ: queries per predict tile
+ROW_BLOCK = 32         # kB: training rows per block of K0 and of L^-1
 
 launches = _build.Launches("gp_kernel_matrix", "gp_predict",
                            "gp_predict_experts")
@@ -42,15 +50,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gp_kernel_matrix_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.gp_kernel_matrix_f32.restype = i
-    lib.gp_predict_f32.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.gp_predict_f32.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.gp_predict_f32.restype = i
-    for fn in ("gp_kernel_tile_queries", "gp_kernel_max_dim",
-               "gp_kernel_max_out"):
+    consts = ("gp_kernel_tile_queries", "gp_kernel_row_block",
+              "gp_kernel_max_dim", "gp_kernel_max_out")
+    for fn in consts:
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
-    got = (lib.gp_kernel_tile_queries(), lib.gp_kernel_max_dim(),
-           lib.gp_kernel_max_out())
-    if got != (TILE_QUERIES, MAX_DIM, MAX_OUT):
+    got = tuple(getattr(lib, fn)() for fn in consts)
+    if got != (TILE_QUERIES, ROW_BLOCK, MAX_DIM, MAX_OUT):
         raise RuntimeError(f"kernel constants {got} disagree with the "
                            f"wrapper's")
 
@@ -138,6 +146,18 @@ def gp_kernel_matrix(x1: torch.Tensor, x2: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+def predict_scratch(e: int, n: int, s: int,
+                    m: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of a predict call's f32 scratch, with the training rows cut
+    into NB blocks of 32 and the queries padded to SP, a multiple of 64:
+    K0 [E, 32 NB, SP], the mean's partial sums per row block [E, NB, SP, M]
+    and each row block's sum of squares of L^-1 K0 [E, NB, SP]."""
+    nb = -(-n // ROW_BLOCK)
+    sp = -(-s // TILE_QUERIES) * TILE_QUERIES
+    return {"k0": (e, nb * ROW_BLOCK, sp), "mpart": (e, nb, sp, m),
+            "qpart": (e, nb, sp)}
+
+
 def _predict_launch(name, x_train, x_star, lengthscale, variance, alpha,
                     linv, kind) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared launch for [E, ...] stacked operands."""
@@ -166,35 +186,36 @@ def _predict_launch(name, x_train, x_star, lengthscale, variance, alpha,
         raise ValueError(f"need 1..65535 experts of at least one training "
                          f"row, got e={e}, n={n}")
     dev = x_train.device
-    mean0 = torch.empty((e, s, m), dtype=torch.float32, device=dev)
-    qf0 = torch.empty((e, s), dtype=torch.float32, device=dev)
-    tiles = -(-s // TILE_QUERIES)
-    k0 = torch.empty((e, tiles, n, TILE_QUERIES), dtype=torch.float32,
-                     device=dev)
+    mean = torch.empty((e, s, m), dtype=torch.float32, device=dev)
+    qf = torch.empty((e, s), dtype=torch.float32, device=dev)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in predict_scratch(e, n, s, m).values()]
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gp_predict_f32(
             x_train.data_ptr(), x_star.data_ptr(), lengthscale.data_ptr(),
-            alpha.data_ptr(), linv.data_ptr(), mean0.data_ptr(),
-            qf0.data_ptr(), k0.data_ptr(), e, n, s, d, m, _kind(kind),
+            alpha.data_ptr(), linv.data_ptr(), variance.data_ptr(),
+            mean.data_ptr(), qf.data_ptr(),
+            *(t.data_ptr() for t in scratch), e, n, s, d, m, _kind(kind),
             stream)
     _build.raise_on(err, name)
     launches.count(name)
-    return variance * mean0, (variance * variance) * qf0
+    return mean, qf
 
 
 def gp_predict(x_train: torch.Tensor, x_star: torch.Tensor,
                lengthscale: torch.Tensor, variance: torch.Tensor,
                alpha: torch.Tensor, linv: torch.Tensor, kind: str = "rbf"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched GP posterior predict in one launch.
+    """Batched GP posterior predict in one call (three kernels).
 
     x_train: [N, D]; x_star: [S, D]; alpha: [N, M]; linv: [N, N], the
     LOWER-TRIANGULAR inverse Cholesky factor of K + s2 I (the kernel skips
     its upper part) -> (normalised mean [S, M], ||L^-1 ks||^2 [S]).  The
-    kernel works on the unscaled correlation; mean is scaled by `variance`
-    and the quadratic form by `variance`^2 here, as in the Pallas wrapper.
+    kernels work on the unscaled correlation; the last scales the mean by
+    `variance` and the quadratic form by `variance`^2, as the Pallas
+    wrapper does after its kernel.
     """
     mean, qf = _predict_launch("gp_predict", x_train[None], x_star[None],
                                lengthscale, variance, alpha[None],
@@ -207,8 +228,8 @@ def gp_predict_experts(x_train: torch.Tensor, x_star: torch.Tensor,
                        alpha: torch.Tensor, linv: torch.Tensor,
                        kind: str = "rbf"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stacked local-GP ensemble predict: all E experts in ONE launch
-    (the expert index is the grid's y dimension).
+    """Stacked local-GP ensemble predict: all E experts in one call (the
+    expert is a grid dimension of each of the three kernels).
 
     x_train: [E, N, D]; x_star: [E, S, D]; alpha: [E, N, M];
     linv: [E, N, N] lower-triangular -> (mean [E, S, M], qf [E, S]).

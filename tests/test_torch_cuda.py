@@ -84,11 +84,25 @@ def test_kernel_matrix_matches_plain(cuda, n, m, d, kind):
                                atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("e,n,s,m_out", [(1, 37, 70, 2), (1, 256, 1024, 2),
-                                         (1, 300, 33, 1), (5, 128, 64, 1)])
+def _zero_pad_experts(args, keep):
+    """Every other expert keeps its first `keep` training rows; the rest
+    are padding (zero inputs, alpha, and rows and columns of L^-1), as the
+    partitioned engine stacks its experts."""
+    xt, _, _, _, alpha, linv = args
+    for t in (xt[1::2, keep:], alpha[1::2, keep:], linv[1::2, keep:],
+              linv[1::2, :, keep:]):
+        t.zero_()
+
+
+@pytest.mark.parametrize("e,n,s,m_out,padded", [
+    (1, 37, 70, 2, False), (1, 256, 1024, 2, False), (1, 300, 33, 1, False),
+    (5, 128, 64, 1, False), (1, 2048, 1024, 2, False),
+    (64, 128, 1024, 1, True), (1, 257, 1000, 4, False), (1, 1, 1, 1, False)])
 @pytest.mark.parametrize("kind", ["rbf", "matern52"])
-def test_predict_matches_plain(cuda, e, n, s, m_out, kind):
+def test_predict_matches_plain(cuda, e, n, s, m_out, padded, kind):
     args = _predict_inputs(e, n, s, m_out, cuda)
+    if padded:
+        _zero_pad_experts(args, n // 3)
     if e == 1:
         single = [a[0] if a.dim() == 3 else a for a in args]
         got = [g[None] for g in gp_kernel.gp_predict(*single, kind)]
@@ -97,6 +111,50 @@ def test_predict_matches_plain(cuda, e, n, s, m_out, kind):
     torch.cuda.synchronize()
     for g, w in zip(got, ref.gp_predict_experts(*args, kind)):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def _device_kernel_counts(fn, calls):
+    """Kernel name -> launches in one profiler window of `calls` calls of
+    `fn` (three kernels each), opened with one untimed call.  The profiler
+    now and then drops a launch from a window, so a window short of
+    3 x `calls` launches is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        if sum(counts.values()) >= 3 * calls:
+            break
+    return counts
+
+
+@pytest.mark.parametrize("e,n,s", [(1, 256, 1024), (64, 128, 1024)])
+def test_predict_launches_three_kernels_per_call(cuda, e, n, s):
+    """One predict call is its three kernels and nothing else on the
+    device (no eager scaling after them)."""
+    args = _predict_inputs(e, n, s, 2, cuda)
+    if e == 1:
+        args = [a[0] if a.dim() == 3 else a for a in args]
+        fn = (lambda: gp_kernel.gp_predict(*args))
+    else:
+        fn = (lambda: gp_kernel.gp_predict_experts(*args))
+    calls = 4
+    counts = _device_kernel_counts(fn, calls)
+    assert len(counts) == 3 and sum(counts.values()) == 3 * calls, counts
+    for phase in ("gp_predict_k0", "gp_predict_tri", "gp_predict_reduce"):
+        assert [c for k, c in counts.items() if phase in k] == [calls], counts
 
 
 def test_kernel_matrix_gradient_matches_plain(cuda):
@@ -328,32 +386,12 @@ def test_mamba2_ssd_d_in_the_activation_type(cuda):
 def test_mamba2_ssd_launches_three_kernels_per_call(cuda):
     """One wrapper call is the three phases and nothing else on the device
     (no cast or D-skip pass): a profiler window of calls holds exactly
-    three kernels per call, one of each phase.  The profiler now and
-    then drops a launch from a window, so a short window is taken
-    again."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    three kernels per call, one of each phase."""
     args = _ssd_inputs(1, 300, 8, 64, 64, torch.bfloat16, cuda, True)
     calls = 4
-    ssd_kernel.mamba2_ssd(*args)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            ssd_kernel.mamba2_ssd(*args)
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(calls):
-                ssd_kernel.mamba2_ssd(*args)
-            torch.cuda.synchronize()
-            prof.step()
-        counts = {e.key: e.count for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA}
-        assert sum(counts.values()) <= 3 * calls, counts
-        if sum(counts.values()) == 3 * calls:
-            break
-    assert len(counts) == 3, counts
+    counts = _device_kernel_counts(lambda: ssd_kernel.mamba2_ssd(*args),
+                                   calls)
+    assert len(counts) == 3 and sum(counts.values()) == 3 * calls, counts
     for phase in ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output"):
         assert [c for k, c in counts.items() if phase in k] == [calls], counts
 
