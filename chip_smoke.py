@@ -23,7 +23,12 @@ to the CPU:
                 time, the least time the card could take (bound) and, for
                 attention, PyTorch's scaled_dot_product_attention on the
                 same inputs as a yardstick (timed only; the port never
-                calls it).  The WKV also at a strong decay (log w = -1.5,
+                calls it).  First the launch floor: the device time of the
+                least kernel (zero_() of one element), which the small
+                shapes' rows are read against.  The covariance gradient
+                (gp_kernel_matrix_grad, two kernels per call, asserted)
+                at the fit's n = 256 and at 2,048, against its plain closed
+                form.  The WKV also at a strong decay (log w = -1.5,
                 where the reference's chunked form overflows), held against
                 the sequential recurrence.  An SSD or WKV call is three
                 kernels (chunk states, the scan over chunks, the output):
@@ -39,6 +44,10 @@ to the CPU:
                 The kernels' launch counters are zeroed just before and
                 must all have risen just after.  The card's predictions are
                 held against the port on the CPU for the same posterior.
+                Then, outside the counted run, one fit step profiled
+                (main.gp_fit: kernels, device and host ms per step) and
+                K(X, X)'s gradient timed the port's way against the plain
+                autograd, alternating.
   5. serve    — LM serving of zamba2-2.7b at its published widths (54
                 layers, d_model 2560, bf16, random weights from a seed)
                 through the Executor: 8 requests on one persistent server
@@ -191,6 +200,103 @@ def _device_busy_ms(prof) -> float:
     return sum(e.self_device_time_total for e in _kernel_events(prof)) / 1e3
 
 
+def launch_floor_ms() -> float:
+    """Device ms of the least kernel the card runs: zero_() of a one-element
+    tensor, timed as the kernel rows are (device_ms, 200 calls)."""
+    import torch
+    t = torch.empty(1, device="cuda")
+    return device_ms(t.zero_, 200, label="launch floor")
+
+
+def host_ms(fn, iters: int) -> float:
+    """Host ms per call of `fn` over `iters` calls ending in a synchronize
+    (perf_counter, no profiler)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def fit_step_profile(x, y, steps: int = 5, rounds: int = 5) -> dict:
+    """One step of the GP fit as `uq.gp._fit` takes it (nlml, then the
+    gradient of every log-parameter), at the initial parameters, rbf, on
+    the card: the kernels a step launches and their device ms (a profiler
+    window of `steps` steps), and its host ms (`host_ms` over `steps`
+    steps, outside the profiler).  Then K(X, X) and its gradient in the
+    lengthscale and variance alone, the port's way (`gp_kernel_matrix`
+    and its backward) and the old way (the plain `ref.gp_kernel_matrix`
+    on CUDA tensors under autograd), the two alternating in `rounds`
+    rounds so that host noise falls on both: kernels, device ms and host
+    ms per call (host ms: the median of the rounds)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import gp_kernel, ref
+    from repro_torch.uq import gp as gp_lib
+    x = gp_lib.as_f32(x, "cuda")
+    y2 = gp_lib.as_f32(y, "cuda")
+    mean, std = gp_lib._standardise(y2)
+    yn = (y2 - mean) / std
+    tree0 = gp_lib.GPParams.init(x.shape[1], x.device).tree()
+
+    def step():
+        leaves = {k: a.detach().requires_grad_() for k, a in tree0.items()}
+        loss = gp_lib.nlml(leaves, x, yn, "rbf")
+        torch.autograd.grad(loss, list(leaves.values()))
+
+    def measure(fn, label):
+        # every kernel launches a whole number of times per call, so a
+        # fractional count is an event the profiler dropped: such a window
+        # is taken again, up to four times, and the fullest one kept
+        best = None
+        for _ in range(4):
+            by_kernel = {}
+            dev = device_ms(fn, steps, warmup=2, label=label,
+                            by_kernel=by_kernel)
+            count = sum(c for _, c in by_kernel.values())
+            whole = bool(by_kernel) and all(
+                abs(c - round(c)) < 1e-9 for _, c in by_kernel.values())
+            if whole or best is None or count > best[0]:
+                best = (count, dev, by_kernel, whole)
+            if whole:
+                break
+        count, dev, by_kernel, whole = best
+        names = {}
+        for k, (_, c) in by_kernel.items():
+            names[k[:60]] = names.get(k[:60], 0.0) + c
+        return dict(kernels=count if by_kernel else None, device_ms=dev,
+                    whole_counts=whole,
+                    by_kernel=dict(sorted(names.items(),
+                                          key=lambda kv: -kv[1])))
+
+    out = dict(n=x.shape[0], d=x.shape[1], outputs=yn.shape[1],
+               step=measure(step, "fit step"))
+    out["step"]["host_ms"] = statistics.median(
+        host_ms(step, steps) for _ in range(rounds))
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    up = torch.randn(x.shape[0], x.shape[0], generator=g, device="cuda")
+    ls = torch.ones(x.shape[1], device="cuda", requires_grad=True)
+    var = torch.ones((), device="cuda", requires_grad=True)
+    ways = {"port": gp_kernel.gp_kernel_matrix,
+            "plain_autograd": ref.gp_kernel_matrix}
+    calls = {name: (lambda f=f: torch.autograd.grad(f(x, x, ls, var),
+                                                    (ls, var), up))
+             for name, f in ways.items()}
+    out["k_grad"] = {name: measure(fn, f"K grad {name}")
+                     for name, fn in calls.items()}
+    hosts = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            hosts[name].append(host_ms(fn, 20))
+    for name, ms in hosts.items():
+        out["k_grad"][name].update(host_ms=statistics.median(ms),
+                                   host_ms_rounds=ms)
+    return out
+
+
 def bound_ms(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / flop_per_s * 1e3
@@ -265,6 +371,8 @@ def phase_kernels():
     rows = []
     src = "src/repro_torch/kernels/csrc/gp_kernel.cu"
     d = 7
+    floor = launch_floor_ms()
+    log("kernel", launch_floor_ms=f"{floor:.6g}")
 
     # gp_kernel_matrix: K(X, X) of a 2,048-point GS2 training set, both
     # kinds; then the main path's own shapes (rbf, its kind): the GP fit
@@ -283,7 +391,7 @@ def phase_kernels():
         if not err <= 2e-5:
             raise AssertionError(f"gp_kernel_matrix {label}: {err} > 2e-5")
         run = (lambda: gp_kernel.gp_kernel_matrix(x, x, ls, var, kind))
-        ms = device_ms(run, 200, label=f"gp_kernel_matrix[{label}]")
+        ms = device_ms(run, 200, label=f"gp_kernel_matrix[{label}]", expect=1)
         call = call_ms(run, 200)
         plain = device_ms(lambda: ref.gp_kernel_matrix(x, x, ls, var, kind),
                           200, label=f"plain gp_kernel_matrix[{label}]")
@@ -292,7 +400,60 @@ def phase_kernels():
                          n * n * per_elem + 2 * n * 2 * d)
         rows.append(dict(name=f"gp_kernel_matrix[{label}]", shape=f"{n}x{n}x{d}",
                          max_abs_err=err, tol=2e-5, ms=ms, call_ms=call,
-                         plain_ms=plain, bound_ms=b, bound_by=by))
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         launch_floor_ms=floor))
+
+    # gp_kernel_matrix_grad: the gradient of K(X, X) in the lengthscale and
+    # variance against an upstream gradient of both signs, at the fit's
+    # n = 256 and at 2,048, held to the plain closed form at 1e-5 of each
+    # component's sum of absolute terms.  A call is two kernels (the
+    # tiles' partial sums, their fixed-order reduction): its row sums
+    # their device time, gives each one's, and asserts two per call.
+    for n, kind in ((256, "rbf"), (2048, "rbf"), (2048, "matern52")):
+        x = randn(n, d)
+        ls = torch.exp(0.2 * randn(d) + 0.5)
+        up = randn(n, n)
+        args = (up, x, x, ls, var, kind)
+        got = gp_kernel.gp_kernel_matrix_grad(*args)
+        torch.cuda.synchronize()
+        want = ref.gp_kernel_matrix_grad(*args)
+        scale = ref.gp_kernel_matrix_grad(up.double().abs(), x.double(),
+                                          x.double(), ls.double(),
+                                          var.double(), kind)
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        rel = max(float(((a.double() - b.double()).abs() / s).max())
+                  for a, b, s in zip(got, want, scale))
+        label = f"gp_kernel_matrix_grad[{kind} n={n}]"
+        if not rel <= 1e-5:
+            raise AssertionError(f"{label}: {rel} of the terms' scale > 1e-5")
+        run = (lambda: gp_kernel.gp_kernel_matrix_grad(*args))
+        kernels = {}
+        ms = device_ms(run, 200, label=label, by_kernel=kernels,
+                       expect=len(GP_GRAD_PHASES))
+        phase_ms, per_call = _phases(kernels, GP_GRAD_PHASES)
+        if per_call is not None and per_call != 2:
+            raise AssertionError(f"{label}: {per_call} kernels per call")
+        plain = device_ms(lambda: ref.gp_kernel_matrix_grad(*args), 20,
+                          label=f"plain {label}")
+        # bytes: G, x and ls read once, g_ls and g_var written once;
+        # operations per element: the cross term (2d), d2 (3), the
+        # correlation and h (rbf 4, matern52 12), g_var's multiply-add (2)
+        # and the squared differences' subtract, multiply, multiply-add
+        # (3d) and G h (1)
+        per_elem = 5 * d + 6 + (12 if kind == "matern52" else 4)
+        b, by = bound_ms(4 * (n * n + n * d + d + 1) + 4 * (d + 1),
+                         n * n * per_elem + 2 * n * 2 * d)
+        rows.append(dict(
+            name=label, shape=f"{n}x{n}x{d}", max_abs_err=err,
+            rel_to_terms=rel, tol="1e-5 of each component's sum |term|",
+            ms=ms, call_ms=call_ms(run, 200), plain_ms=plain, bound_ms=b,
+            bound_by=by, launch_floor_ms=floor,
+            kernel_launches_per_call=per_call, phase_ms=phase_ms,
+            scratch_bytes=4 * math.prod(gp_kernel.grad_scratch(n, n, d)),
+            note="ms sums the device time of the call's two kernels (the "
+                 "tiles' partial sums, their fixed-order reduction); the "
+                 "launches per call and phase_ms are counted in the "
+                 "profiler window, null where it was event-timed"))
 
     # gp_predict: the predictor's 256-point posterior and a 2,048-point
     # one, against the top bucket (1,024 queries), two outputs; then
@@ -381,9 +542,10 @@ def _ssd_bound(x, b_in, state):
 
 
 # the three kernels of one gp_predict / gp_predict_experts, one mamba2_ssd
-# and one rwkv6_wkv call, in launch order (their names as the profiler
-# shows them contain these)
+# and one rwkv6_wkv call, and the two of one gp_kernel_matrix_grad call, in
+# launch order (their names as the profiler shows them contain these)
 GP_PREDICT_PHASES = ("gp_predict_k0", "gp_predict_tri", "gp_predict_reduce")
+GP_GRAD_PHASES = ("gp_kernel_matrix_grad_tiles", "gp_kernel_matrix_grad_reduce")
 SSD_PHASES = ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output")
 WKV_PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
 
@@ -837,6 +999,20 @@ def phase_main():
                              f"var {err_v} > 1e-4")
     out["card_vs_cpu"] = dict(mean_err=err_m, var_err=err_v)
     log("main.card_vs_cpu", mean_err=f"{err_m:.3g}", var_err=f"{err_v:.3g}")
+
+    # the fit's step profiled, and K's gradient the port's way against the
+    # plain autograd, at the main fit's data
+    prof = fit_step_profile(thetas, y)
+    out["gp_fit"]["step_profile"] = prof
+    step, kg = prof["step"], prof["k_grad"]
+    log("main.gp_fit", profile_steps=5, kernels_per_step=step["kernels"],
+        whole_counts=step["whole_counts"],
+        device_ms_per_step=f"{step['device_ms']:.6g}",
+        host_ms_per_step=f"{step['host_ms']:.6g}",
+        **{f"k_grad_{name}_{key}": (f"{v[key]:.6g}"
+                                    if isinstance(v[key], float) else v[key])
+           for name, v in kg.items()
+           for key in ("kernels", "device_ms", "host_ms", "whole_counts")})
     return out, launches
 
 
@@ -1085,6 +1261,11 @@ def main() -> int:
     log("main.launches", **launches)
 
     replaces = {"gp_kernel_matrix": "src/repro/kernels/gp_kernel.py:23",
+                # no Pallas kernel: XLA's autodiff of the reference matrix
+                # inside the fit's value_and_grad
+                "gp_kernel_matrix_grad": "src/repro/kernels/ref.py:361 "
+                                         "(autodiff through "
+                                         "src/repro/uq/gp.py:156)",
                 "gp_predict": "src/repro/kernels/gp_kernel.py:79",
                 "gp_predict_experts": "src/repro/kernels/gp_kernel.py:159",
                 "flash_attention": "src/repro/kernels/flash_attention.py:30",
@@ -1100,7 +1281,8 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             **{k: r[k] for k in ("kernel_launches_per_call", "scratch_bytes",
-                                 "phase_ms", "note") if k in r}))
+                                 "phase_ms", "launch_floor_ms", "note")
+               if k in r}))
     script_s = time.perf_counter() - t_script
     log("total", seconds=f"{script_s:.1f}")
     record = dict(device=name, nvidia_smi=smi, build_s=build_s,

@@ -1,11 +1,17 @@
-"""CUDA kernels for the GP path: covariance assembly and the batched
-predict (`csrc/gp_kernel.cu`), bound through a plain C interface.
+"""CUDA kernels for the GP path: covariance assembly, its gradient in the
+hyperparameters, and the batched predict (`csrc/gp_kernel.cu`), bound
+through a plain C interface.
 
 Each wrapper replaces one Pallas kernel of `repro/kernels/gp_kernel.py`:
 
   * `gp_kernel_matrix`   <- `gp_kernel_matrix` (`_gp_kernel`)
   * `gp_predict`         <- `gp_predict` (`_gp_predict_kernel`)
   * `gp_predict_experts` <- `gp_predict_experts` (`_gp_predict_experts_kernel`)
+
+and `gp_kernel_matrix_grad` replaces what has no Pallas kernel: XLA's
+autodiff of `repro.kernels.ref.gp_kernel_matrix` inside `repro.uq.gp._fit`.
+`gp_kernel_matrix` is differentiable in the lengthscale and the variance,
+and its backward is `gp_kernel_matrix_grad` (two kernels).
 
 The library is compiled with `nvcc` for `sm_90a` at first use and loaded
 with `ctypes` (`_build.Library`).
@@ -19,9 +25,12 @@ block (`gp_predict_k0`), the triangular product L^-1 K0 with each row
 block's sum of squares (`gp_predict_tri`), and the fixed-order reduction
 that also applies the variance and its square (`gp_predict_reduce`).
 Its f32 scratch (`predict_scratch`) is allocated with `torch.empty` per
-call.  `launches` counts one per wrapper call, whatever the kernels per
-call.  What bounds each kernel on the H100, and what its design does
-about it, is written beside the kernel in the CUDA source.
+call.  A gradient call (`gp_kernel_matrix_grad`) is two kernels: the
+tiles' partial sums into a [D + 1, blocks] scratch (`grad_scratch`), and
+their fixed-order reduction with the scaling.  `launches` counts one per
+wrapper call, whatever the kernels per call.  What bounds each kernel on
+the H100, and what its design does about it, is written beside the
+kernel in the CUDA source.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gp_kernel.cu"
 
@@ -40,25 +49,38 @@ MAX_DIM = 16           # kMaxDim in the CUDA source
 MAX_OUT = 4            # kMaxOut
 TILE_QUERIES = 64      # kQ: queries per predict tile
 ROW_BLOCK = 32         # kB: training rows per block of K0 and of L^-1
+KM_COLS = 32           # kKmCols: covariance tile columns, one per lane
+KM_WARPS = 8           # kKmWarps: a thread takes tile rows / KM_WARPS rows
+KM_SMALL_ROWS = 32     # kKmSmallRows, kKmLargeRows: the two tiles' rows
+KM_LARGE_ROWS = 64
+# 32-row blocks in one wave on an H100 (132 SMs x 8 resident blocks of 256
+# threads): above it the covariance kernels take the 64-row tile
+KM_LARGE_ABOVE = 132 * 8
+GRAD_REDUCE_THREADS = 256  # kGradRedThreads
 
-launches = _build.Launches("gp_kernel_matrix", "gp_predict",
-                           "gp_predict_experts")
+launches = _build.Launches("gp_kernel_matrix", "gp_kernel_matrix_grad",
+                           "gp_predict", "gp_predict_experts")
 reset_launches = launches.reset
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gp_kernel_matrix_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.gp_kernel_matrix_f32.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.gp_kernel_matrix_f32.restype = i
+    lib.gp_kernel_matrix_grad_f32.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.gp_kernel_matrix_grad_f32.restype = i
     lib.gp_predict_f32.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.gp_predict_f32.restype = i
     consts = ("gp_kernel_tile_queries", "gp_kernel_row_block",
-              "gp_kernel_max_dim", "gp_kernel_max_out")
+              "gp_kernel_max_dim", "gp_kernel_max_out",
+              "gp_kernel_km_small_rows", "gp_kernel_km_large_rows",
+              "gp_kernel_km_warps", "gp_kernel_grad_reduce_threads")
     for fn in consts:
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
     got = tuple(getattr(lib, fn)() for fn in consts)
-    if got != (TILE_QUERIES, ROW_BLOCK, MAX_DIM, MAX_OUT):
+    if got != (TILE_QUERIES, ROW_BLOCK, MAX_DIM, MAX_OUT, KM_SMALL_ROWS,
+               KM_LARGE_ROWS, KM_WARPS, GRAD_REDUCE_THREADS):
         raise RuntimeError(f"kernel constants {got} disagree with the "
                            f"wrapper's")
 
@@ -79,7 +101,8 @@ def _kind(kind: str) -> int:
 
 
 # --------------------------------------------------------------------------
-def _kernel_matrix_launch(x1, x2, lengthscale, variance, kind):
+def _kernel_matrix_operands(x1, x2, lengthscale, variance):
+    """Check the covariance operands; returns (n, m, d)."""
     _check("x1", x1, 2)
     _check("x2", x2, 2)
     _check("lengthscale", lengthscale, 1)
@@ -93,9 +116,22 @@ def _kernel_matrix_launch(x1, x2, lengthscale, variance, kind):
                          f"{tuple(lengthscale.shape)}")
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"input dimension {d} outside 1..{MAX_DIM}")
-    if (n + 31) // 32 > 65535:
+    if -(-n // km_tile_rows(n, m)) > 65535:
         raise ValueError(f"x1 has {n} rows; the grid takes at most "
-                         f"{65535 * 32}")
+                         f"{65535 * km_tile_rows(n, m)}")
+    return n, m, d
+
+
+def km_tile_rows(n: int, m: int) -> int:
+    """The tile rows of the covariance kernels for K [n, m]: 64 once the
+    32-row grid is more than one wave of resident blocks on an H100, else
+    32 (more, smaller blocks fill more SMs)."""
+    blocks = -(-m // KM_COLS) * -(-n // KM_SMALL_ROWS)
+    return KM_LARGE_ROWS if blocks > KM_LARGE_ABOVE else KM_SMALL_ROWS
+
+
+def _kernel_matrix_launch(x1, x2, lengthscale, variance, kind):
+    n, m, d = _kernel_matrix_operands(x1, x2, lengthscale, variance)
     out = torch.empty((n, m), dtype=torch.float32, device=x1.device)
     lib = load()
     with torch.cuda.device(x1.device):
@@ -103,17 +139,72 @@ def _kernel_matrix_launch(x1, x2, lengthscale, variance, kind):
         err = lib.gp_kernel_matrix_f32(
             x1.data_ptr(), x2.data_ptr(), lengthscale.data_ptr(),
             variance.data_ptr(), out.data_ptr(), n, m, d, _kind(kind),
-            stream)
+            km_tile_rows(n, m), stream)
     _build.raise_on(err, "gp_kernel_matrix")
     launches.count("gp_kernel_matrix")
     return out
 
 
+def grad_scratch(n: int, m: int, d: int) -> Tuple[int, int]:
+    """Shape of a gradient call's f32 scratch: the D + 1 partial sums of
+    each [km_tile_rows(n, m), KM_COLS] tile of K, each sum's partials
+    contiguous, tiles in row-major order."""
+    return (d + 1, -(-m // KM_COLS) * -(-n // km_tile_rows(n, m)))
+
+
+def grad_operands(grad: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(grad, x1, x2) as the gradient kernel takes them: grad row-major.
+    A column-major grad (as autograd hands it over from the Cholesky) is
+    taken transposed with x1 and x2 swapped, without a copy: K(x1, x2)^T
+    = K(x2, x1), and the kernel's terms are symmetric in the two points
+    (the same products, a commutative sum, (a - b)^2 = (b - a)^2), so
+    only the summation order changes.  Any other layout is copied."""
+    if not grad.is_contiguous() and grad.dim() == 2 and grad.T.is_contiguous():
+        return grad.T, x2, x1
+    return grad.contiguous(), x1, x2
+
+
+def gp_kernel_matrix_grad(grad: torch.Tensor, x1: torch.Tensor,
+                          x2: torch.Tensor, lengthscale: torch.Tensor,
+                          variance: torch.Tensor, kind: str = "rbf"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of `gp_kernel_matrix` in the lengthscale and the
+    variance against K's upstream gradient `grad` [N, M] -> (g_ls [D],
+    g_var []), on the card, in two kernels and a fixed summation order (no
+    atomics: reruns give identical bits).  `ref.gp_kernel_matrix_grad` is
+    its plain version.  A column-major `grad` costs nothing more
+    (`grad_operands`); any other strided one (autograd may hand one over
+    expanded) is copied first, one more kernel."""
+    grad, x1, x2 = grad_operands(grad, x1, x2)
+    n, m, d = _kernel_matrix_operands(x1, x2, lengthscale, variance)
+    _check("grad", grad, 2)
+    _build.same_device(grad, x1)
+    if tuple(grad.shape) != (n, m):
+        raise ValueError(f"grad {tuple(grad.shape)} is not K's shape "
+                         f"{(n, m)}")
+    dev = x1.device
+    g_ls = torch.empty((d,), dtype=torch.float32, device=dev)
+    g_var = torch.empty((), dtype=torch.float32, device=dev)
+    part = torch.empty(grad_scratch(n, m, d), dtype=torch.float32,
+                       device=dev)
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gp_kernel_matrix_grad_f32(
+            grad.data_ptr(), x1.data_ptr(), x2.data_ptr(),
+            lengthscale.data_ptr(), variance.data_ptr(), part.data_ptr(),
+            g_ls.data_ptr(), g_var.data_ptr(), n, m, d, _kind(kind),
+            km_tile_rows(n, m), stream)
+    _build.raise_on(err, "gp_kernel_matrix_grad")
+    launches.count("gp_kernel_matrix_grad")
+    return g_ls, g_var
+
+
 class _KernelMatrix(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Backward: the plain version's autograd,
-    recomputed with torch ops (the JAX reference has no backward kernel
-    either: XLA differentiates `ref.gp_kernel_matrix`), which gives the
-    gradients for the lengthscale and the variance that fit needs."""
+    """Forward: the covariance kernel.  Backward: `gp_kernel_matrix_grad`,
+    the closed-form gradient in the lengthscale and the variance (what
+    `fit` needs) in two kernels; the inputs get none."""
 
     @staticmethod
     def forward(ctx, x1, x2, lengthscale, variance, kind):
@@ -124,12 +215,11 @@ class _KernelMatrix(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x1, x2, lengthscale, variance = ctx.saved_tensors
-        with torch.enable_grad():
-            ls = lengthscale.detach().requires_grad_()
-            var = variance.detach().requires_grad_()
-            k = ref.gp_kernel_matrix(x1, x2, ls, var, ctx.kind)
-            g_ls, g_var = torch.autograd.grad(k, (ls, var), grad)
-        return None, None, g_ls, g_var, None
+        g_ls, g_var = gp_kernel_matrix_grad(grad, x1, x2, lengthscale,
+                                            variance, ctx.kind)
+        need = ctx.needs_input_grad
+        return (None, None, g_ls if need[2] else None,
+                g_var if need[3] else None, None)
 
 
 def gp_kernel_matrix(x1: torch.Tensor, x2: torch.Tensor,

@@ -204,6 +204,47 @@ def gp_kernel_matrix(x1: torch.Tensor, x2: torch.Tensor,
     return variance.to(torch.float32) * k
 
 
+def gp_kernel_matrix_grad(grad: torch.Tensor, x1: torch.Tensor,
+                          x2: torch.Tensor, lengthscale: torch.Tensor,
+                          variance: torch.Tensor, kind: str = "rbf"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of `gp_kernel_matrix` (x1 [N, D], x2 [M, D]) in the
+    lengthscale and the variance against K's upstream gradient `grad`
+    [N, M], in closed form -> (g_ls [D], g_var []):
+
+        g_var = sum G k(d2)
+        g_ls_c = var / ls_c * sum G h(d2) (x1s_c - x2s_c)^2
+
+    with h = -2 dk/dd2 (rbf: k; matern52: 5/3 (1 + sqrt5 r) e^(-sqrt5 r),
+    r = sqrt(d2 + 1e-12)), zero where the unclamped d2 is negative, as
+    `torch.clamp`'s backward.  d2 is the forward's expanded formula.  It
+    computes in f32, or in f64 where `grad` is f64.  The plain version of
+    the CUDA kernel `gp_kernel.gp_kernel_matrix_grad`; the port's CPU path
+    differentiates `gp_kernel_matrix` with autograd instead."""
+    dt = torch.promote_types(grad.dtype, torch.float32)
+    ls = lengthscale.to(dt)
+    x1s = x1.to(dt) / ls
+    x2s = x2.to(dt) / ls
+    raw = ((x1s ** 2).sum(-1)[:, None] + (x2s ** 2).sum(-1)[None, :]
+           - 2.0 * x1s @ x2s.T)
+    d2 = torch.clamp(raw, min=0.0)
+    if kind == "rbf":
+        k = torch.exp(-0.5 * d2)
+        h = k
+    elif kind == "matern52":
+        r = torch.sqrt(d2 + 1e-12)
+        e = torch.exp(-math.sqrt(5.0) * r)
+        k = (1.0 + math.sqrt(5.0) * r + 5.0 / 3.0 * d2) * e
+        h = 5.0 / 3.0 * (1.0 + math.sqrt(5.0) * r) * e
+    else:
+        raise ValueError(kind)
+    g = grad.to(dt)
+    w = torch.where(raw >= 0.0, g * h, torch.zeros_like(h))
+    diff2 = (x1s[:, None, :] - x2s[None, :, :]) ** 2
+    s = torch.einsum("nm,nmd->d", w, diff2)
+    return variance.to(dt) * s / ls, (g * k).sum()
+
+
 def gp_predict(x_train: torch.Tensor, x_star: torch.Tensor,
                lengthscale: torch.Tensor, variance: torch.Tensor,
                alpha: torch.Tensor, linv: torch.Tensor, kind: str = "rbf"

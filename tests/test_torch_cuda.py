@@ -7,7 +7,15 @@ imports only torch and `repro_torch`, so it runs where JAX is absent:
     python -m pytest -m gpu tests/test_torch_cuda.py
 
 Tolerances: 2e-5 for the covariance matrix (same f32 formula, summation
-order of a D-term dot product), 1e-4 for the predict's mean and quadratic
+order of a D-term dot product).  Its gradient in the hyperparameters,
+relative to each component's sum of absolute terms (`scale`, the plain
+closed form on |G|): 1e-5 * scale against the plain closed form (the same
+f32 terms, summed in another order), 1e-4 * scale against the autograd of
+the plain matrix (which differentiates the expanded d2;
+tests/test_torch_gp_kernel_grad.py holds the kernel's summation order to
+both on the CPU).  A 40-step fit, card against CPU: final NLML and
+log-parameters within 1e-3 + 1e-3 |x| (Adam steps amplify rounding).
+1e-4 for the predict's mean and quadratic
 form (sums over the n training rows, accumulated in another order than
 the plain version's BLAS).  Attention: 2e-5 in f32 (a Dh-term dot
 product and a softmax summed in another order), 2e-2 in bf16: both round
@@ -72,7 +80,8 @@ def _predict_inputs(e, n, s, m_out, dev, seed=3):
 
 
 @pytest.mark.parametrize("n,m,d", [(100, 57, 7), (33, 33, 3), (8, 300, 2),
-                                   (2048, 2048, 7)])
+                                   (2048, 2048, 7), (70, 45, 1),
+                                   (50, 129, 16), (256, 256, 7)])
 @pytest.mark.parametrize("kind", ["rbf", "matern52"])
 def test_kernel_matrix_matches_plain(cuda, n, m, d, kind):
     args = _inputs(n, m, d, cuda)
@@ -113,11 +122,11 @@ def test_predict_matches_plain(cuda, e, n, s, m_out, padded, kind):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
-def _device_kernel_counts(fn, calls):
+def _device_kernel_counts(fn, calls, per_call=3):
     """Kernel name -> launches in one profiler window of `calls` calls of
-    `fn` (three kernels each), opened with one untimed call.  The profiler
-    now and then drops a launch from a window, so a window short of
-    3 x `calls` launches is taken again, up to three times."""
+    `fn` (`per_call` kernels each), opened with one untimed call.  The
+    profiler now and then drops a launch from a window, so a window short
+    of `per_call` x `calls` launches is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -135,7 +144,7 @@ def _device_kernel_counts(fn, calls):
             prof.step()
         counts = {e.key: e.count for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA}
-        if sum(counts.values()) >= 3 * calls:
+        if sum(counts.values()) >= per_call * calls:
             break
     return counts
 
@@ -169,6 +178,121 @@ def test_kernel_matrix_gradient_matches_plain(cuda):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
+def _grad_case(n, m, d, same, dev, seed=4):
+    """x1, x2 (x1 itself where `same`), ls, var and an upstream gradient of
+    both signs, on `dev`."""
+    g = torch.Generator().manual_seed(seed)
+    x1 = torch.randn(n, d, generator=g)
+    x2 = x1 if same else torch.randn(m, d, generator=g)
+    ls = torch.exp(0.2 * torch.randn(d, generator=g) + 0.5)
+    up = torch.randn(n, x2.shape[0], generator=g)
+    return [t.to(dev) for t in (up, x1, x2, ls, torch.tensor(1.7))]
+
+
+def _assert_grad_within(got, want, scale, tol):
+    for a, b, s in zip(got, want, scale):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        err = (a.double() - b.double()).abs()
+        assert bool((err <= tol * s).all()), float((err / s).max())
+
+
+@pytest.mark.parametrize("n,m,same,column_major", [
+    (40, 30, False, False), (256, 256, True, False),
+    (2048, 2048, True, False), (70, 300, False, True)])
+@pytest.mark.parametrize("kind", ["rbf", "matern52"])
+def test_kernel_matrix_grad_matches_plain(cuda, n, m, same, column_major,
+                                          kind):
+    """The gradient kernel against its plain closed form and, off the
+    diagonal, the plain matrix's autograd; a column-major upstream
+    gradient goes in transposed with the points swapped."""
+    up, x1, x2, ls, var = _grad_case(n, m, 7, same, cuda)
+    if column_major:
+        up = up.T.contiguous().T
+    before = gp_kernel.launches["gp_kernel_matrix_grad"]
+    got = gp_kernel.gp_kernel_matrix_grad(up, x1, x2, ls, var, kind)
+    torch.cuda.synchronize()
+    assert gp_kernel.launches["gp_kernel_matrix_grad"] == before + 1
+    scale = [t.double() for t in ref.gp_kernel_matrix_grad(
+        up.double().abs(), x1.double(), x2.double(), ls.double(),
+        var.double(), kind)]
+    _assert_grad_within(got, ref.gp_kernel_matrix_grad(up, x1, x2, ls, var,
+                                                       kind), scale, 1e-5)
+    if not same:
+        ls_, var_ = ls.clone().requires_grad_(), var.clone().requires_grad_()
+        want = torch.autograd.grad(
+            ref.gp_kernel_matrix(x1, x2, ls_, var_, kind), (ls_, var_), up)
+        _assert_grad_within(got, want, scale, 1e-4)
+
+
+@pytest.mark.parametrize("d", range(1, 17))
+@pytest.mark.parametrize("kind", ["rbf", "matern52"])
+def test_kernel_matrix_and_grad_every_dim(cuda, d, kind):
+    """Each input width is its own template instance of the forward and
+    the gradient kernels: every one against its plain version."""
+    up, x1, x2, ls, var = _grad_case(70, 45, d, False, cuda, seed=d)
+    torch.testing.assert_close(
+        gp_kernel.gp_kernel_matrix(x1, x2, ls, var, kind),
+        ref.gp_kernel_matrix(x1, x2, ls, var, kind), atol=2e-5, rtol=2e-5)
+    scale = [t.double() for t in ref.gp_kernel_matrix_grad(
+        up.double().abs(), x1.double(), x2.double(), ls.double(),
+        var.double(), kind)]
+    _assert_grad_within(gp_kernel.gp_kernel_matrix_grad(up, x1, x2, ls, var,
+                                                        kind),
+                        ref.gp_kernel_matrix_grad(up, x1, x2, ls, var, kind),
+                        scale, 1e-5)
+
+
+def test_kernel_matrix_grad_is_deterministic(cuda):
+    args = _grad_case(2048, 2048, 7, True, cuda)
+    first = gp_kernel.gp_kernel_matrix_grad(*args, "matern52")
+    second = gp_kernel.gp_kernel_matrix_grad(*args, "matern52")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,column_major", [(256, False), (2048, False),
+                                           (256, True)])
+def test_kernel_matrix_backward_launches_two_kernels(cuda, n, column_major):
+    """A backward through `gp_kernel_matrix` is the gradient's two kernels
+    and nothing else on the device, also for the column-major upstream
+    gradient autograd hands over from the Cholesky."""
+    up, x1, _, ls, var = _grad_case(n, n, 7, True, cuda)
+    if column_major:
+        up = up.T.contiguous().T
+    ls.requires_grad_()
+    var.requires_grad_()
+    k = gp_kernel.gp_kernel_matrix(x1, x1, ls, var)
+    calls = 4
+    counts = _device_kernel_counts(
+        lambda: torch.autograd.grad(k, (ls, var), up, retain_graph=True),
+        calls, per_call=2)
+    assert len(counts) == 2 and sum(counts.values()) == 2 * calls, counts
+    for phase in ("gp_kernel_matrix_grad_tiles",
+                  "gp_kernel_matrix_grad_reduce"):
+        assert [c for key, c in counts.items() if phase in key] == [calls], \
+            counts
+
+
+def test_fit_on_card_matches_cpu(cuda):
+    """40 Adam steps of the GP fit on the card and on the CPU, from the
+    same data: the final NLML and log-parameters agree."""
+    from repro_torch.uq import gp
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2, 2, (64, 3)).astype(np.float32)
+    y = np.stack([np.sin(x[:, 0]), x[:, 1] * x[:, 2]], 1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        xt, yt = gp.as_f32(x, dev), gp.as_f32(y, dev)
+        mean, std = gp._standardise(yt)
+        tree, losses = gp._fit(xt, (yt - mean) / std, "rbf", 40, 5e-2)
+        out[dev.type] = (losses[-1].cpu(), {k: v.cpu()
+                                            for k, v in tree.items()})
+    (card_loss, card), (cpu_loss, cpu) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(card_loss, cpu_loss, atol=1e-3, rtol=1e-3)
+    for key in cpu:
+        torch.testing.assert_close(card[key], cpu[key], atol=1e-3, rtol=1e-3)
+
+
 def test_wrapper_rejects_bad_operands(cuda):
     x1, x2, ls, var = _inputs(10, 12, 3, cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -179,6 +303,13 @@ def test_wrapper_rejects_bad_operands(cuda):
         wide = torch.zeros(4, 17, device=cuda)
         gp_kernel.gp_kernel_matrix(wide, wide, torch.ones(17, device=cuda),
                                    var)
+    with pytest.raises(ValueError, match="shape"):
+        gp_kernel.gp_kernel_matrix_grad(torch.ones(12, 10, device=cuda), x1,
+                                        x2, ls, var)
+    with pytest.raises(ValueError, match="float32"):
+        gp_kernel.gp_kernel_matrix_grad(
+            torch.ones(10, 12, device=cuda, dtype=torch.float64), x1, x2, ls,
+            var)
 
 
 def test_gp_path_on_card_matches_port_on_cpu(cuda):
