@@ -48,23 +48,38 @@ to the CPU:
                 (main.gp_fit: kernels, device and host ms per step) and
                 K(X, X)'s gradient timed the port's way against the plain
                 autograd, alternating.
-  5. serve    — LM serving of zamba2-2.7b at its published widths (54
+  5. sim      — the paper's scheduling comparison through the port, on
+                main's posterior and backlog: Table III (simulate over the
+                four workloads x q in {2, 10} x slurm / hq / umb-slurm at
+                seed 7, the gs2 column the port's runtime table solved on
+                the card, the paper's bands asserted); simulate_cluster of
+                a 2,048-task GS2-shaped trace on 64 hq workers (SJF over
+                the GP runtime predictor, the GP surrogate offload on the
+                broker, the metrics registry, the invariants), then its
+                first 256 tasks on the card (profiled) against the port on
+                the CPU; adaptive delegation of 64 requests (GS2 solves on
+                8 persistent workers) on the incremental and partitioned
+                engines; the quickstart's mix through the LoadBalancer and
+                4 MCMC chains of 200 steps on its GP surrogate.  Each
+                path's GP launch counters are zeroed just before it and
+                read just after.
+  6. serve    — LM serving of zamba2-2.7b at its published widths (54
                 layers, d_model 2560, bf16, random weights from a seed)
                 through the Executor: 8 requests on one persistent server
                 (prompts of 64-1023 tokens, 16 new tokens each), then 2 on
                 fresh servers.  The attention and SSD launch counters are
                 zeroed just before; attention must have launched, and the
                 SSD at least once per layer per request.
-  6. serve_rwkv — the same mix for rwkv6-3b at its published widths (32
+  7. serve_rwkv — the same mix for rwkv6-3b at its published widths (32
                 layers, d_model 2560, vocab 65536, bf16): the WKV launch
                 counter is zeroed just before and must read at least one
                 launch per layer per request just after.
-  7. serve_check — outside the timed windows, in f32 at full width:
+  8. serve_check — outside the timed windows, in f32 at full width:
                 zamba2 2 groups (12 layers) deep and rwkv6 4 layers deep.
                 Greedy tokens equal the argmax of repeated full forwards,
                 and prefill logits on the card match the port on the CPU
                 with the same weights.
-  8. where    — outside the counted runs: one GS2 solve alone, and the
+  9. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
                 each (a 512-token prefill, then prefill + 16 new tokens),
@@ -458,19 +473,34 @@ def phase_kernels():
     # gp_predict: the predictor's 256-point posterior and a 2,048-point
     # one, against the top bucket (1,024 queries), two outputs; then
     # gp_predict_experts: 64 experts of expert_cap=128, 1,024 queries
-    # each, one output.  A call is three kernels (K0 and the mean's
-    # partials, the triangular product, the reduction with the scaling):
-    # its row sums their device time, gives each one's (phase_ms), and
-    # states the kernels per call (exactly three, asserted) and the
-    # scratch bytes.
-    for name, e, n, s, m in (("gp_predict", 1, 256, 1024, 2),
-                             ("gp_predict", 1, 2048, 1024, 2),
-                             ("gp_predict_experts", 64, 128, 1024, 1)):
+    # each, one output.  Then the `sim` phase's shapes: one query on the
+    # 256-point posterior (the offload's trust check), and the adaptive
+    # stream's partitioned engine on main's posterior: 2 or 3 experts
+    # stacked at cap 128, every other one zero-padded past its first 100
+    # rows, one live query padded to the smallest bucket (64) with zero
+    # rows, as `PartitionedEngine.predict_batch` stacks them, two
+    # outputs.  A call is three kernels (K0 and the mean's partials, the
+    # triangular product, the reduction with the scaling): its row sums
+    # their device time, gives each one's (phase_ms), and states the
+    # kernels per call (exactly three, asserted) and the scratch bytes.
+    for name, e, n, s, m, label in (
+            ("gp_predict", 1, 256, 1024, 2, "gp_predict[n=256]"),
+            ("gp_predict", 1, 2048, 1024, 2, "gp_predict[n=2048]"),
+            ("gp_predict_experts", 64, 128, 1024, 1, "gp_predict_experts"),
+            ("gp_predict", 1, 256, 1, 2, "gp_predict[n=256 s=1]"),
+            ("gp_predict_experts", 2, 128, 64, 2,
+             "gp_predict_experts[e=2 s=1 of 64]"),
+            ("gp_predict_experts", 3, 128, 64, 2,
+             "gp_predict_experts[e=3 s=1 of 64]")):
         xt, xs = randn(e, n, d), randn(e, s, d)
         ls = 2.0 * torch.exp(0.2 * randn(d))
         var = torch.tensor(1.3, device=dev)
         linv = _linv(ref.gp_kernel_matrix(xt, xt, ls, var))
         alpha = randn(e, n, m)
+        if "of 64" in label:
+            for t in (xt[1::2, 100:], alpha[1::2, 100:], linv[1::2, 100:],
+                      linv[1::2, :, 100:], xs[:, 1:], xs[1:]):
+                t.zero_()
         args = (xt, xs, ls, var, alpha, linv)
         if e == 1:
             args = tuple(a[0] if a.dim() == 3 else a for a in args)
@@ -479,7 +509,6 @@ def phase_kernels():
         torch.cuda.synchronize()
         want = getattr(ref, name)(*args)
         err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
-        label = f"{name}[n={n}]" if e == 1 else name
         if not err <= 1e-4:
             raise AssertionError(f"{label}: {err} > 1e-4")
         run = (lambda: fn(*args))
@@ -1013,7 +1042,421 @@ def phase_main():
                                     if isinstance(v[key], float) else v[key])
            for name, v in kg.items()
            for key in ("kernels", "device_ms", "host_ms", "whole_counts")})
-    return out, launches
+    return out, launches, post, backlog
+
+
+# ---------------------------------------------------------------------------
+# the paper's scheduling comparison through the port (phase `sim`)
+SIM_SEED = 7                  # tests/test_scheduler.py::_run's seed
+SIM_TRACE_TASKS = 2_048
+SIM_WORKERS = 64
+SIM_PREFIX = 256
+SIM_BUDGET_S = 30.0           # benchmarks/surrogate_offload.py's budget
+ADAPTIVE_REQUESTS = 64
+ADAPTIVE_WORKERS = 8
+MCMC_CHAINS = 4
+MCMC_STEPS = 200
+# the differential tests' tolerance for a GP on either side of a
+# comparison: the latent trust variance (sd^2) within 1e-4, decisions
+# equal where both variances lie farther than that from threshold^2, at
+# most 5% of the tasks left out of the comparison
+SIM_VAR_TOL = 1e-4
+SIM_LEFT_OUT = 0.05
+
+
+def _offload_trace(thetas, expensive, seed=SIM_SEED):
+    """The trace recipe of benchmarks/surrogate_offload.py `make_trace`
+    (exponential inter-arrivals of mean 5 s; expensive tasks at 120 s,
+    the rest 4 s; lognormal sigma 0.3), with `thetas` (GS2 inputs) as the
+    tasks' parameters in place of its synthetic 2-D draws.  The recipe
+    draws which tasks are expensive (40%) independently of theta, which
+    leaves a runtime predictor nothing to learn; here `expensive` (one
+    bool per theta) decides it."""
+    import numpy as np
+    from repro_torch.cluster import TraceTask
+    rng = np.random.default_rng(seed)
+    out, t = [], 0.0
+    for theta, dear in zip(thetas, expensive):
+        t += float(rng.exponential(5.0))
+        base = 120.0 if dear else 4.0
+        runtime = base * float(np.exp(0.3 * rng.standard_normal()))
+        out.append(TraceTask(t=t, runtime=runtime, model_name="gs2",
+                             time_request=base,
+                             parameters=[[float(v) for v in theta]]))
+    return out
+
+
+def _cluster_run(trace, post, thr, profile_device=False):
+    """simulate_cluster on hq: SJF over the GP runtime predictor, the GP
+    surrogate offload on the broker, the metrics registry and a tracer
+    attached; the invariants checked on the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.chaos import InvariantChecker
+    from repro_torch.cluster import Broker, simulate_cluster
+    from repro_torch.core import backends
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.sched import SurrogateOffload, make_predictor
+    from repro_torch.sched.offload import record_decisions
+
+    off = SurrogateOffload(post, model_name="gs2",
+                           runtime_budget_s=SIM_BUDGET_S, sd_threshold=thr)
+    decisions = record_decisions(off)
+    broker = Broker(policy="sjf", predictor=make_predictor("gp"),
+                    surrogate=off)
+    registry, tracer = MetricsRegistry(), Tracer()
+    on_card = post.x.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    # device activity only: a CPU-side trace of every operator over
+    # seconds of host work costs more to take and read than the run
+    prof = (profile(activities=[ProfilerActivity.CUDA])
+            if profile_device else None)
+    t0 = time.perf_counter()
+    if prof is not None:
+        prof.__enter__()
+    try:
+        res = simulate_cluster(backends.get("hq"), trace, broker=broker,
+                               n_workers=SIM_WORKERS, seed=SIM_SEED,
+                               registry=registry, tracer=tracer)
+        if on_card:
+            torch.cuda.synchronize()
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+    report = InvariantChecker().check(
+        records=res.records, allocations=res.allocations,
+        events=tracer.events(),
+        expected_tasks=[f"trace-{i}" for i in range(len(trace))])
+    if not report.ok:
+        raise AssertionError(f"cluster invariants: {report.violations[:5]}")
+    if len(res.records) != len(trace) or \
+            any(r.status != "ok" for r in res.records):
+        raise AssertionError("a cluster task did not end ok")
+    out = dict(tasks=len(trace), wall_s=wall,
+               n_fits=broker.predictor.n_fits,
+               offloaded=off.stats().n_offloaded,
+               makespan_s=res.summary()["makespan"],
+               node_seconds=res.summary()["node_seconds"],
+               registry_samples=registry.n_samples,
+               invariant_measures=report.measures)
+    if prof is not None:
+        busy = _device_busy_ms(prof)
+        out["device_busy_ms"] = busy if busy > 0 else None
+        out["device_idle_share"] = (1 - busy / (wall * 1e3) if busy > 0
+                                    else None)
+    return res, out, decisions
+
+
+def _compare_decisions(card, cpu, thr):
+    """Card against CPU, the differential tests' rule: trust variances
+    within SIM_VAR_TOL, decisions equal away from the threshold."""
+    compared = mismatched = 0
+    worst = 0.0
+    for tid, (sd_a, dec_a) in card.items():
+        sd_b, dec_b = cpu[tid]
+        if sd_a is None and sd_b is None:
+            if dec_a or dec_b:
+                mismatched += 1
+            compared += 1
+        elif sd_a is not None and sd_b is not None:
+            worst = max(worst, abs(sd_a ** 2 - sd_b ** 2))
+            if min(abs(sd_a ** 2 - thr ** 2),
+                   abs(sd_b ** 2 - thr ** 2)) > SIM_VAR_TOL:
+                mismatched += dec_a != dec_b
+                compared += 1
+    return dict(compared=compared, mismatched=mismatched,
+                left_out=len(card) - compared, max_var_err=worst)
+
+
+def _quickstart_gp_factory():
+    """examples/quickstart_torch.py's GP surrogate model factory."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.gp_model_factory
+
+
+def _table3_bands(cells):
+    """The paper's claims as tests/test_scheduler.py:57-120 holds them."""
+    def c(bench, backend, q):
+        return cells[f"{bench}|{backend}|{q}"]
+
+    failed = []
+    for q in (2, 10):
+        red = 1 - c("gs2", "hq", q)["makespan_s"] / \
+            c("gs2", "slurm", q)["makespan_s"]
+        if not 0.28 <= red <= 0.48:
+            failed.append(f"gs2 makespan reduction {red} at q={q}")
+        if c("gs2", "umb-slurm", q)["makespan_s"] < \
+                0.95 * c("gs2", "slurm", q)["makespan_s"]:
+            failed.append(f"umb-slurm gains over slurm at q={q}")
+    for bench, floor in (("gs2", 1e3), ("eigen-5000", 1e3),
+                         ("eigen-100", 300.0)):
+        ratio = c(bench, "slurm", 2)["median_overhead_s"] / \
+            max(c(bench, "hq", 2)["median_overhead_s"], 1e-9)
+        if ratio < floor:
+            failed.append(f"{bench} overhead ratio {ratio} < {floor}")
+    speed = c("eigen-100", "slurm", 2)["makespan_s"] / \
+        c("eigen-100", "hq", 2)["makespan_s"]
+    if not 2.0 <= speed <= 6.0:
+        failed.append(f"eigen-100 hq speed-up {speed}")
+    if not c("eigen-100", "hq", 2)["cpu_s"] > \
+            c("eigen-100", "slurm", 2)["cpu_s"]:
+        failed.append("hq does not lose CPU time on eigen-100")
+    if not c("gs2", "hq", 10)["cpu_s"] < c("gs2", "slurm", 10)["cpu_s"]:
+        failed.append("hq does not save CPU time on gs2 at q=10")
+    h, s = c("eigen-100", "hq", 2)["slr"], c("eigen-100", "slurm", 2)["slr"]
+    if not (h < 2.0 and s > 2.0 * h):
+        failed.append(f"slr ordering hq={h} slurm={s}")
+    wins = sum(c(b, "hq", q)["makespan_s"] < c(b, "slurm", q)["makespan_s"]
+               for b in ("eigen-100", "eigen-5000", "gs2", "gp")
+               for q in (2, 10))
+    if wins < 7:
+        failed.append(f"hq first in {wins} of 8 cells")
+    if failed:
+        raise AssertionError("Table III bands: " + "; ".join(failed))
+    return wins
+
+
+def phase_sim(post, backlog):
+    """The paper's scheduling comparison and the cluster stack through
+    the port, reusing `main`'s GS2 posterior and backlog: Table III, the
+    cluster simulation with the GP on the card (and a prefix against the
+    port on the CPU), adaptive delegation on the incremental and
+    partitioned engines, and the LoadBalancer facade with MCMC.  Each
+    path's GP launches are counted from zero."""
+    import numpy as np
+    import torch
+    from repro_torch import device
+    from repro_torch.configs import workloads
+    from repro_torch.core import (EvalRequest, Executor, LoadBalancer,
+                                  backends, eval_records, metrics, simulate)
+    from repro_torch.kernels import gp_kernel
+    from repro_torch.sched import SurrogateOffload
+    from repro_torch.uq import adaptive, gs2_proxy, mcmc, sampling
+    from repro_torch.uq import engine as engine_lib
+    from repro_torch.uq import gp as gp_lib
+    from repro_torch.uq.eigen import EigenModel
+
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    # 1. Table III: the port's own GS2 runtime table, solved on the card
+    t_block = t0 = time.perf_counter()
+    gs2 = workloads.make_workload("gs2")
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    rts = np.asarray(gs2.runtimes)
+    out["gs2_table"] = dict(solves=gs2.n_tasks, seconds=table_s,
+                            runtime_min_s=float(rts.min()),
+                            runtime_median_s=float(np.median(rts)),
+                            runtime_max_s=float(rts.max()))
+    log("sim.gs2_table", solves=gs2.n_tasks, seconds=f"{table_s:.3f}",
+        runtime_min_s=f"{rts.min():.1f}",
+        runtime_median_s=f"{np.median(rts):.1f}",
+        runtime_max_s=f"{rts.max():.1f}")
+    cells = {}
+    for bench in workloads.BENCHMARKS:
+        w = gs2 if bench == "gs2" else workloads.make_workload(bench)
+        for q in workloads.QUEUE_DEPTHS:
+            for backend in ("slurm", "hq", "umb-slurm"):
+                s = metrics.summarize(bench, backend, eval_records(simulate(
+                    backends.get(backend), w, q, seed=SIM_SEED)))
+                cell = dict(makespan_s=s.makespan, cpu_s=s.total_cpu_time,
+                            median_overhead_s=s.overhead_stats["median"],
+                            slr=s.slr)
+                cells[f"{bench}|{backend}|{q}"] = cell
+                log("sim.table3", bench=bench, q=q, backend=backend,
+                    makespan_s=repr(cell["makespan_s"]),
+                    cpu_s=repr(cell["cpu_s"]),
+                    median_overhead_s=repr(cell["median_overhead_s"]))
+    wins = _table3_bands(cells)
+    block_s = time.perf_counter() - t_block
+    out["table3"] = dict(cells=cells, hq_first_cells=wins, seconds=block_s)
+    log("sim.table3", bands="held", hq_first_cells=f"{wins}/8",
+        seconds=f"{block_s:.3f}")
+
+    # 2. the cluster simulation with the GP on the card.  The expensive
+    # tasks are the 40% (the recipe's share) of highest growth rate under
+    # main's posterior, so a task's runtime depends on its theta and the
+    # GP runtime predictor can learn which ones exceed the budget.  The
+    # trust threshold is the median trust sd over the trace, so about
+    # half the tasks that pass the cost gate are trusted
+    t_block = time.perf_counter()
+    thetas = backlog[:SIM_TRACE_TASKS]
+    growth = gp_lib.predict_batch(post, thetas)[0][:, 0].cpu().numpy()
+    expensive = growth >= np.quantile(growth, 0.6)
+    trace = _offload_trace(thetas, expensive)
+    thr = float(np.median(SurrogateOffload(post).trust_sd(thetas)))
+    gp_kernel.reset_launches()
+    _, cl, dec = _cluster_run(trace, post, thr)
+    launches["cluster"] = dict(gp_kernel.launches)
+    block_s = time.perf_counter() - t_block
+    checked = [i for i, t in enumerate(trace)
+               if dec.get(f"trace-{i}", (None,))[0] is not None]
+    n_dear = int(expensive.sum())
+    cl.update(expensive=n_dear, trust_checked=len(checked),
+              trust_checked_expensive=int(expensive[checked].sum()))
+    if not (cl["trust_checked_expensive"] >= n_dear / 4
+            and cl["offloaded"] > 0):
+        raise AssertionError(f"the cost gate passed "
+                             f"{cl['trust_checked_expensive']} of {n_dear} "
+                             f"expensive tasks; offloaded {cl['offloaded']}")
+    out["cluster"] = dict(cl, sd_threshold=thr, seconds=block_s,
+                          launches=launches["cluster"])
+    log("sim.cluster", tasks=len(trace), workers=SIM_WORKERS,
+        wall_s=f"{cl['wall_s']:.3f}", seconds=f"{block_s:.3f}",
+        n_fits=cl["n_fits"], expensive=n_dear,
+        trust_checked=len(checked),
+        trust_checked_expensive=cl["trust_checked_expensive"],
+        offloaded=cl["offloaded"], sd_threshold=repr(thr),
+        makespan_s=repr(cl["makespan_s"]), invariants="held",
+        **{f"launches_{k}": v for k, v in launches["cluster"].items()})
+
+    # ... its first SIM_PREFIX tasks on the card (profiled) and through
+    # the port on the CPU, same posterior
+    t_block = time.perf_counter()
+    prefix = trace[:SIM_PREFIX]
+    gp_kernel.reset_launches()
+    _, card, card_dec = _cluster_run(prefix, post, thr, profile_device=True)
+    launches["cluster_prefix"] = dict(gp_kernel.launches)
+    device.set_device("cpu")
+    try:
+        cpu_post = gp_lib.posterior_from_numpy(
+            gp_lib.posterior_to_numpy(post), "cpu")
+        _, cpu, cpu_dec = _cluster_run(prefix, cpu_post, thr)
+    finally:
+        device.set_device("cuda")
+    cmp_ = _compare_decisions(card_dec, cpu_dec, thr)
+    span = max(t.runtime for t in prefix)
+    if cmp_["max_var_err"] > SIM_VAR_TOL or cmp_["mismatched"] or \
+            cmp_["left_out"] > SIM_LEFT_OUT * len(prefix) or \
+            abs(card["offloaded"] - cpu["offloaded"]) > cmp_["left_out"] or \
+            abs(card["makespan_s"] - cpu["makespan_s"]) > span or \
+            abs(card["n_fits"] - cpu["n_fits"]) > 1:
+        raise AssertionError(f"cluster prefix card vs CPU: {cmp_}, "
+                             f"card {card}, cpu {cpu}")
+    block_s = time.perf_counter() - t_block
+    out["cluster_prefix"] = dict(card=card, cpu=cpu, compare=cmp_,
+                                 seconds=block_s,
+                                 launches=launches["cluster_prefix"])
+    log("sim.cluster_prefix", tasks=SIM_PREFIX, seconds=f"{block_s:.3f}",
+        card_wall_s=f"{card['wall_s']:.3f}",
+        cpu_wall_s=f"{cpu['wall_s']:.3f}",
+        device_idle_share=(f"{card['device_idle_share']:.4f}"
+                           if card.get("device_idle_share") is not None
+                           else "not measured"),
+        offloaded_card=card["offloaded"], offloaded_cpu=cpu["offloaded"],
+        max_var_err=f"{cmp_['max_var_err']:.3g}",
+        decisions_compared=cmp_["compared"], left_out=cmp_["left_out"])
+
+    # 3. adaptive delegation: GS2 solves on persistent workers.  The
+    # threshold is a quantile of the requests' gate sds under the engine
+    # the stream starts from: the median on the incremental engine, whose
+    # conditioning only lowers later sds; the 0.6 quantile on the
+    # partitioned one, where an expert past its cap splits and the sds
+    # it served rise (the median sent 0.73 of the requests to the
+    # simulator on an H100)
+    t_block = time.perf_counter()
+    requests = sampling.latin_hypercube(ADAPTIVE_REQUESTS, seed=14)
+    out["adaptive"] = {}
+    with Executor({"gs2": _gs2_factory(gs2_proxy.DEFAULT_RESOLUTION)},
+                  n_workers=ADAPTIVE_WORKERS, persistent_servers=True) as ex:
+        for backend, q in (("incremental", 0.5), ("partitioned", 0.6)):
+            _, var = engine_lib.as_engine(post, backend).predict_batch(
+                requests)
+            thr_a = float(np.quantile(np.sqrt(var.cpu().numpy()).max(1), q))
+            gp_kernel.reset_launches()
+            t0 = time.perf_counter()
+            res = adaptive.evaluate_stream(ex, "gs2", post, requests,
+                                           sd_threshold=thr_a,
+                                           backend=backend)
+            wall = time.perf_counter() - t0
+            key = f"adaptive_{backend}"
+            launches[key] = dict(gp_kernel.launches)
+            share = res.n_sim_calls / ADAPTIVE_REQUESTS
+            if not (0.25 <= share <= 0.75 and res.outputs.shape
+                    == (ADAPTIVE_REQUESTS, 2)
+                    and np.isfinite(res.outputs).all()):
+                raise AssertionError(f"adaptive {backend}: simulator share "
+                                     f"{share}, outputs {res.outputs.shape}")
+            out["adaptive"][backend] = dict(
+                requests=ADAPTIVE_REQUESTS, sd_quantile=q, sd_threshold=thr_a,
+                simulator_share=share, wall_s=wall, launches=launches[key])
+            log("sim.adaptive", backend=backend, requests=ADAPTIVE_REQUESTS,
+                sd_quantile=q, sd_threshold=repr(thr_a),
+                simulator_share=f"{share:.4f}",
+                wall_s=f"{wall:.3f}",
+                **{f"launches_{k}": v for k, v in launches[key].items()})
+
+    block_s = time.perf_counter() - t_block
+    out["adaptive"]["seconds"] = block_s
+    log("sim.adaptive", seconds=f"{block_s:.3f}")
+
+    # 4. the facade: the quickstart's mix, then MCMC on its surrogate
+    t_block = time.perf_counter()
+    lo = [r[1] for r in sampling.GS2_PARAM_RANGES]
+    hi = [r[2] for r in sampling.GS2_PARAM_RANGES]
+    with LoadBalancer("hq", n_workers=4) as lb:
+        lb.register_model("eigen-100", lambda: EigenModel(100))
+        lb.register_model("gp-surrogate", _quickstart_gp_factory())
+        reqs = [EvalRequest("gp-surrogate", [t.tolist()])
+                for t in sampling.latin_hypercube(16, seed=1)]
+        reqs += [EvalRequest("eigen-100", [[0]]) for _ in range(8)]
+        gp_kernel.reset_launches()
+        t0 = time.perf_counter()
+        results = lb.run_all(reqs, timeout=300)
+        wall = time.perf_counter() - t0
+        if any(r.status != "ok" for r in results):
+            raise AssertionError("a quickstart request failed")
+        s = metrics.summarize("quickstart", "hq", lb.records())
+        observed = lb.evaluate("gp-surrogate",
+                               [sampling.latin_hypercube(1, seed=2)[0]
+                                .tolist()])[0]
+        t0 = time.perf_counter()
+        chains = mcmc.run_chains(
+            lb.executor, "gp-surrogate",
+            x0s=list(sampling.latin_hypercube(MCMC_CHAINS, seed=3)),
+            bounds=list(zip(lo, hi)), observed=observed,
+            n_steps=MCMC_STEPS, step_scale=0.05, sigma=0.05)
+        mcmc_s = time.perf_counter() - t0
+        launches["facade"] = dict(gp_kernel.launches)
+    if any(c.n_evals != MCMC_STEPS + 1
+           or not np.isfinite(c.samples).all() for c in chains):
+        raise AssertionError("an MCMC chain is malformed")
+    block_s = time.perf_counter() - t_block
+    out["facade"] = dict(seconds=block_s,
+        requests=len(reqs), wall_s=wall, cpu_s=s.total_cpu_time,
+        overhead_s=s.scheduling_overhead,
+        median_overhead_s=s.overhead_stats["median"], slr=s.slr,
+        mcmc_chains=MCMC_CHAINS, mcmc_steps=MCMC_STEPS, mcmc_s=mcmc_s,
+        accept_rates=[c.accept_rate for c in chains],
+        launches=launches["facade"])
+    log("sim.facade", requests=len(reqs), wall_s=f"{wall:.3f}",
+        cpu_s=f"{s.total_cpu_time:.3f}",
+        median_overhead_ms=f"{s.overhead_stats['median'] * 1e3:.3f}",
+        slr=f"{s.slr:.3f}", seconds=f"{block_s:.3f}")
+    log("sim.mcmc", chains=MCMC_CHAINS, steps=MCMC_STEPS,
+        seconds=f"{mcmc_s:.3f}",
+        accept_rates=",".join(f"{c.accept_rate:.3f}" for c in chains),
+        **{f"launches_{k}": v for k, v in launches["facade"].items()})
+
+    total = {}
+    for per in launches.values():
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v
+    missing = [k for k, v in total.items() if v < 1]
+    if missing:
+        raise AssertionError(f"GP kernels never launched in sim: {missing}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log("sim.total", seconds=f"{out['seconds']:.3f}",
+        **{f"launches_{k}": v for k, v in total.items()})
+    return out, total
 
 
 def _serve_path(arch):
@@ -1251,13 +1694,19 @@ def main() -> int:
     name, smi = phase_device()
     build_s = phase_build()
     rows = phase_kernels() + phase_lm_kernels()
-    main_out, launches = phase_main()
+    main_out, main_launches, post, backlog = phase_main()
+    sim_out, sim_launches = phase_sim(post, backlog)
     serve_out, serve_launches = phase_serve()
     rwkv_out, rwkv_launches = phase_serve_rwkv()
     serve_check = phase_serve_check()
     where = phase_where()
-    launches.update(serve_launches)
-    launches.update(rwkv_launches)
+    # each path's launches, counted from zero on that path
+    by_path = {"main": main_launches, "sim": sim_launches,
+               "serve": serve_launches, "serve_rwkv": rwkv_launches}
+    launches = {}
+    for per in by_path.values():
+        for k, v in per.items():
+            launches[k] = launches.get(k, 0) + v
     log("main.launches", **launches)
 
     replaces = {"gp_kernel_matrix": "src/repro/kernels/gp_kernel.py:23",
@@ -1277,6 +1726,8 @@ def main() -> int:
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"],
             replaces=replaces[base], launches=launches[base],
+            launches_by_path={path: per[base] for path, per in by_path.items()
+                              if base in per},
             max_abs_err=r["max_abs_err"], ms=r["ms"], call_ms=r["call_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -1287,7 +1738,8 @@ def main() -> int:
     log("total", seconds=f"{script_s:.1f}")
     record = dict(device=name, nvidia_smi=smi, build_s=build_s,
                   script_s=script_s,
-                  kernels=kernels, launches=launches, main=main_out,
+                  kernels=kernels, launches=launches,
+                  launches_by_path=by_path, main=main_out, sim=sim_out,
                   serve=serve_out, serve_rwkv=rwkv_out,
                   serve_check=serve_check, where=where,
                   event_timed=EVENT_TIMED)

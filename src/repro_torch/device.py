@@ -38,3 +38,15 @@ def strict_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def check(dev: Union[str, torch.device]) -> None:
+    """Raise unless tensors on `dev` are on the selected device: an entry
+    point handed a surrogate that lives elsewhere does not run it there.
+    Under the default (CUDA) with no card, `get()` raises first."""
+    want = get()
+    if torch.device(dev).type != want.type:
+        raise RuntimeError(
+            f"repro_torch runs on {want.type} and was handed tensors on "
+            f"{torch.device(dev).type}; call repro_torch.device.set_device"
+            f"({torch.device(dev).type!r}) to run there")

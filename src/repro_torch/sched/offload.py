@@ -149,6 +149,11 @@ class SurrogateOffload:
         eng = self._engine
         return getattr(eng, "post", eng)
 
+    @property
+    def device(self):
+        """Where the armed engine's tensors live (None when unarmed)."""
+        return None if self._engine is None else self._engine.device
+
     @posterior.setter
     def posterior(self, post) -> None:
         from repro_torch.uq import engine as uq_engine
@@ -354,6 +359,29 @@ class SurrogateOffload:
                 n_surrogate_evals=self.n_evals,
                 cpu_seconds_avoided=self.cpu_seconds_avoided,
                 sd_histogram=_metrics.sd_histogram(self._sds))
+
+
+def record_decisions(offload) -> dict:
+    """Log every routing decision of `offload` (this package's
+    `SurrogateOffload` or any object with its `trust_sd` / `decide`):
+    returns a dict, filled as the run goes, of task id -> (trust sd, or
+    None where a gate answered before the trust check; the decision).
+    Two runs' logs compare their routing task by task."""
+    log, trust_sd, decide = {}, offload.trust_sd, offload.decide
+
+    def logged_trust_sd(thetas):
+        sds = trust_sd(thetas)
+        log["_sd"] = float(sds[0])
+        return sds
+
+    def logged_decide(req, cost):
+        log.pop("_sd", None)
+        out = decide(req, cost)
+        log[req.task_id] = (log.pop("_sd", None), bool(out))
+        return out
+
+    offload.trust_sd, offload.decide = logged_trust_sd, logged_decide
+    return log
 
 
 @register_policy("offload")

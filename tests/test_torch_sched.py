@@ -230,7 +230,11 @@ def test_end_to_end_carried_gp_predicts_like_reference(gs2_pipeline):
 
 def test_port_loads_neither_jax_nor_repro(tmp_path):
     """The GS2 -> executor -> GP -> re-cost/offload -> QoI path on the
-    port, in a fresh interpreter: no `jax` or `repro` module is loaded."""
+    port, then the simulators on every Table III workload, the cluster
+    simulation with a fault plan and the offload, replay, the parity
+    harness (through the package's lazy export, traced), the LoadBalancer,
+    adaptive delegation and MCMC, in a fresh interpreter: no `jax` or
+    `repro` module is loaded, lazy imports included."""
     script = textwrap.dedent("""
         import sys
         import numpy as np
@@ -259,6 +263,51 @@ def test_port_loads_neither_jax_nor_repro(tmp_path):
         qoi.quadrature(lambda x: tuple(float(v) for v in
                                        gp.predict(post, x)[0][0]),
                        thetas[0], n_ky=3, n_theta0=3)
+
+        import repro_torch.cluster as cluster
+        from repro_torch.chaos import FaultPlan, InvariantChecker
+        from repro_torch.configs import workloads
+        from repro_torch.core import LoadBalancer, backends, simulate
+        from repro_torch.obs import Tracer, replay_cluster
+        from repro_torch.uq import adaptive, mcmc
+        from repro_torch.uq.eigen import EigenModel
+
+        hq = backends.get("hq")
+        for bench in workloads.BENCHMARKS:
+            w = workloads.make_workload(bench, n_evals=6)
+            assert len(simulate(hq, w, 2, seed=7)) == 6 + hq.preliminary_jobs
+        trace = [cluster.TraceTask(t=2.0 * i, runtime=30.0 + i,
+                                   model_name="gs2", time_request=30.0,
+                                   parameters=[t.tolist()])
+                 for i, t in enumerate(thetas)]
+        plan = FaultPlan.generate(0, horizon_s=40.0,
+                                  rates={"worker_crash": 0.05})
+        broker = cluster.Broker(surrogate=SurrogateOffload(
+            post, runtime_budget_s=1.0, sd_threshold=10.0))
+        tracer = Tracer()
+        res = cluster.simulate_cluster(hq, trace, broker=broker,
+                                       n_workers=2, fault_plan=plan,
+                                       tracer=tracer)
+        assert InvariantChecker().check(records=res.records,
+                                        allocations=res.allocations,
+                                        events=tracer.events()).ok
+        again = replay_cluster(hq, tracer.events(), n_workers=2)
+        assert len(again.records) == len(res.records)
+        rep = cluster.run_parity(hq, cluster.bimodal_trace(n=6, seed=1),
+                                 n_workers=2, tracers=(Tracer(), Tracer()))
+        assert rep.ok, rep.divergences
+        with LoadBalancer("hq", n_workers=2) as lb:
+            lb.register_model("eigen-16", lambda: EigenModel(16))
+            lb.register_model("gs2", factory)
+            assert len(lb.evaluate("eigen-16", [[0]])[0]) == 2
+            stream = adaptive.evaluate_stream(lb.executor, "gs2", post,
+                                              thetas[:3], sd_threshold=0.0,
+                                              backend="incremental")
+            assert stream.n_sim_calls == 3
+            chain = mcmc.run_chain(lb.executor, "eigen-16", x0=np.zeros(1),
+                                   bounds=[(0.0, 1.0)], observed=[0.0, 1.0],
+                                   n_steps=3)
+            assert chain.n_evals == 4
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "repro") or m.startswith("jax.")
                         or m.startswith("repro."))
