@@ -63,23 +63,38 @@ to the CPU:
                 4 MCMC chains of 200 steps on its GP surrogate.  Each
                 path's GP launch counters are zeroed just before it and
                 read just after.
-  6. serve    — LM serving of zamba2-2.7b at its published widths (54
+  6. service  — the multi-tenant ServiceBroker through the port, with the
+                recipes of benchmarks/broker_service.py: 48 GS2 solves
+                from 3 tenants weighted 1:2:4 on 8 persistent workers (SJF
+                inside each tenant, the GP runtime predictor warmed from
+                main's conditioning set), run once uninterrupted, then
+                again with a journal every 0.05 s, killed after a third
+                are done and recovered: zero lost tasks, the same terminal
+                set, and the recovered predictor's batched predict on
+                10,000 backlog rows within 1e-5 of the checkpointed
+                state's refit.  A partitioned GP predictor's state through
+                JSON and back (backend kept, expert predict launched), the
+                fair-share recipe through simulate_cluster (max relative
+                error <= 10%), 20,000 submits under quotas with no
+                workers.  The GP launch counters are zeroed before each
+                path and read after it.
+  7. serve    — LM serving of zamba2-2.7b at its published widths (54
                 layers, d_model 2560, bf16, random weights from a seed)
                 through the Executor: 8 requests on one persistent server
                 (prompts of 64-1023 tokens, 16 new tokens each), then 2 on
                 fresh servers.  The attention and SSD launch counters are
                 zeroed just before; attention must have launched, and the
                 SSD at least once per layer per request.
-  7. serve_rwkv — the same mix for rwkv6-3b at its published widths (32
+  8. serve_rwkv — the same mix for rwkv6-3b at its published widths (32
                 layers, d_model 2560, vocab 65536, bf16): the WKV launch
                 counter is zeroed just before and must read at least one
                 launch per layer per request just after.
-  8. serve_check — outside the timed windows, in f32 at full width:
+  9. serve_check — outside the timed windows, in f32 at full width:
                 zamba2 2 groups (12 layers) deep and rwkv6 4 layers deep.
                 Greedy tokens equal the argmax of repeated full forwards,
                 and prefill logits on the card match the port on the CPU
                 with the same weights.
-  9. where    — outside the counted runs: one GS2 solve alone, and the
+ 10. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
                 each (a 512-token prefill, then prefill + 16 new tokens),
@@ -1042,7 +1057,7 @@ def phase_main():
                                     if isinstance(v[key], float) else v[key])
            for name, v in kg.items()
            for key in ("kernels", "device_ms", "host_ms", "whole_counts")})
-    return out, launches, post, backlog
+    return out, launches, post, backlog, predictor.state_dict()
 
 
 # ---------------------------------------------------------------------------
@@ -1459,6 +1474,266 @@ def phase_sim(post, backlog):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# the multi-tenant broker service through the port (phase `service`); the
+# recipes are benchmarks/broker_service.py's, copied, with GS2 tasks in
+# place of its sleeping toy model for the kill and recover
+SERVICE_WEIGHTS = {"a": 1.0, "b": 2.0, "c": 4.0}   # its WEIGHTS
+SERVICE_TASKS = 48
+SERVICE_WORKERS = 8
+SERVICE_JOURNAL_S = 0.05
+SERVICE_PREDICT_ROWS = 10_000
+# the recovered predictor against the checkpointed one: both refit from
+# the same journal state on one card, where the fit's kernels sum in a
+# fixed order, so they agree to f32 rounding or better
+SERVICE_PREDICT_TOL = 1e-5
+FAIR_SHARE_BURST = 112       # its full-size bench_fair_share
+FAIR_SHARE_MAX_ERR = 0.10    # its gate
+INGEST_TASKS = 20_000        # its full-size bench_ingestion
+
+
+def _service_reqs(thetas):
+    from repro_torch.core import EvalRequest
+    tenants = sorted(SERVICE_WEIGHTS)
+    return [EvalRequest("gs2", [t.tolist()], time_request=1.0,
+                        time_limit=900.0, tenant=tenants[i % 3],
+                        task_id=f"svc-{i}") for i, t in enumerate(thetas)]
+
+
+def _service_broker(gp_state, **kw):
+    """A ServiceBroker over persistent GS2 workers at main's resolution:
+    tenants 1:2:4, SJF inside each tenant's queue (so queue re-costs go
+    through the GP's batched predict), and the GP runtime predictor
+    ("gp", exact backend) warmed from main's conditioning set."""
+    from repro_torch.sched import GPRuntimePredictor
+    from repro_torch.service import ServiceBroker
+    from repro_torch.uq import gs2_proxy
+    pred = GPRuntimePredictor()
+    pred.load_state(gp_state)
+    return ServiceBroker({"gs2": _gs2_factory(gs2_proxy.DEFAULT_RESOLUTION)},
+                         weights=SERVICE_WEIGHTS, inner_policy="sjf",
+                         predictor=pred, n_workers=SERVICE_WORKERS,
+                         persistent_servers=True, **kw)
+
+
+def _fair_share(burst):
+    """bench_fair_share: tenants 1:2:4 on a saturating burst, CPU-second
+    shares at the 3/4-drain horizon of simulate_cluster."""
+    from repro_torch.cluster import bursty_trace, simulate_cluster, \
+        with_tenants
+    from repro_torch.core import backends
+    from repro_torch.sched import FairSharePolicy
+    trace = with_tenants(
+        bursty_trace(n_bursts=1, burst_size=burst, burst_span_s=1.0,
+                     runtime_s=4.0, jitter=0.0, seed=3), SERVICE_WEIGHTS)
+    tenant_of = {f"trace-{i}": tt.tenant for i, tt in enumerate(trace)}
+    res = simulate_cluster(
+        backends.get("hq"), trace,
+        policy=lambda: FairSharePolicy(weights=SERVICE_WEIGHTS,
+                                       quantum_s=8.0),
+        n_workers=2, seed=3)
+    done = sorted((r for r in res.records if r.status == "ok"),
+                  key=lambda r: r.end_t)
+    part = done[:(3 * len(done)) // 4]
+    cpu = {t: 0.0 for t in SERVICE_WEIGHTS}
+    for r in part:
+        cpu[tenant_of[r.task_id]] += r.cpu_time
+    total = sum(cpu.values())
+    wsum = sum(SERVICE_WEIGHTS.values())
+    shares = {t: cpu[t] / total for t in SERVICE_WEIGHTS}
+    err = max(abs(shares[t] - w / wsum) / (w / wsum)
+              for t, w in SERVICE_WEIGHTS.items())
+    return dict(tasks=len(trace), horizon_tasks=len(part), shares=shares,
+                max_rel_error=err)
+
+
+def _ingestion(n):
+    """bench_ingestion: n submits through admission control (quotas,
+    tenant-labelled counters) into the broker with no workers."""
+    from repro_torch.core import EvalRequest, LambdaModel
+    from repro_torch.service import ServiceBroker
+
+    def toy():
+        return LambdaModel("toy", lambda p, c: [[float(p[0][0])]], 1, 1)
+    svc = ServiceBroker({"toy": toy}, n_workers=0, weights=SERVICE_WEIGHTS,
+                        quotas={t: n * 2 for t in SERVICE_WEIGHTS})
+    tenants = sorted(SERVICE_WEIGHTS)
+    reqs = [EvalRequest("toy", [[float(i)]], time_request=1.0,
+                        time_limit=60.0, tenant=tenants[i % 3])
+            for i in range(n)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        svc.submit(r)
+    dt = time.perf_counter() - t0
+    svc.kill()
+    return dict(tasks=n, seconds=dt, us_per_submit=dt / n * 1e6)
+
+
+def phase_service(gp_state, backlog):
+    """The port's ServiceBroker on the card: a GS2 workload run through
+    uninterrupted, then run again, killed after a third of its tasks and
+    recovered from its journal (zero lost tasks, the same terminal set,
+    the recovered GP predicting as the checkpointed one does); a
+    partitioned GP predictor's state round trip; the fair-share recipe;
+    ingestion under quotas.  Each path's GP launches count from zero."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Journal
+    from repro_torch.kernels import gp_kernel
+    from repro_torch.sched import GPRuntimePredictor
+    from repro_torch.service import ServiceBroker
+    from repro_torch.uq import gs2_proxy, sampling
+
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+    thetas = sampling.latin_hypercube(SERVICE_TASKS, seed=15)
+    jdir = ROOT / "build" / "service_journal"
+    shutil.rmtree(jdir, ignore_errors=True)
+
+    # 1. kill and recover with the GP runtime predictor
+    torch.cuda.synchronize()
+    gp_kernel.reset_launches()
+    t0 = time.perf_counter()
+    with _service_broker(gp_state) as svc:
+        ids = [svc.submit(r) for r in _service_reqs(thetas)]
+        base = [svc.result(t, timeout=300.0) for t in ids]
+    base_s = time.perf_counter() - t0
+    base_terminal = {(r.task_id, r.status) for r in base}
+    if any(r.status != "ok" for r in base):
+        raise AssertionError("an uninterrupted service task did not end ok")
+
+    t0 = time.perf_counter()
+    svc = _service_broker(gp_state, journal_dir=str(jdir),
+                          journal_every_s=SERVICE_JOURNAL_S)
+    ids = [svc.submit(r) for r in _service_reqs(thetas)]
+    deadline = time.monotonic() + 300.0
+    while sum(r.status == "ok" for r in svc.records()) < SERVICE_TASKS // 3:
+        if time.monotonic() > deadline:
+            raise AssertionError("the service never reached a third done")
+        time.sleep(0.005)
+    svc.checkpoint()
+    svc.kill()
+    svc._writer.join(timeout=5.0)      # its last publish is on disk
+    done_before = sum(r.status == "ok" for r in svc.records())
+    t_kill = time.perf_counter() - t0
+    journal = Journal(jdir).latest()[1]["snapshot"]
+    held = set(journal["completed"]) | {p["task_id"]
+                                        for p in journal["pending"]}
+    if set(ids) - held:
+        raise AssertionError(f"the journal lost tasks: "
+                             f"{sorted(set(ids) - held)}")
+    checkpointed = journal["predictor"]
+    # no workers until the recovered predictor is taken: the journal's
+    # state, refitted, before any completion conditions it
+    t1 = time.perf_counter()
+    svc2 = ServiceBroker.recover(
+        {"gs2": _gs2_factory(gs2_proxy.DEFAULT_RESOLUTION)},
+        journal_dir=str(jdir), predictor="gp", inner_policy="sjf",
+        n_workers=0, persistent_servers=True,
+        journal_every_s=SERVICE_JOURNAL_S)
+    recover_s = time.perf_counter() - t1
+    recovered = svc2._ex.predictor._engine
+    svc2._ex.scale_to(SERVICE_WORKERS)
+    res = [svc2.result(t, timeout=300.0) for t in ids]
+    svc2.shutdown()
+    torch.cuda.synchronize()
+    killed_s = time.perf_counter() - t0
+    launches["kill_recover"] = dict(gp_kernel.launches)
+    terminal = {(r.task_id, r.status) for r in res}
+    lost = SERVICE_TASKS - len({r.task_id for r in res
+                                if r.status in ("ok", "failed")})
+    if lost or terminal != base_terminal:
+        raise AssertionError(f"kill/recover lost {lost} tasks; terminal "
+                             f"sets equal: {terminal == base_terminal}")
+    missing = [k for k in ("gp_kernel_matrix", "gp_kernel_matrix_grad",
+                           "gp_predict") if launches["kill_recover"][k] < 1]
+    if missing:
+        raise AssertionError(f"never launched on kill/recover: {missing}")
+    if recovered is None or checkpointed is None:
+        raise AssertionError("the journal carried no fitted GP predictor")
+
+    # outside the counted run: the checkpointed predictor, refitted from
+    # the state the kill left, against the recovered one
+    ref = GPRuntimePredictor()
+    ref.load_state(checkpointed)
+    rows = backlog[:SERVICE_PREDICT_ROWS]
+    rm, rv = recovered.predict_batch(rows)
+    cm, cv = ref._engine.predict_batch(rows)
+    err_m = float((rm - cm).abs().max())
+    err_v = float((rv - cv).abs().max())
+    if not (err_m <= SERVICE_PREDICT_TOL and err_v <= SERVICE_PREDICT_TOL
+            and torch.isfinite(rm).all() and torch.isfinite(rv).all()):
+        raise AssertionError(f"recovered vs checkpointed predictor: mean "
+                             f"{err_m}, var {err_v} > {SERVICE_PREDICT_TOL}")
+    out["kill_recover"] = dict(
+        tasks=SERVICE_TASKS, workers=SERVICE_WORKERS,
+        done_before_kill=done_before, lost_tasks=lost,
+        uninterrupted_s=base_s, killed_at_s=t_kill, recover_s=recover_s,
+        kill_recover_s=killed_s, makespan_penalty=killed_s / base_s - 1.0,
+        predictor_n=len(checkpointed["xs"]), predict_rows=len(rows),
+        predict_mean_err=err_m, predict_var_err=err_v,
+        launches=launches["kill_recover"])
+    log("service.kill_recover", tasks=SERVICE_TASKS, workers=SERVICE_WORKERS,
+        done_before_kill=done_before, lost_tasks=lost,
+        uninterrupted_s=f"{base_s:.3f}", killed_at_s=f"{t_kill:.3f}",
+        recover_s=f"{recover_s:.3f}", kill_recover_s=f"{killed_s:.3f}",
+        makespan_penalty=f"{killed_s / base_s - 1.0:.4f}",
+        predictor_n=len(checkpointed["xs"]),
+        predict_mean_err=f"{err_m:.3g}", predict_var_err=f"{err_v:.3g}",
+        **{f"launches_{k}": v for k, v in launches["kill_recover"].items()})
+
+    # 2. a partitioned GP predictor's state through JSON and back
+    gp_kernel.reset_launches()
+    t0 = time.perf_counter()
+    part = GPRuntimePredictor()
+    part.load_state(dict(gp_state, backend="partitioned"))
+    state = json.loads(json.dumps(part.state_dict()))
+    back = GPRuntimePredictor()
+    back.load_state(state)
+    costs = back.predict_many(_service_reqs(backlog[:1024]))
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    launches["partitioned"] = dict(gp_kernel.launches)
+    if not (state["backend"] == back.backend == "partitioned"
+            and back._engine.backend == "partitioned"):
+        raise AssertionError(f"the backend did not survive: {back.backend}")
+    if launches["partitioned"]["gp_predict_experts"] < 1 or \
+            not (np.isfinite(costs).all() and min(costs) > 0):
+        raise AssertionError("partitioned round trip: no expert launch or "
+                             "malformed costs")
+    out["partitioned"] = dict(experts=len(back._engine.experts),
+                              seconds=part_s, launches=launches["partitioned"])
+    log("service.partitioned", backend=back.backend,
+        experts=len(back._engine.experts), seconds=f"{part_s:.3f}",
+        **{f"launches_{k}": v for k, v in launches["partitioned"].items()})
+
+    # 3. fair share (simulated) and 4. ingestion: host paths, no GP
+    fair = _fair_share(FAIR_SHARE_BURST)
+    if fair["max_rel_error"] > FAIR_SHARE_MAX_ERR:
+        raise AssertionError(f"fair-share error {fair['max_rel_error']}")
+    out["fair_share"] = fair
+    log("service.fair_share", tasks=fair["tasks"],
+        horizon_tasks=fair["horizon_tasks"],
+        max_rel_error=repr(fair["max_rel_error"]),
+        **{f"share_{t}": repr(v) for t, v in fair["shares"].items()})
+    ingest = _ingestion(INGEST_TASKS)
+    out["ingestion"] = ingest
+    log("service.ingestion", tasks=INGEST_TASKS,
+        seconds=f"{ingest['seconds']:.3f}",
+        us_per_submit=f"{ingest['us_per_submit']:.2f}")
+
+    total = {}
+    for per in launches.values():
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log("service.total", seconds=f"{out['seconds']:.3f}",
+        **{f"launches_{k}": v for k, v in total.items()})
+    return out, total
+
+
 def _serve_path(arch):
     """`arch` at its published widths through the port's Executor: a
     persistent server, then fresh servers.  Every LM kernel's launch
@@ -1694,15 +1969,17 @@ def main() -> int:
     name, smi = phase_device()
     build_s = phase_build()
     rows = phase_kernels() + phase_lm_kernels()
-    main_out, main_launches, post, backlog = phase_main()
+    main_out, main_launches, post, backlog, gp_state = phase_main()
     sim_out, sim_launches = phase_sim(post, backlog)
+    service_out, service_launches = phase_service(gp_state, backlog)
     serve_out, serve_launches = phase_serve()
     rwkv_out, rwkv_launches = phase_serve_rwkv()
     serve_check = phase_serve_check()
     where = phase_where()
     # each path's launches, counted from zero on that path
     by_path = {"main": main_launches, "sim": sim_launches,
-               "serve": serve_launches, "serve_rwkv": rwkv_launches}
+               "service": service_launches, "serve": serve_launches,
+               "serve_rwkv": rwkv_launches}
     launches = {}
     for per in by_path.values():
         for k, v in per.items():
@@ -1740,7 +2017,7 @@ def main() -> int:
                   script_s=script_s,
                   kernels=kernels, launches=launches,
                   launches_by_path=by_path, main=main_out, sim=sim_out,
-                  serve=serve_out, serve_rwkv=rwkv_out,
+                  service=service_out, serve=serve_out, serve_rwkv=rwkv_out,
                   serve_check=serve_check, where=where,
                   event_timed=EVENT_TIMED)
     out_dir = ROOT / "chiprun_out"

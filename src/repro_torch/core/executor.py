@@ -105,10 +105,9 @@ class Worker(threading.Thread):
                 continue
             if item is _STOP:
                 break
+            if item is None:
+                continue                       # a stale copy, dropped
             req, attempt = item
-            if self.pool._already_done(req.task_id):
-                continue
-            self.pool._mark_running(req, self, attempt)
             dispatch_t = self.pool._clock()
             surrogate = (self.pool._surrogate()
                          if req.config.get("_surrogate") else None)
@@ -394,6 +393,13 @@ class Executor:
     # queue plumbing
     # ------------------------------------------------------------------
     def _queue_get(self, timeout: float, worker: Optional[Worker] = None):
+        """Pop the next (request, attempt) for `worker`.  With a worker,
+        the pop, the drop of a stale copy of a finished task (returned as
+        None) and the running mark are one critical section.  (The
+        reference pops here and marks in `Worker.run`, each under its own
+        acquisition of the lock: a `snapshot()` between the two finds the
+        task neither queued nor running, and a service journal written
+        then loses it — `ServiceBroker.recover` waits for it forever.)"""
         view = worker.view() if worker is not None else None
         with self._cv:
             if not len(self.policy):
@@ -401,6 +407,10 @@ class Executor:
             item = self.policy.pop(view)
             if item is None:
                 raise IndexError
+            if worker is not None:
+                if self._already_done(item[0].task_id):
+                    return None
+                self._mark_running(item[0], worker, item[1])
             return item
 
     def _push(self, req: EvalRequest, attempt: int):

@@ -81,7 +81,12 @@ class GPParams:
     log_noise: torch.Tensor          # []
 
     @staticmethod
-    def init(d: int, device: torch.device) -> "GPParams":
+    def init(d: int, device: Optional[torch.device] = None) -> "GPParams":
+        """ls = 1, variance = 1, noise = 0.1, as `repro`'s `init(d)`; on
+        the package's device (`device_mod.get()`, which raises under the
+        default CUDA with no card) unless `device` is given."""
+        if device is None:
+            device = device_mod.get()
         return GPParams(torch.zeros((d,), device=device),
                         torch.zeros((), device=device),
                         torch.log(torch.tensor(0.1, device=device)))

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.uq import gp as jgp
+from repro_torch import device
 from repro_torch.obs import Tracer
 from repro_torch.uq import gp as tgp
 from torch_port_util import export_posterior, np32, on_cpu  # noqa: F401
@@ -199,3 +200,30 @@ def test_posterior_roundtrip(carried):
                   tpost.params.log_lengthscale)):
         assert torch.equal(a, b)
     assert back.kind == tpost.kind
+
+
+def test_params_init_takes_the_package_device():
+    """`GPParams.init(d)` with no device, as code written against
+    `repro.uq.gp` calls it (tests/test_offload.py builds its analytic
+    posterior so): on the CPU default it is the reference's initial tree,
+    and an explicit device still wins."""
+    want = jgp.GPParams.init(3).tree()
+    for params in (tgp.GPParams.init(3),
+                   tgp.GPParams.init(3, torch.device("cpu"))):
+        got = params.tree()
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k].device.type == "cpu"
+            np.testing.assert_array_equal(np32(got[k]), np.asarray(v))
+
+
+def test_params_init_without_a_card_raises(monkeypatch):
+    """Under the default device (CUDA) with no card, `GPParams.init(d)`
+    raises, as every entry point of the port does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    device.set_device("cuda")
+    try:
+        with pytest.raises(RuntimeError, match="set_device"):
+            tgp.GPParams.init(3)
+    finally:
+        device.set_device("cpu")

@@ -321,6 +321,59 @@ def test_port_loads_neither_jax_nor_repro(tmp_path):
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_service_loads_neither_jax_nor_repro(tmp_path):
+    """`repro_torch.service` and `repro_torch.checkpoint` in a fresh
+    interpreter: a `ServiceBroker` with `predictor="gp"` fits its runtime
+    GP, is killed mid-workload and recovered from its journal (the
+    predictor refitted from the journal's conditioning set) with every
+    task ok, and no `jax` or `repro` module is loaded."""
+    script = textwrap.dedent("""
+        import sys, time
+        from repro_torch import device
+        device.set_device("cpu")
+        from repro_torch.checkpoint import Journal
+        from repro_torch.core import EvalRequest, LambdaModel
+        from repro_torch.service import ServiceBroker
+
+        def factory():
+            def fn(p, c):
+                time.sleep(0.002 + 0.004 * p[0][0])
+                return [[p[0][0] + p[0][1]]]
+            return LambdaModel("toy", fn, 2, 1)
+
+        kw = dict(predictor="gp", n_workers=2)
+        svc = ServiceBroker({"toy": factory}, weights={"a": 1.0, "b": 2.0},
+                            journal_dir=sys.argv[1], journal_every_s=0.02,
+                            **kw)
+        ids = [svc.submit(EvalRequest("toy", [[i / 20, 1 - i / 20]],
+                                      tenant="ab"[i % 2],
+                                      task_id=f"t{i}")) for i in range(20)]
+        while svc._ex.predictor.n_fits < 1 or \\
+                sum(r.status == "ok" for r in svc.records()) < 10:
+            time.sleep(0.01)
+        svc.checkpoint()
+        svc.kill()
+        assert len(Journal(sys.argv[1]).latest()[1]["snapshot"]
+                   ["predictor"]["xs"]) >= 8
+        svc2 = ServiceBroker.recover({"toy": factory},
+                                     journal_dir=sys.argv[1], **kw)
+        assert svc2._ex.predictor.n_fits >= 1
+        res = [svc2.result(t, timeout=60) for t in ids]
+        svc2.shutdown()
+        assert [r.status for r in res] == ["ok"] * 20
+        loaded = sorted(m for m in sys.modules
+                        if m in ("jax", "repro") or m.startswith("jax.")
+                        or m.startswith("repro."))
+        print("LOADED", loaded)
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", script,
+                          str(tmp_path / "journal")], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_default_device_without_card_raises(monkeypatch):
     """With the default device (CUDA) and no card, entry points raise
     rather than carrying on on the CPU."""

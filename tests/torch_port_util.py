@@ -1,6 +1,6 @@
 """Shared helpers for the `repro_torch` differential tests: carrying a
 `repro` posterior across to the port, comparing records of the two
-packages, and the device fixtures."""
+packages, running one case through both, and the device fixtures."""
 import dataclasses
 import math
 
@@ -62,12 +62,25 @@ def carry_reference_fit(monkeypatch) -> None:
     from repro_torch.uq import engine as tengine
     from repro_torch.uq import gp as tgp
 
-    def fit_engine(x, y, backend="exact", *, kind="rbf", steps=200, **kw):
-        assert backend == "exact"
-        post = jgp.fit(x, y, kind=kind, steps=steps)
-        return tengine.ExactEngine(tgp.posterior_from_numpy(
-            export_posterior(post), "cpu"))
+    def fit_engine(x, y, backend="exact", *, kind="rbf", steps=200,
+                   lr=5e-2, max_points=None, **kw):
+        assert backend in ("exact", "incremental")
+        post = jgp.fit(x, y, kind=kind, steps=steps, lr=lr)
+        return tengine.wrap_posterior(
+            tgp.posterior_from_numpy(export_posterior(post), "cpu"),
+            backend, max_points=max_points, **kw)
     monkeypatch.setattr(tengine, "fit_engine", fit_engine)
+
+
+def twin(pair, body, *args):
+    """`body(J, *args)` and `body(T, *args)`, for `pair = (J, T)`: the
+    reference's modules and the port's, as namespaces a test file builds.
+    The same case through both must give equal observations (`plain`).
+    The body carries the reference test's own asserts, so each side is
+    held to them too.  Returns the port's observation."""
+    j, t = (body(p, *args) for p in pair)
+    assert plain(j) == plain(t), (j, t)
+    return t
 
 
 @pytest.fixture(scope="module")
