@@ -23,7 +23,12 @@ to the CPU:
                 time, the least time the card could take (bound) and, for
                 attention, PyTorch's scaled_dot_product_attention on the
                 same inputs as a yardstick (timed only; the port never
-                calls it).  First the launch floor: the device time of the
+                calls it).  The attention backward (flash_attention_bwd,
+                three kernels per call, asserted) at starcoder2's train
+                shape in bf16 and f32, an MLA width and Sq < Skv, against
+                float64 oracles (the plain blocked backward and autograd
+                through the plain forward), with the backward of
+                scaled_dot_product_attention as its yardstick.  First the launch floor: the device time of the
                 least kernel (zero_() of one element), which the small
                 shapes' rows are read against.  The covariance gradient
                 (gp_kernel_matrix_grad, two kernels per call, asserted)
@@ -94,7 +99,22 @@ to the CPU:
                 Greedy tokens equal the argmax of repeated full forwards,
                 and prefill logits on the card match the port on the CPU
                 with the same weights.
- 10. where    — outside the counted runs: one GS2 solve alone, and the
+ 10. train    — starcoder2-3b training through the port's train(): at its
+                published widths and depth (30 layers, d_model 3072, bf16,
+                remat, 3.18 B parameters, random weights from a seed), 6
+                AdamW steps at B 2, S 1024 on synthetic data.  The
+                attention counters are zeroed just before and must read
+                exactly 2 x 30 x 6 forward and 30 x 6 backward launches
+                just after; finite losses and grad norms, parameters
+                moved; step ms (median of the last 4), tokens/s, peak
+                device memory, and one more step profiled (device idle
+                share, top kernels).  Then, 2 layers deep at full width:
+                a 3-step run with checkpoints every 3 steps, its step-2
+                checkpoint restored bit for bit, and a resume from it
+                that follows an uninterrupted 6-step run; and one f32 step 2 layers deep on the
+                card against the port on the CPU (the gradient against
+                the same model in f64 on the CPU).
+ 11. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
                 each (a 512-token prefill, then prefill + 16 new tokens),
@@ -648,11 +668,151 @@ def _rwkv_bound(r, v, state):
     return bound_ms(n_bytes, 5 * b * s * h * kd * vd)
 
 
+def _attn_bwd_bound(q, k, v, flop_per_s=None):
+    """The attention backward.  Bytes: q, k, v, the output and its
+    gradient read once each in the operands' type, the f32 log-sum-exp
+    read once, dq, dk and dv written once.  Operations: 2 (3 Dh + 2 Dv)
+    per visible (query, key) pair (S recomputed once, dP = dO V^T, dV, dK
+    and dQ), at the card's peak for the operands' type, as the forward's
+    bound (bf16 tensor cores, f32 CUDA cores), or at `flop_per_s`."""
+    import torch
+    b, sq, h, dh = q.shape
+    skv, dv = k.shape[1], v.shape[3]
+    pairs = sum(min(skv, r + skv - sq + 1) for r in range(sq))
+    elem = q.element_size()
+    n_bytes = (elem * (2 * (q.numel() + k.numel() + v.numel())
+                       + 2 * b * sq * h * dv) + 4 * b * h * sq)
+    if flop_per_s is None:
+        flop_per_s = (BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+                      else F32_FLOP_PER_S)
+    return bound_ms(n_bytes, b * h * pairs * 2 * (3 * dh + 2 * dv),
+                    flop_per_s)
+
+
+ATTN_BWD_PHASES = ("flash_attention_bwd_dot", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv")
+
+
+def _sdpa_bwd_ms(q, k, v, dout, label):
+    """Device ms of the backward alone of PyTorch's
+    scaled_dot_product_attention on the same operands (a yardstick, timed
+    only; the port never calls it), with the causal diagonal at the
+    bottom right as the kernel's.  None, with the reason logged, where
+    SDPA refuses the shapes."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    h, hkv = q.shape[2], k.shape[2]
+    sq, skv = q.shape[1], k.shape[1]
+    try:
+        if sq == skv:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=h != hkv)
+        else:      # a lower-right causal bias; kv heads repeated beforehand
+            qt, kt, vt = (t.repeat_interleave(h // t.shape[2], 2)
+                          .transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=causal_lower_right(sq, skv))
+        dot = dout.transpose(1, 2)
+        return device_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 20,
+            label=f"sdpa bwd {label}")
+    except RuntimeError as e:
+        log("kernel", label=f"sdpa bwd {label}", library="not measured",
+            reason=repr(str(e)[:120]))
+        return None
+
+
+def _attention_bwd_rows(randn):
+    """flash_attention_bwd against its plain version at the train path's
+    shape (starcoder2-3b: B 2, S 1024, 24 query heads over 2 kv heads of
+    128) in bf16 and f32, an MLA width (Dh 192, Dv 128) and Sq < Skv.  The
+    oracle is float64 on the card: the plain blocked backward
+    (ref.attention_bwd) on the same q, k, v, output, log-sum-exp and
+    output gradient, and autograd through ref.attention.  Tolerances per
+    gradient, against max |grad|: f32 1e-4 max|g| + 1e-6 (the same f32
+    products summed in another order, over a 1,024-key softmax); bf16
+    2e-2 max|g| (the bf16 forward rounds P to bf16 before P V and its
+    output to bf16, so D = rowsum(dO O) and the recomputed P carry those
+    roundings, and each gradient is rounded to bf16 once)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for label, b, sq, skv, h, hkv, dh, dv, dtype in (
+            ("starcoder2 bf16 S=1024", 2, 1024, 1024, 24, 2, 128, 128, bf16),
+            ("starcoder2 f32 S=1024", 2, 1024, 1024, 24, 2, 128, 128, f32),
+            ("MLA width bf16 S=1024", 1, 1024, 1024, 16, 16, 192, 128, bf16),
+            ("starcoder2 bf16 Sq=512 Skv=1024", 2, 512, 1024, 24, 2, 128,
+             128, bf16)):
+        q = randn(b, sq, h, dh, dtype=dtype)
+        k = randn(b, skv, hkv, dh, dtype=dtype)
+        v = randn(b, skv, hkv, dv, dtype=dtype)
+        dout = randn(b, sq, h, dv, dtype=dtype)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        want = ref.attention_bwd(*(t.double() for t in (q, k, v, out, lse,
+                                                         dout)))
+        q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(ref.attention(q64, k64, v64),
+                                   (q64, k64, v64), dout.double())
+        rel = 2e-2 if dtype == bf16 else 1e-4
+        err, rel_err = 0.0, 0.0
+        for name, g_, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+            scale = float(w.abs().max())
+            tol = rel * scale + (1e-6 if dtype == f32 else 0.0)
+            e_w = max_err(g_.double(), w)
+            e_a = max_err(g_.double(), a)
+            if not (torch.isfinite(g_).all() and e_w <= tol and e_a <= tol):
+                raise AssertionError(
+                    f"flash_attention_bwd {label} {name}: {e_w} against the "
+                    f"plain backward, {e_a} against autograd, > {tol}")
+            err = max(err, e_w)
+            rel_err = max(rel_err, e_w / scale)
+        del want, auto, q64, k64, v64
+        run = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout))
+        if not all(torch.equal(x, y) for x, y in zip(got, run())):
+            raise AssertionError(f"flash_attention_bwd {label}: two calls "
+                                 f"differ")
+        kernels = {}
+        ms = device_ms(run, 10, label=f"flash_attention_bwd {label}",
+                       by_kernel=kernels, expect=len(ATTN_BWD_PHASES))
+        phase_ms, per_call = _phases(kernels, ATTN_BWD_PHASES)
+        bnd, by = _attn_bwd_bound(q, k, v)
+        # the same work at the f32 CUDA-core peak: what this design, which
+        # multiplies in f32 on the CUDA cores for both types, could reach
+        bnd_f32, _ = _attn_bwd_bound(q, k, v, F32_FLOP_PER_S)
+        rows.append(dict(
+            name=f"flash_attention_bwd[{label}]", source=fa.SOURCE,
+            grad_tol=f"{rel:g} max|g|" + (" + 1e-6" if dtype == f32
+                                           else ""),
+            shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} dv{dv}",
+            max_abs_err=err, max_rel_err=rel_err, ms=ms,
+            call_ms=call_ms(run, 10),
+            plain_ms=device_ms(lambda: ref.attention_bwd(q, k, v, out, lse,
+                                                          dout), 3,
+                               warmup=1, label=f"plain attention_bwd {label}"),
+            bound_ms=bnd, bound_by=by, bound_f32_cuda_core_ms=bnd_f32,
+            library_ms=_sdpa_bwd_ms(q, k, v, dout, label),
+            kernel_launches_per_call=per_call, phase_ms=phase_ms,
+            deterministic=True,
+            note="ms sums the device time of the call's three kernels "
+                 "(D = rowsum(dO O), dq, dk/dv); library_ms is the backward "
+                 "of scaled_dot_product_attention alone"))
+    return rows
+
+
 def phase_lm_kernels():
     """flash_attention, mamba2_ssd and rwkv6_wkv against their plain
     versions at the serve paths' shapes (zamba2: 32 heads of 80, 80 SSD
     heads of 64 with a 64-wide state; starcoder2: a GQA group of 12 with
-    heads of 128; rwkv6-3b: 40 WKV heads of 64)."""
+    heads of 128; rwkv6-3b: 40 WKV heads of 64), then the attention
+    backward at the train path's shapes (`_attention_bwd_rows`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -810,6 +970,7 @@ def phase_lm_kernels():
                  "(chunk states, state scan, output); the launches per "
                  "call and phase_ms are counted in the profiler window, "
                  "null where it was event-timed"))
+    rows += _attention_bwd_rows(randn)
     for r in rows:
         r["source"] = str(Path(r["source"]).relative_to(ROOT))
         log("kernel", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
@@ -1876,6 +2037,418 @@ def phase_serve_check():
     return out
 
 
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_STEPS = 6
+TRAIN_BATCH = 2
+TRAIN_SEQ = 1024
+TRAIN_CKPT_EVERY = 3
+# The checkpoint and resume run at a depth cut: a full-depth train state
+# (bf16 parameters staged as f32, f32 moments) is 38 GB per checkpoint,
+# and the card's host keeps its disk in memory, so two checkpoints and a
+# staged copy do not fit beside the run.  The widths stay published.
+TRAIN_CKPT_LAYERS = 2
+TRAIN_CPU_LAYERS = 2         # the card-vs-CPU step: f32, full width
+TRAIN_CPU_SEQ = 128
+# The card-vs-CPU step's gradient limits: relative L2 gap per tensor,
+# the first pattern that matches the tensor's name.  They go by the
+# number of saturated softmaxes the tensor's gradient goes back through.
+# The reference's init, which the port copies, draws a [d, heads,
+# head_dim] projection with the head count as its fan-in, so w_k (2 kv
+# heads) has std 0.71 and w_q (24 heads) 0.20; the scores reach hundreds
+# and every softmax saturates.  Any f32 gradient is then 1e-5 to 1e-2 off
+# the exact one, whatever the order of its sums: the CPU's own reads
+# 1.6e-5 to 1.0e-2 from float64, so 1e-5 between two f32 runs cannot
+# hold.  Each limit is about 3x the largest card-vs-CPU gap over three
+# seeds and below the smallest gap of the card with TF32 GEMMs, a control
+# of lower precision (train_grad_readings.py on an NVIDIA H100 80GB HBM3
+# at 700 W: the numbers beside each pattern).
+TRAIN_GRAD_LIMITS = (
+    # back through layer 1's and layer 0's scores: <= 1.34e-2, TF32 >= 1.52
+    (r"embedding|layers\.0\.(norm1|attn\.w_[qk])", 4e-2),
+    # back through one layer's scores: <= 4.60e-3, TF32 >= 0.693
+    (r"layers\.0\..*|layers\.1\.(norm1|attn\.w_[qk])", 1.5e-2),
+    # through none, the forward's error alone: <= 3.11e-4, TF32 >= 2.64e-3
+    (r".*", 1e-3),
+)
+
+
+def _depth_cut(arch: str, layers: int) -> str:
+    """Register `arch` cut to `layers` layers, its widths kept, under a new
+    name that the port's `train()` takes (as examples/train_lm.py
+    registers its config)."""
+    import types
+    from repro_torch import configs
+    name = f"{arch}-{layers}l"
+    mod = types.ModuleType(f"chip_smoke_{name}")
+    mod.CONFIG = mod.REDUCED = configs.get(arch).replace(name=name,
+                                                         n_layers=layers)
+    sys.modules[mod.__name__] = mod
+    configs._MODULES[name] = mod.__name__
+    return name
+
+
+def _train_step_profile(out, cfg, seed):
+    """One more train step on the run's final state, outside the counted
+    run, under the profiler: device busy ms, the idle share of the step's
+    wall time and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    step = make_train_step(cfg, AdamWConfig(moments_dtype=cfg.moments_dtype,
+                                            total_steps=TRAIN_STEPS))
+    pipe = make_pipeline("synthetic", vocab_size=cfg.vocab_size,
+                         seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                         seed=seed)
+    batch = {"tokens": torch.as_tensor(pipe.batch(TRAIN_STEPS)["tokens"])
+             .to("cuda", torch.long)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(out["params"], out["opt_state"], batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _device_busy_ms(prof)
+    idle = None if busy <= 0.0 else 1 - busy / (wall * 1e3)
+    return dict(wall_ms=wall * 1e3,
+                device_busy_ms=busy if busy > 0.0 else None,
+                device_idle_share=idle, top_device_ops=_top_device_ops(prof, 8))
+
+
+def _train_full_depth():
+    """starcoder2-3b at its published widths and depth (30 layers, bf16,
+    remat) through the port's `train()`: 6 AdamW steps at B 2, S 1024 on
+    synthetic data.  The attention launch counters are zeroed just before
+    and read just after: with remat each layer's forward runs twice per
+    step (the forward, and its recompute in the backward) and its
+    backward once."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train
+    from repro_torch.models import model
+
+    cfg = configs.get(TRAIN_ARCH)
+    n_params = model.count_params(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"train: attention launches {launches}, "
+                             f"expected {want} (remat: two forwards and "
+                             f"one backward per layer per step)")
+    if not (np.isfinite(out["losses"]).all()
+            and np.isfinite(out["grad_norms"]).all()):
+        raise AssertionError(f"train: losses {out['losses']} grad norms "
+                             f"{out['grad_norms']}")
+    # bf16 parameters: a step of lr x delta below half a bf16 step of the
+    # parameter rounds back to it, as in the reference, so at warm-up's
+    # small lr not every tensor moves; the run must move some
+    start = model.init_params(cfg, 0, "cuda")        # the same seed
+    moved = max(float((a.detach() - b).abs().max())
+                for a, b in zip(out["params"].parameters(),
+                                start.parameters()))
+    n_moved = sum(not torch.equal(a.detach(), b)
+                  for a, b in zip(out["params"].parameters(),
+                                  start.parameters()))
+    del start
+    if not moved > 0:
+        raise AssertionError("train: no parameter moved")
+    step_ms = float(np.median(out["step_s"][-4:])) * 1e3
+    res = dict(
+        arch=TRAIN_ARCH, layers=cfg.n_layers, params=n_params,
+        dtype=cfg.dtype, remat=cfg.remat, steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=out["losses"],
+        grad_norms=out["grad_norms"], step_s=out["step_s"],
+        step_ms_median_last4=step_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        peak_device_gib=peak, run_s=run_s, max_param_move=moved,
+        tensors_moved=n_moved,
+        tensors=len(list(out["params"].parameters())), launches=launches)
+    log("train", arch=TRAIN_ARCH, layers=cfg.n_layers, params=n_params,
+        steps=TRAIN_STEPS, losses=[f"{x:.4f}" for x in out["losses"]],
+        grad_norms=[f"{x:.3f}" for x in out["grad_norms"]],
+        step_ms=f"{step_ms:.2f}",
+        tokens_per_s=f"{res['tokens_per_s']:.1f}",
+        peak_device_gib=f"{peak:.2f}",
+        tensors_moved=f"{n_moved}/{res['tensors']}", **launches)
+    res["profiled_step"] = _train_step_profile(out, cfg, 0)
+    p = res["profiled_step"]
+    log("train.where", wall_ms=f"{p['wall_ms']:.2f}",
+        device_busy_ms=p["device_busy_ms"] or "not measured",
+        idle_share=p["device_idle_share"]
+        if p["device_idle_share"] is not None else "not measured")
+    for op, ms, calls in p["top_device_ops"]:
+        log("train.op", op=repr(op), device_ms=f"{ms:.3f}", calls=calls)
+    del out
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def _train_checkpoint_resume():
+    """Checkpoints and resume, at full width and TRAIN_CKPT_LAYERS deep:
+    (1) an uninterrupted 6-step run; (2) a 3-step run with a checkpoint
+    every 3 steps, which writes step 2: restored, it equals the state
+    that wrote it bit for bit; (3) `train()` on that directory restores
+    step 2 and runs steps 3-5 (writing step 5), and its losses and final
+    state are held to (1)'s."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as train_lib
+
+    arch = _depth_cut(TRAIN_ARCH, TRAIN_CKPT_LAYERS)
+    kw = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+              log_every=TRAIN_STEPS)
+    base = ROOT / "build" / "train_ckpt"
+    base.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=base))
+    try:
+        t0 = time.perf_counter()
+        whole = train_lib.train(arch, steps=TRAIN_STEPS, **kw)
+        whole_s = time.perf_counter() - t0
+        kw.update(ckpt_every=TRAIN_CKPT_EVERY)
+        first = train_lib.train(arch, steps=TRAIN_CKPT_EVERY,
+                                ckpt_dir=str(tmp / "resume"), **kw)
+        files = sorted(p.name for p in (tmp / "resume").iterdir())
+        if files != ["step_00000002.npz"]:
+            raise AssertionError(f"train checkpoints: {files}")
+        ckpt_bytes = (tmp / "resume" / files[0]).stat().st_size
+        named = dict(first["params"].named_parameters())
+        t0 = time.perf_counter()
+        restored, meta = CheckpointManager(tmp / "resume").restore(
+            TRAIN_CKPT_EVERY - 1,
+            train_lib.state_like(named, first["opt_state"]), device="cuda")
+        restore_s = time.perf_counter() - t0
+        fresh = {k: torch.empty_like(v) for k, v in named.items()}
+        fresh_opt = {"m": {k: torch.empty_like(v) for k, v in
+                           first["opt_state"]["m"].items()},
+                     "v": {k: torch.empty_like(v) for k, v in
+                           first["opt_state"]["v"].items()},
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device="cuda")}
+        train_lib.load_state(fresh, fresh_opt, restored)
+        del restored
+        bad = [k for k, v in named.items()
+               if not torch.equal(fresh[k], v.detach())]
+        bad += [f"{part}.{k}" for part in ("m", "v")
+                for k, v in first["opt_state"][part].items()
+                if not torch.equal(fresh_opt[part][k], v)]
+        if bad or int(fresh_opt["step"]) != TRAIN_CKPT_EVERY or \
+                meta["step"] != TRAIN_CKPT_EVERY - 1:
+            raise AssertionError(f"train: restored step 2 differs from the "
+                                 f"saved state in {bad[:5]}")
+        del fresh, fresh_opt, first, named
+
+        resumed = train_lib.train(arch, steps=TRAIN_STEPS,
+                                  ckpt_dir=str(tmp / "resume"), **kw)
+        files = sorted(p.name for p in (tmp / "resume").iterdir())
+        if files != ["step_00000002.npz", "step_00000005.npz"]:
+            raise AssertionError(f"train checkpoints after the resume: "
+                                 f"{files}")
+        want = whole["losses"][TRAIN_CKPT_EVERY:]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(resumed["losses"], want))
+        param_err = max(float((a.detach().float() - b.detach().float())
+                              .abs().max())
+                        for a, b in zip(resumed["params"].parameters(),
+                                        whole["params"].parameters()))
+        # bitwise: a resumed step starts from the saved state bit for bit
+        # (checked above), the batch of a step depends on the step alone,
+        # and the step is deterministic on one card: the attention kernels
+        # sum in a fixed order with no atomics, cuBLAS takes the same
+        # algorithm for the same shapes, and the embedding's gradient
+        # (index_put_ with accumulate) sorts its indices before it sums
+        bitwise = resumed["losses"] == want and all(
+            torch.equal(a, b) for a, b in zip(resumed["params"].parameters(),
+                                              whole["params"].parameters()))
+        if not bitwise:
+            raise AssertionError(f"train resume: losses {resumed['losses']} "
+                                 f"against {want} ({loss_rel}), parameters "
+                                 f"{param_err} apart; not bit for bit")
+        res = dict(layers=TRAIN_CKPT_LAYERS, whole_losses=whole["losses"],
+                   resumed_losses=resumed["losses"], loss_rel=loss_rel,
+                   max_param_err=param_err, bitwise=bitwise,
+                   checkpoint_bytes=ckpt_bytes, whole_run_s=whole_s,
+                   restore_s=restore_s, restored_bit_exact=True)
+        log("train.checkpoint", layers=TRAIN_CKPT_LAYERS,
+            checkpoint_gb=f"{ckpt_bytes / 1e9:.2f}",
+            restored_step2="bit-exact", restore_s=f"{restore_s:.2f}",
+            resumed_losses=[f"{x:.6f}" for x in resumed["losses"]],
+            uninterrupted=[f"{x:.6f}" for x in want],
+            loss_rel=f"{loss_rel:.3g}", max_param_err=f"{param_err:.3g}",
+            bitwise=bitwise)
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _train_step_grads(seed: int = 7, tok_seed: int = 9,
+                      repeat: bool = False) -> dict:
+    """One train step of starcoder2-3b at full width, TRAIN_CPU_LAYERS
+    deep, in f32, from the same parameters (drawn from `seed`) and batch
+    (from `tok_seed`): the gradient of `loss_fn`, then `adamw_update` (the
+    train step at one micro-batch), on the card and through the port on
+    the CPU; the same gradient on the card with TF32 GEMMs (a control of
+    lower precision) and of the same model in float64 on the CPU (the
+    oracle).  Returns the metrics, each tensor's relative L2 gradient gaps
+    (`card_cpu`, `tf32_cpu`, `card_f64`, `cpu_f64`, and `norm`, the CPU
+    gradient's), the largest gap of the updated parameters, and with
+    `repeat` whether a second card gradient equals the first bit for bit.
+    train_grad_readings.py records these over several seeds."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, device
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+
+    cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_CPU_LAYERS,
+                                          dtype="float32")
+    cpu = model.init_params(cfg, seed, "cpu").trainable()
+    card = model.LM(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    card.trainable()
+    cfg64 = cfg.replace(dtype="float64")
+    cpu64 = model.LM(cfg64, "cpu")
+    cpu64.load_state_dict({k: v.double() for k, v in
+                           cpu.state_dict().items()})
+    cpu64.trainable()
+    toks = np.random.default_rng(tok_seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CPU_SEQ))
+
+    def grad(m, c):
+        named = dict(m.named_parameters())
+        loss, _ = model.loss_fn(m, {"tokens": torch.as_tensor(toks).to(
+            next(m.parameters()).device)}, c)
+        g = torch.autograd.grad(loss, list(named.values()))
+        return named, float(loss.detach()), dict(zip(named, g))
+
+    metrics, grads, out = {}, {}, {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, loss, g = grad(card, cfg)
+    finally:
+        device.strict_numerics()
+    grads["tf32"] = {k: v.cpu() for k, v in g.items()}
+    metrics["card_tf32"] = dict(loss=loss)
+    del g
+    for name, m in (("card", card), ("cpu", cpu)):
+        named, loss, g = grad(m, cfg)
+        if name == "card" and repeat:
+            _, loss2, g2 = grad(m, cfg)
+            out["repeat_bitwise"] = loss2 == loss and all(
+                torch.equal(g[k], g2[k]) for k in g)
+            del g2
+        grads[name] = {k: v.cpu() for k, v in g.items()}
+        _, _, met = adamw_update(named, g, init_opt_state(
+            named, AdamWConfig()), AdamWConfig())
+        metrics[name] = dict(loss=loss, **{k: float(v)
+                                           for k, v in met.items()})
+        del g
+    _, loss, g64 = grad(cpu64, cfg64)
+    del cpu64
+    metrics["cpu_f64"] = dict(loss=loss, grad_norm=math.sqrt(
+        sum(float(v.square().sum()) for v in g64.values())))
+
+    def gap(a, b):
+        n = float(torch.linalg.vector_norm(b.double()))
+        d = float(torch.linalg.vector_norm(a.double() - b.double()))
+        return d / n if n > 0 else d
+
+    out["tensors"] = {k: dict(
+        card_cpu=gap(grads["card"][k], grads["cpu"][k]),
+        tf32_cpu=gap(grads["tf32"][k], grads["cpu"][k]),
+        card_f64=gap(grads["card"][k], g64[k]),
+        cpu_f64=gap(grads["cpu"][k], g64[k]),
+        norm=float(torch.linalg.vector_norm(grads["cpu"][k].double())))
+        for k in g64}
+    out["metrics"] = metrics
+    out["max_param_err"] = max(
+        float((a.detach().cpu() - b.detach()).abs().max())
+        for a, b in zip(card.parameters(), cpu.parameters()))
+    return out
+
+
+def _train_card_vs_cpu():
+    """`_train_step_grads` at its default seeds, held to the CPU: loss and
+    lr within 1e-5 relative and the updated parameters within 2 lr + 1e-6,
+    the CPU tests' tolerances (f32 sums in other orders; AdamW's first
+    step turns a gradient near 0 into +-lr).  Each tensor's gradient is
+    within its TRAIN_GRAD_LIMITS limit of the CPU's, the TF32 control must
+    read more than that limit on every tensor, and the gradient norm is
+    held to the bound those limits give it (|‖a‖ − ‖b‖| <= ‖a − b‖)."""
+    import re
+    r = _train_step_grads()
+    met, per = r["metrics"], r["tensors"]
+    rel = {k: abs(met["card"][k] - met["cpu"][k]) / abs(met["cpu"][k])
+           for k in ("loss", "grad_norm", "lr")}
+    lim = {k: next(v for pat, v in TRAIN_GRAD_LIMITS if re.fullmatch(pat, k))
+           for k in per}
+    over = {k: t["card_cpu"] for k, t in per.items()
+            if not t["card_cpu"] <= lim[k]}
+    blind = {k: t["tf32_cpu"] for k, t in per.items()
+             if not t["tf32_cpu"] > lim[k]}
+    norm_tol = math.sqrt(sum((lim[k] * t["norm"]) ** 2 for k, t in
+                             per.items())) / met["cpu"]["grad_norm"]
+    lr = met["cpu"]["lr"]
+    err = r["max_param_err"]
+    if over or blind or not (rel["loss"] <= 1e-5 and rel["lr"] <= 1e-5
+                             and rel["grad_norm"] <= norm_tol
+                             and err <= 2 * lr + 1e-6):
+        raise AssertionError(
+            f"train card vs CPU: {rel} (grad norm tol {norm_tol}); tensors "
+            f"over their limit {over}; tensors the TF32 control passes "
+            f"{blind}; parameters {err} > {2 * lr + 1e-6}")
+    by_limit = {}
+    for k, v in lim.items():
+        by_limit.setdefault(v, []).append(k)
+    log("train.card_vs_cpu", layers=TRAIN_CPU_LAYERS, dtype="float32",
+        loss=f"{met['card']['loss']:.6f}",
+        **{f"{k}_rel": f"{v:.3g}" for k, v in rel.items()},
+        grad_norm_tol=f"{norm_tol:.3g}",
+        **{f"limit_{v:g}": f"max {max(per[k]['card_cpu'] for k in ks):.3g}"
+                           f" tf32_min {min(per[k]['tf32_cpu'] for k in ks):.3g}"
+           for v, ks in by_limit.items()},
+        max_param_err=f"{err:.3g}", param_tol=f"{2 * lr + 1e-6:.3g}")
+    return dict(layers=TRAIN_CPU_LAYERS, metrics=met, rel=rel,
+                grad_norm_tol=norm_tol, tensors=per, limits=lim,
+                max_param_err=err, param_tol=2 * lr + 1e-6)
+
+
+def phase_train():
+    """starcoder2-3b training through the port: the full-depth run with its
+    launch counts, the checkpoint round trip and resume at a depth cut, and
+    one step on the card against the CPU."""
+    t0 = time.perf_counter()
+    out, launches = _train_full_depth()
+    out["full_depth_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["checkpoint"] = _train_checkpoint_resume()
+    out["checkpoint_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["card_vs_cpu"] = _train_card_vs_cpu()
+    out["card_vs_cpu_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log("train.total", seconds=f"{out['seconds']:.3f}",
+        full_depth_s=f"{out['full_depth_s']:.3f}",
+        checkpoint_s=f"{out['checkpoint_s']:.3f}",
+        card_vs_cpu_s=f"{out['card_vs_cpu_s']:.3f}", **launches)
+    return out, launches
+
+
 def _top_device_ops(prof, k: int = 6):
     """The `k` kernels with the most device time in a profiler window:
     [(name, device ms, launches)]."""
@@ -1975,11 +2548,12 @@ def main() -> int:
     serve_out, serve_launches = phase_serve()
     rwkv_out, rwkv_launches = phase_serve_rwkv()
     serve_check = phase_serve_check()
+    train_out, train_launches = phase_train()
     where = phase_where()
     # each path's launches, counted from zero on that path
     by_path = {"main": main_launches, "sim": sim_launches,
                "service": service_launches, "serve": serve_launches,
-               "serve_rwkv": rwkv_launches}
+               "serve_rwkv": rwkv_launches, "train": train_launches}
     launches = {}
     for per in by_path.values():
         for k, v in per.items():
@@ -1995,6 +2569,9 @@ def main() -> int:
                 "gp_predict": "src/repro/kernels/gp_kernel.py:79",
                 "gp_predict_experts": "src/repro/kernels/gp_kernel.py:159",
                 "flash_attention": "src/repro/kernels/flash_attention.py:30",
+                "flash_attention_bwd": "src/repro/kernels/ref.py:142 "
+                                       "(_flash_bwd, custom VJP; no Pallas "
+                                       "kernel)",
                 "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:24",
                 "rwkv6_wkv": "src/repro/kernels/rwkv6_scan.py:24"}
     kernels = []
@@ -2009,7 +2586,8 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             **{k: r[k] for k in ("kernel_launches_per_call", "scratch_bytes",
-                                 "phase_ms", "launch_floor_ms", "note")
+                                 "phase_ms", "launch_floor_ms", "note",
+                                 "grad_tol", "max_rel_err")
                if k in r}))
     script_s = time.perf_counter() - t_script
     log("total", seconds=f"{script_s:.1f}")
@@ -2018,7 +2596,7 @@ def main() -> int:
                   kernels=kernels, launches=launches,
                   launches_by_path=by_path, main=main_out, sim=sim_out,
                   service=service_out, serve=serve_out, serve_rwkv=rwkv_out,
-                  serve_check=serve_check, where=where,
+                  serve_check=serve_check, train=train_out, where=where,
                   event_timed=EVENT_TIMED)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,8 +4,8 @@ service (the port of `repro/checkpoint/journal.py`).
 The atomic publish of model checkpoints — write to a tmpfile in the
 destination directory, fsync, `os.replace` — applied to small JSON
 state snapshots (queue contents, predictor state, billing).  (The
-reference names its `save_pytree` here; the port's model checkpoints
-land with training.)
+reference names its `save_pytree` here; the port's is in `checkpoint.py`
+beside this module.)
 
 The invariant the SIGKILL test pins: a crash at ANY instant leaves the
 directory holding either the previous journal set intact or the new

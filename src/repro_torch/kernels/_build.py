@@ -122,3 +122,15 @@ def same_device(*ts: torch.Tensor) -> None:
 def raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def refuse_grad(name: str, *operands) -> None:
+    """Raise where a kernel without a backward would be asked to record a
+    gradient: its output carries no `grad_fn`, so the gradient upstream of
+    it would be dropped without a word.  The plain versions (CPU tensors)
+    differentiate through autograd."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet (ROADMAP.md Queue 1 item "
+            f"22): training through it runs on the CPU only")

@@ -121,8 +121,9 @@ size_t smem_bytes(int dh, int dv) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int sq, int skv, int h,
-    int hkv, int dh, int dv, int causal, float scale) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int sq, int skv, int h, int hkv, int dh, int dv, int causal,
+    float scale) {
   extern __shared__ float smem[];
   const int ldk = dh + 1;
   const int ldp = kBKV + 1;
@@ -249,6 +250,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int row = q0 + ty + 16 * i;
     if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // the scores were scaled on the way in, so m is in the exponent's units
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * sq + row] = m[i] + logf(denom);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + 16 * j;
@@ -259,8 +262,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
 template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int skv, int h, int hkv, int dh, int dv,
-                   int causal, cudaStream_t stream) {
+                   float* lse, int b, int sq, int skv, int h, int hkv,
+                   int dh, int dv, int causal, cudaStream_t stream) {
   const size_t bytes = smem_bytes(dh, dv);
   auto kernel = flash_attention_kernel<T, NJ>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -269,22 +272,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, h, hkv, dh, dv,
-      causal, 1.0f / sqrtf((float)dh));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, h, hkv, dh,
+      dv, causal, 1.0f / sqrtf((float)dh));
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
-                         void* o, int b, int sq, int skv, int h, int hkv,
-                         int dh, int dv, int causal, cudaStream_t stream) {
+                         void* o, float* lse, int b, int sq, int skv, int h,
+                         int hkv, int dh, int dv, int causal,
+                         cudaStream_t stream) {
   if (dv <= 64)
-    return launch<float, 4>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
-                            stream);
+    return launch<float, 4>(q, k, v, o, lse, b, sq, skv, h, hkv, dh, dv,
+                            causal, stream);
   if (dv <= 128)
-    return launch<float, 8>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
-                            stream);
-  return launch<float, 16>(q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal,
-                           stream);
+    return launch<float, 8>(q, k, v, o, lse, b, sq, skv, h, hkv, dh, dv,
+                            causal, stream);
+  return launch<float, 16>(q, k, v, o, lse, b, sq, skv, h, hkv, dh, dv,
+                           causal, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -384,8 +388,9 @@ struct TcShape {
 template <int D>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int skv,
-    int h, int hkv, int dh, int dv, int causal, int vec, float scale_log2) {
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, int sq, int skv, int h, int hkv, int dh, int dv,
+    int causal, int vec, float scale_log2) {
   constexpr int BKV = TcShape<D>::kBKV, L = TcShape<D>::kL;
   constexpr int KQ = D / 16;       // k-steps of Q K^T
   constexpr int NS = BKV / 8;      // n-tiles of a warp's score tile
@@ -567,6 +572,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
   for (int i = 0; i < 2; ++i) {
     const int row = i == 0 ? row_a : row_b;
     if (row >= sq) continue;
+    // m is the unscaled row max: lse = m / sqrt(Dh) + log l, where
+    // 1 / sqrt(Dh) = scale_log2 ln 2
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * sq + row] =
+          m[i] * (scale_log2 * 0.6931471805599453f) + logf(fmaxf(l[i], 1e-30f));
     bf16* orow = ob + row * o_row;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
@@ -585,8 +595,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* o, int b, int sq, int skv, int h, int hkv,
-                        int dh, int dv, int causal, cudaStream_t stream) {
+                        void* o, float* lse, int b, int sq, int skv, int h,
+                        int hkv, int dh, int dv, int causal,
+                        cudaStream_t stream) {
   const size_t bytes = TcShape<D>::kSmem;
   auto kernel = flash_attention_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -603,17 +614,18 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   kernel<<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, skv, h, hkv,
-      dh, dv, causal, vec, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, skv, h,
+      hkv, dh, dv, causal, vec, scale_log2);
   return cudaGetLastError();
 }
 
 // One instance per padded width; where Dh and Dv differ, both are padded
 // to the larger.
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
-                          void* o, int b, int sq, int skv, int h, int hkv,
-                          int dh, int dv, int causal, cudaStream_t stream) {
-#define FA_ARGS q, k, v, o, b, sq, skv, h, hkv, dh, dv, causal, stream
+                          void* o, float* lse, int b, int sq, int skv, int h,
+                          int hkv, int dh, int dv, int causal,
+                          cudaStream_t stream) {
+#define FA_ARGS q, k, v, o, lse, b, sq, skv, h, hkv, dh, dv, causal, stream
   switch ((max(dh, dv) + 15) / 16 * 16) {
 #define FA_WIDTH(d) \
   case d:           \
@@ -629,26 +641,524 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
 #undef FA_ARGS
 }
 
+// ---------------------------------------------------------------------------
+// Backward (both types): the gradient of the forward above in q, k and v
+// ---------------------------------------------------------------------------
+//
+// Replaces no Pallas kernel: the reference differentiates attention with
+// XLA's autodiff of ref.attention (S <= 1024) or with its own blocked
+// custom VJP, _flash_bwd (repro/kernels/ref.py:142), in f32.  These
+// kernels compute what _flash_bwd computes, from the forward's output O
+// and its row log-sum-exp (lse, f32 [B, H, Sq], written by the forward
+// kernels above when asked for):
+//
+//   D_i   = sum_c dO_ic O_ic                           (pre-pass)
+//   P_ij  = exp(S_ij - lse_i),  S = Q K^T / sqrt(Dh)   (recomputed)
+//   dS_ij = P_ij (dO_i . V_j - D_i)
+//   dQ    = dS K / sqrt(Dh);  dK = dS^T Q / sqrt(Dh);  dV = P^T dO
+//
+// with the causal diagonal offset by Skv - Sq and masked pairs exactly 0,
+// as in the reference.  Three kernels per call: the D pre-pass (one warp
+// per row), the dq kernel (one block per (batch, head, 64-row query
+// tile), looping over the key tiles that the tile can see) and the dk/dv
+// kernel (one block per (batch, kv head, 32-row key tile), looping over
+// the group's H / Hkv query heads and, for each, over the query tiles that
+// can see the key tile, in that fixed order).  Every output element is
+// summed by one thread in a fixed order, with no atomics, so a gradient
+// is the same on every run.
+//
+// Arithmetic: every operand is loaded into f32 shared memory (bf16 is
+// widened exactly) and every product and sum is f32 on the CUDA cores;
+// each gradient is rounded once to the inputs' type.  Each thread holds a
+// 4 x RJ patch of the score tile (rows ty + 16 i, columns tx + 16 j) and
+// of the output accumulator, as the f32 forward route does; rows of Q, K,
+// V and dO are padded by one float so that the 16 threads reading 16
+// rows hit 16 banks.
+//
+// What bounds it on the H100.  At starcoder2's shape (B 2, S 1024, H 24
+// over 2 kv heads, Dh = Dv = 128, causal) the function must read q, k, v,
+// O, dO and lse and write dq, dk, dv: about 44 MB in bf16, 13 us at 3.35
+// TB/s.  Its products are 2 (3 Dh + 2 Dv) flops per visible (query, key)
+// pair (S recomputed once, dP, dV, dK and dQ): 32 GFLOP, 0.48 ms at the
+// 67 TFLOP/s of the f32 CUDA cores, which this design uses.  So it is
+// bound by operations; the dq and dk/dv kernels each recompute S and dP,
+// 1.4 times the least, and they are limited by shared-memory loads and
+// FMA issue.  The tensor cores (mma.sync / wgmma bf16) are later work.
+
+constexpr int kBwdThreads = 256;   // 16 x 16
+constexpr int kBwdBQ = 64;         // query rows per tile, both kernels
+constexpr int kBwdKvRows = 32;     // key rows per block of the dk/dv kernel
+
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// D = rowsum(dO * O) in f32, one warp per (batch, query row, head); rows of
+// o and dout are contiguous [B, Sq, H, Dv], dd is [B, H, Sq]
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) flash_attention_bwd_dot(
+    const T* __restrict__ o, const T* __restrict__ dout,
+    float* __restrict__ dd, int n_rows, int sq, int h, int dv) {
+  const int row = (blockIdx.x * kBwdThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const size_t base = (size_t)row * dv;
+  float s = 0.0f;
+  for (int c = lane; c < dv; c += 32)
+    s = fmaf(to_f32(o[base + c]), to_f32(dout[base + c]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int head = row % h, bi = row / h;    // bi = b * sq + i
+    const int i = bi % sq, b = bi / sq;
+    dd[((size_t)b * h + head) * sq + i] = s;
+  }
+}
+
+size_t bwd_dq_smem(int dh, int dv, int bkv) {
+  return sizeof(float) * ((size_t)(kBwdBQ + bkv) * (dh + 1 + dv + 1) +
+                          (size_t)kBwdBQ * (bkv + 1));
+}
+
+// dq for a tile of 64 query rows of one (batch, head).  NJ: the columns of
+// Dh each thread owns, in steps of 16; BKV: key rows per tile (64, or 32
+// where 64 would not fit in shared memory).
+template <typename T, int NJ, int BKV>
+__global__ void __launch_bounds__(kBwdThreads) flash_attention_bwd_dq(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    T* __restrict__ dq, int sq, int skv, int h, int hkv, int dh, int dv,
+    int causal, float scale) {
+  constexpr int RJ = BKV / 16;
+  extern __shared__ float smem[];
+  const int ldq = dh + 1, ldv = dv + 1, lds = BKV + 1;
+  float* s_q = smem;                    // [kBwdBQ][ldq], times 1/sqrt(Dh)
+  float* s_do = s_q + kBwdBQ * ldq;     // [kBwdBQ][ldv]
+  float* s_k = s_do + kBwdBQ * ldv;     // [BKV][ldq]
+  float* s_v = s_k + BKV * ldq;         // [BKV][ldv]
+  float* s_ds = s_v + BKV * ldv;        // [kBwdBQ][lds]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.y, b = bh / h, head = bh - b * h;
+  const int kvh = head / (h / hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBwdBQ;   // longest first
+  const int off = skv - sq;
+
+  const size_t q_row = (size_t)h * dh, k_row = (size_t)hkv * dh;
+  const size_t v_row = (size_t)hkv * dv, o_row = (size_t)h * dv;
+  const T* qb = q + (size_t)b * sq * q_row + (size_t)head * dh;
+  const T* dob = dout + (size_t)b * sq * o_row + (size_t)head * dv;
+  const T* kb = k + (size_t)b * skv * k_row + (size_t)kvh * dh;
+  const T* vb = v + (size_t)b * skv * v_row + (size_t)kvh * dv;
+  T* dqb = dq + (size_t)b * sq * q_row + (size_t)head * dh;
+
+  for (int idx = tid; idx < kBwdBQ * dh; idx += kBwdThreads) {
+    const int r = idx / dh, c = idx - r * dh, gr = q0 + r;
+    s_q[r * ldq + c] = gr < sq ? to_f32(qb[gr * q_row + c]) * scale : 0.0f;
+  }
+  for (int idx = tid; idx < kBwdBQ * dv; idx += kBwdThreads) {
+    const int r = idx / dv, c = idx - r * dv, gr = q0 + r;
+    s_do[r * ldv + c] = gr < sq ? to_f32(dob[gr * o_row + c]) : 0.0f;
+  }
+  float row_lse[4], row_d[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    row_lse[i] = row < sq ? lse[(size_t)bh * sq + row] : 0.0f;
+    row_d[i] = row < sq ? dd[(size_t)bh * sq + row] : 0.0f;
+  }
+
+  int n_tiles = (skv + BKV - 1) / BKV;
+  if (causal) {   // the highest key any row of this tile can see
+    const int last_key = min(q0 + kBwdBQ, sq) - 1 + off;
+    n_tiles = min(n_tiles, last_key / BKV + 1);
+  }
+
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BKV;
+    __syncthreads();   // the last tile's K and dS are no longer read
+    for (int idx = tid; idx < BKV * dh; idx += kBwdThreads) {
+      const int r = idx / dh, c = idx - r * dh, gr = k0 + r;
+      s_k[r * ldq + c] = gr < skv ? to_f32(kb[gr * k_row + c]) : 0.0f;
+    }
+    for (int idx = tid; idx < BKV * dv; idx += kBwdThreads) {
+      const int r = idx / dv, c = idx - r * dv, gr = k0 + r;
+      s_v[r * ldv + c] = gr < skv ? to_f32(vb[gr * v_row + c]) : 0.0f;
+    }
+    __syncthreads();
+
+    float s[4][RJ], dp[4][RJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < dh; ++d) {
+      float a[4], bv[RJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = s_q[(ty + 16 * i) * ldq + d];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) bv[j] = s_k[(tx + 16 * j) * ldq + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(a[i], bv[j], s[i][j]);
+    }
+#pragma unroll 4
+    for (int c = 0; c < dv; ++c) {
+      float a[4], bv[RJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = s_do[(ty + 16 * i) * ldv + c];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) bv[j] = s_v[(tx + 16 * j) * ldv + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) dp[i][j] = fmaf(a[i], bv[j], dp[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool valid = qpos < sq && kpos < skv &&
+                           (!causal || kpos <= qpos + off);
+        const float p = valid ? expf(s[i][j] - row_lse[i]) : 0.0f;
+        s_ds[(ty + 16 * i) * lds + tx + 16 * j] = p * (dp[i][j] - row_d[i]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BKV; ++kk) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = s_ds[(ty + 16 * i) * lds + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = tx + 16 * j;
+        if (col < dh) {
+          const float kv = s_k[kk * ldq + col];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], kv, acc[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = tx + 16 * j;
+      if (col < dh) dqb[row * q_row + col] = from_f32<T>(acc[i][j] * scale);
+    }
+  }
+}
+
+size_t bwd_dkv_smem(int dh, int dv) {
+  return sizeof(float) *
+         ((size_t)(kBwdKvRows + kBwdBQ) * (dh + 1 + dv + 1) +
+          2 * (size_t)kBwdKvRows * (kBwdBQ + 1) + 2 * (size_t)kBwdBQ);
+}
+
+// dk and dv for a tile of 32 key rows of one (batch, kv head), summed over
+// the group's query heads and their query tiles in a fixed order.  NJ: the
+// columns of max(Dh, Dv) each thread owns, in steps of 16.
+template <typename T, int NJ>
+__global__ void __launch_bounds__(kBwdThreads) flash_attention_bwd_dkv(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    T* __restrict__ dk, T* __restrict__ dvo, int sq, int skv, int h,
+    int hkv, int dh, int dv, int causal, float scale) {
+  constexpr int BKV = kBwdKvRows, RI = BKV / 16, RJ = kBwdBQ / 16;
+  extern __shared__ float smem[];
+  const int ldq = dh + 1, ldv = dv + 1, ldp = kBwdBQ + 1;
+  float* s_k = smem;                     // [BKV][ldq]
+  float* s_v = s_k + BKV * ldq;          // [BKV][ldv]
+  float* s_q = s_v + BKV * ldv;          // [kBwdBQ][ldq], times 1/sqrt(Dh)
+  float* s_do = s_q + kBwdBQ * ldq;      // [kBwdBQ][ldv]
+  float* s_p = s_do + kBwdBQ * ldv;      // [BKV][ldp]: P^T
+  float* s_ds = s_p + BKV * ldp;         // [BKV][ldp]: dS^T
+  float* s_lse = s_ds + BKV * ldp;       // [kBwdBQ]
+  float* s_d = s_lse + kBwdBQ;           // [kBwdBQ]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bkv = blockIdx.y, b = bkv / hkv, kvh = bkv - b * hkv;
+  const int group = h / hkv;
+  const int k0 = blockIdx.x * BKV;
+  const int off = skv - sq;
+
+  const size_t q_row = (size_t)h * dh, k_row = (size_t)hkv * dh;
+  const size_t v_row = (size_t)hkv * dv, o_row = (size_t)h * dv;
+  const T* kb = k + (size_t)b * skv * k_row + (size_t)kvh * dh;
+  const T* vb = v + (size_t)b * skv * v_row + (size_t)kvh * dv;
+  T* dkb = dk + (size_t)b * skv * k_row + (size_t)kvh * dh;
+  T* dvb = dvo + (size_t)b * skv * v_row + (size_t)kvh * dv;
+
+  for (int idx = tid; idx < BKV * dh; idx += kBwdThreads) {
+    const int r = idx / dh, c = idx - r * dh, gr = k0 + r;
+    s_k[r * ldq + c] = gr < skv ? to_f32(kb[gr * k_row + c]) : 0.0f;
+  }
+  for (int idx = tid; idx < BKV * dv; idx += kBwdThreads) {
+    const int r = idx / dv, c = idx - r * dv, gr = k0 + r;
+    s_v[r * ldv + c] = gr < skv ? to_f32(vb[gr * v_row + c]) : 0.0f;
+  }
+
+  // the first query row that can see key k0
+  const int n_qt = (sq + kBwdBQ - 1) / kBwdBQ;
+  const int qt0 = causal ? max(0, k0 - off) / kBwdBQ : 0;
+
+  float acc_k[RI][NJ], acc_v[RI][NJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.0f;
+
+  for (int g = 0; g < group; ++g) {
+    const int head = kvh * group + g;
+    const size_t bh = (size_t)b * h + head;
+    const T* qb = q + (size_t)b * sq * q_row + (size_t)head * dh;
+    const T* dob = dout + (size_t)b * sq * o_row + (size_t)head * dv;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * kBwdBQ;
+      __syncthreads();   // the last tile's Q, dO, P and dS are no longer read
+      for (int idx = tid; idx < kBwdBQ * dh; idx += kBwdThreads) {
+        const int r = idx / dh, c = idx - r * dh, gr = q0 + r;
+        s_q[r * ldq + c] =
+            gr < sq ? to_f32(qb[gr * q_row + c]) * scale : 0.0f;
+      }
+      for (int idx = tid; idx < kBwdBQ * dv; idx += kBwdThreads) {
+        const int r = idx / dv, c = idx - r * dv, gr = q0 + r;
+        s_do[r * ldv + c] = gr < sq ? to_f32(dob[gr * o_row + c]) : 0.0f;
+      }
+      if (tid < kBwdBQ) {
+        const int gr = q0 + tid;
+        s_lse[tid] = gr < sq ? lse[bh * sq + gr] : 0.0f;
+        s_d[tid] = gr < sq ? dd[bh * sq + gr] : 0.0f;
+      }
+      __syncthreads();
+
+      // S^T and dP^T: rows are keys (ty + 16 i), columns queries (tx + 16 j)
+      float s[RI][RJ], dp[RI][RJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+      for (int d = 0; d < dh; ++d) {
+        float a[RI], bq[RJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) a[i] = s_k[(ty + 16 * i) * ldq + d];
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) bq[j] = s_q[(tx + 16 * j) * ldq + d];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(a[i], bq[j], s[i][j]);
+      }
+#pragma unroll 4
+      for (int c = 0; c < dv; ++c) {
+        float a[RI], bq[RJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) a[i] = s_v[(ty + 16 * i) * ldv + c];
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) bq[j] = s_do[(tx + 16 * j) * ldv + c];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < RJ; ++j) dp[i][j] = fmaf(a[i], bq[j], dp[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int kpos = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          const int col = tx + 16 * j, qpos = q0 + col;
+          const bool valid = qpos < sq && kpos < skv &&
+                             (!causal || kpos <= qpos + off);
+          const float p = valid ? expf(s[i][j] - s_lse[col]) : 0.0f;
+          s_p[(ty + 16 * i) * ldp + col] = p;
+          s_ds[(ty + 16 * i) * ldp + col] = p * (dp[i][j] - s_d[col]);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int qq = 0; qq < kBwdBQ; ++qq) {
+        float pa[RI], da[RI];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          pa[i] = s_p[(ty + 16 * i) * ldp + qq];
+          da[i] = s_ds[(ty + 16 * i) * ldp + qq];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = tx + 16 * j;
+          if (col < dv) {
+            const float x = s_do[qq * ldv + col];
+#pragma unroll
+            for (int i = 0; i < RI; ++i) acc_v[i][j] = fmaf(pa[i], x, acc_v[i][j]);
+          }
+          if (col < dh) {
+            const float x = s_q[qq * ldq + col];
+#pragma unroll
+            for (int i = 0; i < RI; ++i) acc_k[i][j] = fmaf(da[i], x, acc_k[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= skv) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = tx + 16 * j;
+      // s_q held Q / sqrt(Dh), so acc_k is already dS^T Q / sqrt(Dh)
+      if (col < dh) dkb[row * k_row + col] = from_f32<T>(acc_k[i][j]);
+      if (col < dv) dvb[row * v_row + col] = from_f32<T>(acc_v[i][j]);
+    }
+  }
+}
+
+template <typename T, int NJ, int BKV>
+cudaError_t launch_bwd_dq(const T* q, const T* k, const T* v, const T* dout,
+                          const float* lse, const float* dd, T* dq, int b,
+                          int sq, int skv, int h, int hkv, int dh, int dv,
+                          int causal, cudaStream_t stream) {
+  const size_t bytes = bwd_dq_smem(dh, dv, BKV);
+  auto kernel = flash_attention_bwd_dq<T, NJ, BKV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + kBwdBQ - 1) / kBwdBQ, b * h);
+  kernel<<<grid, kBwdThreads, bytes, stream>>>(q, k, v, dout, lse, dd, dq, sq,
+                                              skv, h, hkv, dh, dv, causal,
+                                              1.0f / sqrtf((float)dh));
+  return cudaGetLastError();
+}
+
+template <typename T, int NJ>
+cudaError_t launch_bwd_dkv(const T* q, const T* k, const T* v,
+                           const T* dout, const float* lse, const float* dd,
+                           T* dk, T* dvo, int b, int sq, int skv, int h,
+                           int hkv, int dh, int dv, int causal,
+                           cudaStream_t stream) {
+  const size_t bytes = bwd_dkv_smem(dh, dv);
+  auto kernel = flash_attention_bwd_dkv<T, NJ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((skv + kBwdKvRows - 1) / kBwdKvRows, b * hkv);
+  kernel<<<grid, kBwdThreads, bytes, stream>>>(q, k, v, dout, lse, dd, dk,
+                                              dvo, sq, skv, h, hkv, dh, dv,
+                                              causal, 1.0f / sqrtf((float)dh));
+  return cudaGetLastError();
+}
+
+// the most shared memory a block may ask for on the H100
+constexpr size_t kMaxSmem = 232448;
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* q_, const void* k_, const void* v_,
+                         const void* o_, const void* dout_, const float* lse,
+                         void* dq_, void* dk_, void* dv_, float* dd, int b,
+                         int sq, int skv, int h, int hkv, int dh, int dv,
+                         int causal, cudaStream_t stream) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* dout = static_cast<const T*>(dout_);
+  T* dq = static_cast<T*>(dq_);
+  T* dk = static_cast<T*>(dk_);
+  T* dvo = static_cast<T*>(dv_);
+
+  const int n_rows = b * sq * h;
+  flash_attention_bwd_dot<T><<<(n_rows + kBwdThreads / 32 - 1) /
+                                   (kBwdThreads / 32),
+                               kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(o_), dout, dd, n_rows, sq, h, dv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const bool wide = bwd_dq_smem(dh, dv, 64) > kMaxSmem;
+#define BWD_DQ(nj)                                                          \
+  (wide ? launch_bwd_dq<T, nj, 32>(q, k, v, dout, lse, dd, dq, b, sq, skv,  \
+                                   h, hkv, dh, dv, causal, stream)          \
+        : launch_bwd_dq<T, nj, 64>(q, k, v, dout, lse, dd, dq, b, sq, skv,  \
+                                   h, hkv, dh, dv, causal, stream))
+  err = dh <= 64 ? BWD_DQ(4) : dh <= 128 ? BWD_DQ(8) : BWD_DQ(16);
+#undef BWD_DQ
+  if (err != cudaSuccess) return err;
+
+  const int w = max(dh, dv);
+#define BWD_DKV(nj)                                                       \
+  launch_bwd_dkv<T, nj>(q, k, v, dout, lse, dd, dk, dvo, b, sq, skv, h,  \
+                        hkv, dh, dv, causal, stream)
+  return w <= 64 ? BWD_DKV(4) : w <= 128 ? BWD_DKV(8) : BWD_DKV(16);
+#undef BWD_DKV
+}
+
 }  // namespace
 
 extern "C" {
 
 int flash_attention_max_head_dim() { return kMaxHeadDim; }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  lse, where not
+// null, receives each row's log-sum-exp of the scaled scores, f32
+// [B, H, Sq], for the backward.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int b, int sq, int skv, int h, int hkv, int dh,
-                        int dv, int causal, int dtype, void* stream) {
+                        float* lse, int b, int sq, int skv, int h, int hkv,
+                        int dh, int dv, int causal, int dtype, void* stream) {
   if (dh < 1 || dh > kMaxHeadDim || dv < 1 || dv > kMaxHeadDim ||
       hkv < 1 || h % hkv != 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (sq == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? dispatch_f32(q, k, v, o, b, sq, skv, h, hkv, dh, dv,
+      dtype == 0 ? dispatch_f32(q, k, v, o, lse, b, sq, skv, h, hkv, dh, dv,
                                 causal, s)
-                 : dispatch_bf16(q, k, v, o, b, sq, skv, h, hkv, dh, dv,
+                 : dispatch_bf16(q, k, v, o, lse, b, sq, skv, h, hkv, dh, dv,
                                  causal, s);
+  return (int)err;
+}
+
+// The gradient in q, k and v (all in `dtype`, shapes as the forward's) of
+// the forward that produced o and lse, for the output gradient dout (o's
+// shape and type).  dd: f32 scratch of B * H * Sq floats.  Three kernels.
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        void* dq, void* dk, void* dv_out, float* dd, int b,
+                        int sq, int skv, int h, int hkv, int dh, int dv,
+                        int causal, int dtype, void* stream) {
+  if (dh < 1 || dh > kMaxHeadDim || dv < 1 || dv > kMaxHeadDim ||
+      hkv < 1 || h % hkv != 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  if (sq == 0 || skv == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 0
+          ? dispatch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv_out, dd, b,
+                                sq, skv, h, hkv, dh, dv, causal, s)
+          : dispatch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk, dv_out, dd, b,
+                               sq, skv, h, hkv, dh, dv, causal, s);
   return (int)err;
 }
 

@@ -1,5 +1,5 @@
-"""CUDA causal GQA attention forward (`csrc/flash_attention.cu`), bound
-through a plain C interface.
+"""CUDA causal GQA attention, forward and backward
+(`csrc/flash_attention.cu`), bound through a plain C interface.
 
 Replaces the Pallas kernel `repro/kernels/flash_attention.py`
 (`flash_attention` / `_attn_kernel`).  The library is compiled with
@@ -7,8 +7,9 @@ Replaces the Pallas kernel `repro/kernels/flash_attention.py`
 (`_build.Library`).  The wrapper takes contiguous CUDA tensors of one
 type, float32 or bfloat16, and raises on anything else; it launches on
 `torch.cuda.current_stream()`, allocates its output with `torch.empty`
-and raises when the launch reports an error.  `launches` counts its
-launches.
+and raises when the launch reports an error.  `launches` counts the
+forward's launches under `flash_attention` and the backward's under
+`flash_attention_bwd` (one per call; a backward call is three kernels).
 
 The source has two routes, picked by the type.  bfloat16 runs both
 products on the tensor cores (`mma.sync` bf16 tiles with f32 sums, K and
@@ -18,11 +19,19 @@ to bf16 before the P V product, which the reference does not, at most
 the reference does (no TF32).  What bounds each route on the H100, and
 what its design does about it, is written beside the kernel in the CUDA
 source.
+
+The backward (`flash_attention_bwd`) replaces no Pallas kernel: it
+computes what the reference's custom VJP `_flash_bwd`
+(`repro/kernels/ref.py:142`) computes, from the forward's output and its
+row log-sum-exp (`flash_attention(..., return_lse=True)`), in f32 on the
+CUDA cores for both types, with a fixed summation order (no atomics).
+`FlashAttention` is the `torch.autograd.Function` that joins the two.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -32,14 +41,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256        # kMaxHeadDim in the CUDA source
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = _build.Launches("flash_attention")
+launches = _build.Launches("flash_attention", "flash_attention_bwd")
 reset_launches = launches.reset
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 9 + [p]
+    lib.flash_attention_fwd.argtypes = [p] * 5 + [i] * 9 + [p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.flash_attention_bwd.restype = i
     lib.flash_attention_max_head_dim.argtypes = []
     lib.flash_attention_max_head_dim.restype = i
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
@@ -52,13 +63,9 @@ load = _LIB.load
 build_info = _LIB.info
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv]
-    in q's dtype, with Dh and Dv each in 1..256.  Query head h reads kv
-    head h // (H / Hkv); with `causal` the mask's diagonal is offset by
-    Skv - Sq (so Sq <= Skv).  Softmax statistics and the accumulator are
-    f32 on both routes; the output is rounded once."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> None:
+    """Raise unless q, k, v are operands the kernels take."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_cuda(name, t, 4, tuple(DTYPES))
     _build.same_device(q, k, v)
@@ -80,13 +87,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"Sq <= Skv; got Sq {sq}, Skv {skv}")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the grid's 65535")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, return_lse: bool = False):
+    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv]
+    in q's dtype, with Dh and Dv each in 1..256.  Query head h reads kv
+    head h // (H / Hkv); with `causal` the mask's diagonal is offset by
+    Skv - Sq (so Sq <= Skv).  Softmax statistics and the accumulator are
+    f32 on both routes; the output is rounded once.  With `return_lse`,
+    returns (out, lse) with lse [B,H,Sq] f32, each row's log-sum-exp of
+    the scaled scores, which the backward takes."""
+    _check(q, k, v, causal)
+    b, sq, h, _ = q.shape
+    skv, hkv, dh, dv = k.shape[1], k.shape[2], q.shape[3], v.shape[3]
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, hkv, dh, dv, int(causal), DTYPES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, skv, h, hkv, dh,
+            dv, int(causal), DTYPES[q.dtype], stream)
     _build.raise_on(err, "flash_attention")
     launches.count("flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient (dq, dk, dv) in q's dtype of `flash_attention(q, k, v,
+    causal=causal)` for the output gradient `dout`, given that call's
+    output `out` and log-sum-exp `lse` ([B,H,Sq] f32).  Shapes and types
+    as the forward's; `out` and `dout` are [B,Sq,H,Dv] in q's dtype."""
+    _check(q, k, v, causal)
+    b, sq, h, dh = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    for name, t in (("out", out), ("dout", dout)):
+        _build.check_cuda(name, t, 4, (q.dtype,))
+        if tuple(t.shape) != (b, sq, h, dv):
+            raise ValueError(f"{name}: expected {(b, sq, h, dv)}, got "
+                             f"{tuple(t.shape)}")
+    _build.check_cuda("lse", lse, 3, (torch.float32,))
+    if tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse: expected {(b, h, sq)}, got "
+                         f"{tuple(lse.shape)}")
+    _build.same_device(q, out, lse, dout)
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    dd = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dvv.data_ptr(), dd.data_ptr(), b, sq, skv, h, hkv, dh, dv,
+            int(causal), DTYPES[q.dtype], stream)
+    _build.raise_on(err, "flash_attention_bwd")
+    launches.count("flash_attention_bwd")
+    return dq, dk, dvv
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` with its gradient through `flash_attention_bwd`:
+    the forward asks for the log-sum-exp and saves q, k, v, the output and
+    the log-sum-exp.  `ops.flash_attention` takes this route only when a
+    gradient is being recorded, so a forward without one launches as
+    before and saves nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None

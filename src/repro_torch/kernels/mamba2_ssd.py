@@ -79,6 +79,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     the length beyond rounding, so it only has to be positive."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    _build.refuse_grad("mamba2_ssd", x, dt, a, b_in, c_in, d, state)
     _build.check_cuda("x", x, 4, tuple(DTYPES))
     _build.check_cuda("dt", dt, 3, _F32)
     _build.check_cuda("a", a, 1, _F32)

@@ -25,9 +25,14 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """q: [B,Sq,H,Dh]; k/v: [B,Skv,Hkv,Dh|Dv] -> [B,Sq,H,Dv]; GQA by the
-    kv-head index, causal diagonal offset Skv - Sq."""
+    kv-head index, causal diagonal offset Skv - Sq.  Differentiable: on
+    the CPU through autograd of the plain version, on a card through the
+    backward kernel (`flash_attention.FlashAttention`)."""
     if _on_cpu(q):
         return ref.attention(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return fa_kernel.FlashAttention.apply(q, k, v, causal)
     return fa_kernel.flash_attention(q, k, v, causal=causal)
 
 

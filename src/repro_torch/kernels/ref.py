@@ -18,25 +18,101 @@ import torch.nn.functional as F
 # ==========================================================================
 # Attention
 # ==========================================================================
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
-    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv]
-    in q's dtype, computed in f32.  The causal mask's diagonal is offset
-    by Skv - Sq; masked scores are -1e30, as in the reference."""
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The type the plain versions compute in: f32, or f64 for f64
+    operands (an oracle on the card)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal: bool):
+    """[B,H,Sq,Skv] scaled scores in the compute type, masked at -1e30,
+    and the mask (None without `causal`); k already has H heads."""
+    sq, sk = q.shape[1], k.shape[1]
+    acc = _acc(q)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc),
+                          k.to(acc)) / math.sqrt(q.shape[-1])
+    if not causal:
+        return scores, None
+    mask = torch.ones(sq, sk, dtype=torch.bool,
+                      device=q.device).tril(diagonal=sk - sq)
+    return scores.masked_fill(~mask, -1e30), mask
+
+
+def _expand_kv(q, k, v):
     h, hkv = q.shape[2], k.shape[2]
     if h != hkv:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
-    sq, sk = q.shape[1], k.shape[1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k.float()) / math.sqrt(q.shape[-1])
-    if causal:
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device=q.device).tril(diagonal=sk - sq)
-        scores = scores.masked_fill(~mask, -1e30)
+    return k, v
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv]
+    in q's dtype, computed in f32 (f64 for f64 operands).  The causal
+    mask's diagonal is offset by Skv - Sq; masked scores are -1e30, as in
+    the reference."""
+    k, v = _expand_kv(q, k, v)
+    scores, _ = _scores(q, k, causal)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(p.dtype))
     return out.to(q.dtype)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(`attention(q, k, v)`, lse [B,H,Sq]): each row's log-sum-exp of the
+    scaled scores in the compute type, as the reference's
+    `_flash_fwd_impl` returns it for its backward."""
+    ke, _ = _expand_kv(q, k, v)
+    scores, _ = _scores(q, ke, causal)
+    return attention(q, k, v, causal=causal), torch.logsumexp(scores, -1)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  *, causal: bool = True, q_block: int = 512,
+                  kv_block: int = 512
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernel: the reference's blocked
+    custom VJP (`repro/kernels/ref.py:142-198`, `_flash_bwd`) in torch.
+    D = rowsum(dO * O); for each (query block, key block), P = exp(S -
+    lse) with masked pairs 0 and dS = P (dO V^T - D); dq sums dS K over
+    the key blocks in order, dk and dv sum dS^T Q and P^T dO over the
+    query blocks in order; all in f32 (f64 for f64 operands).  The kv
+    heads' gradients sum their query heads'.  Returns (dq, dk, dv) in
+    the operands' types."""
+    b, sq, h, d = q.shape
+    skv, hkv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
+    acc = _acc(q)
+    ke, ve = (t.to(acc) for t in _expand_kv(q, k, v))
+    qf, do, lse = q.to(acc), dout.to(acc), lse.to(acc)
+    scale = 1.0 / math.sqrt(d)
+    off = skv - sq
+    dd = (do * out.to(acc)).sum(-1)                           # [B,Sq,H]
+    dq = torch.zeros((b, sq, h, d), dtype=acc, device=q.device)
+    dk = torch.zeros((b, skv, h, d), dtype=acc, device=q.device)
+    dvv = torch.zeros((b, skv, h, dv_dim), dtype=acc, device=q.device)
+    for q0 in range(0, sq, q_block):
+        qs = slice(q0, min(q0 + q_block, sq))
+        qpos = torch.arange(qs.start, qs.stop, device=q.device) + off
+        for k0 in range(0, skv, kv_block):
+            ks = slice(k0, min(k0 + kv_block, skv))
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, qs], ke[:, ks]) * scale
+            p = torch.exp(s - lse[:, :, qs, None])
+            if causal:
+                kpos = torch.arange(ks.start, ks.stop, device=q.device)
+                p = p.masked_fill(kpos[None, :] > qpos[:, None], 0.0)
+            dp = torch.einsum("bqhd,bkhd->bhqk", do[:, qs], ve[:, ks])
+            ds = p * (dp - dd[:, qs].transpose(1, 2)[..., None])
+            dq[:, qs] += torch.einsum("bhqk,bkhd->bqhd", ds, ke[:, ks]) * scale
+            dk[:, ks] += torch.einsum("bhqk,bqhd->bkhd", ds, qf[:, qs]) * scale
+            dvv[:, ks] += torch.einsum("bhqk,bqhd->bkhd", p, do[:, qs])
+    rep = h // hkv
+    dk = dk.view(b, skv, hkv, rep, d).sum(3)
+    dvv = dvv.view(b, skv, hkv, rep, dv_dim).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
 
 
 # ==========================================================================

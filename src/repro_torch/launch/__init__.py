@@ -1,2 +1,3 @@
-"""Serving the LM substrate through the port's Executor (`launch/serve`)
-and the step functions it calls (`launch/steps`)."""
+"""Serving the LM substrate through the port's Executor (`launch/serve`),
+training it (`launch/train`), and the step functions both call
+(`launch/steps`)."""

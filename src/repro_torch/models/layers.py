@@ -29,8 +29,10 @@ class ParamDef:
 
 
 class ParamModule(nn.Module):
-    """A module whose parameters are declared with `add`.  Serving never
-    differentiates, so parameters do not require grad."""
+    """A module whose parameters are declared with `add`.  Parameters are
+    created without `requires_grad`, so serving records no graph and keeps
+    no activations; the train entry turns it on for its own model
+    (`model.LM.trainable`)."""
 
     def __init__(self, dtype: torch.dtype, device):
         super().__init__()
@@ -77,12 +79,18 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
 # --------------------------------------------------------------------------
 # Elementary ops
 # --------------------------------------------------------------------------
+def f32(t: torch.Tensor) -> torch.Tensor:
+    """`t` in f32 where the reference computes in f32; f64 stays f64, so
+    that a float64 model is an oracle for the f32 one."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
-    x32 = x.float()
+    x32 = f32(x)
     var = x32.square().mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * weight.float()).to(x.dtype)
+    return (y * f32(weight)).to(x.dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -123,8 +131,9 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Rotary position embeddings (llama split-half convention)
 # --------------------------------------------------------------------------
-def rope_frequencies(dim: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+def rope_frequencies(dim: int, theta: float, device,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=dtype,
                                          device=device) / dim))
 
 
@@ -132,11 +141,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: [..., S, H, Dh]; positions: [..., S] (broadcastable)."""
     dh = x.shape[-1]
-    freqs = rope_frequencies(dh, theta, x.device)                 # [Dh/2]
-    angles = positions[..., None].float() * freqs                 # [..., S, Dh/2]
+    x1, x2 = f32(x).chunk(2, dim=-1)
+    freqs = rope_frequencies(dh, theta, x.device, x1.dtype)     # [Dh/2]
+    angles = positions[..., None].to(x1.dtype) * freqs          # [..., S, Dh/2]
     cos = torch.cos(angles)[..., None, :]                         # [..., S, 1, Dh/2]
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -149,9 +158,27 @@ def embed_tokens(p, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def logits_from_hidden(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """-> f32 logits: the products of the activation-dtype operands are
-    summed in f32 and kept in f32, as the reference's
-    `preferred_element_type=f32`."""
+    """-> f32 logits (f64 for a f64 model): the products of the
+    activation-dtype operands are summed in f32 and kept in f32, as the
+    reference's `preferred_element_type=f32`."""
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     w = p.embedding.T if cfg.tie_embeddings else p.lm_head
-    return torch.matmul(x.float(), w.float())
+    return torch.matmul(f32(x), f32(w))
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab_size: int) -> torch.Tensor:
+    """Mean CE over tokens in f32 (f64 for f64 logits); padded vocab
+    columns are masked out of the log-sum-exp at -1e30, as in the
+    reference."""
+    logits = f32(logits)
+    if logits.shape[-1] > vocab_size:
+        pad = logits.shape[-1] - vocab_size
+        mask = torch.cat([
+            torch.zeros(vocab_size, dtype=logits.dtype, device=logits.device),
+            torch.full((pad,), -1e30, dtype=logits.dtype,
+                       device=logits.device)])
+        logits = logits + mask
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    return (lse - ll).mean()

@@ -11,6 +11,10 @@ is the reference's `groups/mamba/mamba/w_in[g, i]`.
 
 Caches are nested dicts of stacked tensors with the reference's shapes and
 dtypes, written in place by prefill and decode.
+
+Training (`loss_fn`) recomputes each layer in the backward when the config
+asks for remat (`torch.utils.checkpoint`, non-reentrant), as the
+reference's `jax.checkpoint` with no policy does.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.models import layers
@@ -26,12 +31,14 @@ from repro_torch.models.attention import GQA, gqa_apply, gqa_cache_shapes
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, ParamModule, embed_tokens,
                                        logits_from_hidden, mlp_apply,
-                                       rms_norm)
+                                       rms_norm, softmax_cross_entropy)
 from repro_torch.models.rwkv import (RWKV6Layer, rwkv6_apply,
                                      rwkv6_cache_shapes)
 from repro_torch.models.ssm import Mamba2, mamba2_apply, mamba2_cache_shapes
 
 Cache = Dict[str, Any]
+
+MOE_AUX_COEF = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,14 +161,40 @@ def _layer_apply(kind: str, lp, x, cfg, *, positions, cache, decode_pos,
     raise ValueError(kind)
 
 
+def _remat(cfg: ModelConfig, caches, decode_pos) -> bool:
+    """Recompute each layer in the backward: the config asks for it, the
+    pass is a training forward (no cache, no decode position) and a graph
+    is being recorded."""
+    if not (cfg.remat and caches is None and decode_pos is None
+            and torch.is_grad_enabled()):
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} (save the matmul outputs) "
+            f"is not ported yet (ROADMAP.md Queue 1 item 23); no config "
+            f"uses it")
+    return True
+
+
 def _run_stack(kind: str, stack: nn.ModuleList, x, cfg, *, positions,
                caches, decode_pos, shared=None):
     """Run a stack of identical layers; `caches` is stacked or None."""
+    remat = _remat(cfg, caches, decode_pos)
     for i, lp in enumerate(stack):
+        if remat:
+            x = torch_checkpoint.checkpoint(
+                _train_layer, kind, lp, x, cfg, positions, shared,
+                use_reentrant=False)
+            continue
         x, _ = _layer_apply(kind, lp, x, cfg, positions=positions,
                             cache=_index(caches, i), decode_pos=decode_pos,
                             shared=shared)
     return x, caches
+
+
+def _train_layer(kind, lp, x, cfg, positions, shared):
+    return _layer_apply(kind, lp, x, cfg, positions=positions, cache=None,
+                        decode_pos=None, shared=shared)[0]
 
 
 # --------------------------------------------------------------------------
@@ -187,6 +220,12 @@ class LM(ParamModule):
                 for _ in range(seg.n_layers)))
         if cfg.shared_attn_every:
             self.shared_attn = AttnMLPLayer(cfg, dtype, dev)
+
+    def trainable(self) -> "LM":
+        """Turn on `requires_grad` for every parameter (the train entry's
+        model); serving's models stay without it."""
+        self.requires_grad_(True)
+        return self
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
@@ -256,6 +295,18 @@ def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         x = x[:, -1:]
     logits = logits_from_hidden(params, x, cfg)
     return logits, cache, torch.zeros((), device=x.device)
+
+
+def loss_fn(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (loss, metrics): next-token CE over the batch (labels, or the
+    tokens themselves) plus MOE_AUX_COEF x the aux loss, which is 0 here
+    (MoE is not ported; `model_segments` raises for it and for MTP)."""
+    logits, _, aux = forward(params, batch, cfg)
+    labels = batch.get("labels", batch.get("tokens"))
+    ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:], cfg.vocab_size)
+    loss = ce + MOE_AUX_COEF * aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 def prefill(params, batch, cfg, cache, *, last_only: bool = False):

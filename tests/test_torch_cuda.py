@@ -697,3 +697,198 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
     want, _, _ = model.forward(cpu, {"tokens": toks}, cfg)
     err = ((got.cpu() - want).abs() / want.abs().clamp_min(1.0)).max()
     assert float(err) <= 1e-3
+
+
+# --------------------------------------------------------------------------
+# The attention backward and the train path on the card.  Tolerances per
+# gradient, against max |grad|: f32 1e-4 max|g| + 1e-6 (the same f32
+# products summed in another order), bf16 2e-2 max|g| (the bf16 forward
+# rounds P and its output to bf16, which D = rowsum(dO O) and the
+# recomputed P inherit, and each gradient is rounded to bf16 once).  The
+# oracle is float64 on the card: the plain blocked backward
+# (ref.attention_bwd) on the same operands, and autograd through the plain
+# forward.
+# --------------------------------------------------------------------------
+def _assert_grads_close(got, want, dtype):
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        scale = float(w.abs().max())
+        tol = rel * scale + (1e-6 if dtype == torch.float32 else 0.0)
+        err = float((g.double() - w.double()).abs().max())
+        assert torch.isfinite(g).all() and err <= tol, (name, err, tol)
+
+
+# (b, sq, skv, h, hkv, dh, dv)
+BWD_SHAPES = [(2, 1024, 1024, 24, 2, 128, 128),    # starcoder2's train shape
+              (1, 130, 130, 4, 4, 192, 128),       # MLA widths
+              (1, 77, 200, 4, 2, 64, 64),          # Sq < Skv, ragged tiles
+              (2, 100, 100, 6, 3, 40, 24),         # widths not a multiple of 8
+              (1, 33, 33, 2, 2, 256, 256),         # the widest head
+              (1, 1, 9, 2, 1, 16, 16)]             # one query row
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(cuda, shape, causal, dtype):
+    b, sq, skv, h, hkv, dh, dv = shape
+    q = _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, cuda)[0]
+    _, k, v = _attn_inputs(b, skv, skv, h, hkv, dh, dv, dtype, cuda)
+    dout = torch.randn(b, sq, h, dv, generator=torch.Generator(
+        ).manual_seed(4)).to(dtype).to(cuda)
+    out, lse = fa_kernel.flash_attention(q, k, v, causal=causal,
+                                         return_lse=True)
+    want_out, want_lse = ref.attention_lse(q.double(), k.double(),
+                                           v.double(), causal=causal)
+    assert float((lse.double() - want_lse).abs().max()) <= 1e-5
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    plain = ref.attention_bwd(*(t.double() for t in (q, k, v, out, lse,
+                                                      dout)), causal=causal)
+    _assert_grads_close(got, plain, dtype)
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(ref.attention(q64, k64, v64, causal=causal),
+                               (q64, k64, v64), dout.double())
+    _assert_grads_close(got, auto, dtype)
+
+
+def test_flash_attention_bwd_is_deterministic(cuda):
+    q, k, v = _attn_inputs(2, 300, 300, 8, 2, 64, 64, torch.bfloat16, cuda)
+    dout = torch.randn_like(q)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    first = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    for _ in range(3):
+        again = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_attention_lse_leaves_the_output_unchanged(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _attn_inputs(1, 200, 200, 4, 2, 80, 80, dtype, cuda)
+        plain = fa_kernel.flash_attention(q, k, v)
+        out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+        assert torch.equal(plain, out) and lse.shape == (1, 4, 200)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_ops_on_card_matches_plain(cuda, dtype):
+    """`ops.flash_attention` under autograd on the card (the Function and
+    the backward kernel) against autograd of the plain forward in f64."""
+    from repro_torch.kernels import ops
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        2, 96, 96, 6, 2, 32, 32, dtype, cuda))
+    fa_kernel.reset_launches()
+    out = ops.flash_attention(q, k, v)
+    dout = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert dict(fa_kernel.launches) == {"flash_attention": 1,
+                                        "flash_attention_bwd": 1}
+    q64, k64, v64 = (t.detach().double().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.attention(q64, k64, v64),
+                               (q64, k64, v64), dout.double())
+    _assert_grads_close(got, want, dtype)
+
+
+def test_forward_without_a_gradient_saves_nothing(cuda):
+    """Serving's forward (no grad recorded) launches the forward alone and
+    returns an output with no graph."""
+    from repro_torch.kernels import ops
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        1, 64, 64, 4, 2, 32, 32, torch.bfloat16, cuda))
+    fa_kernel.reset_launches()
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+    plain = ops.flash_attention(*(t.detach() for t in (q, k, v)))
+    assert out.grad_fn is None and plain.grad_fn is None
+    assert dict(fa_kernel.launches) == {"flash_attention": 2,
+                                        "flash_attention_bwd": 0}
+
+
+def test_flash_attention_bwd_rejects_bad_operands(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 16, 16, torch.float32, cuda)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        fa_kernel.flash_attention_bwd(q, k, v, out, lse[:, :2].contiguous(),
+                                      out)
+    with pytest.raises(ValueError, match="dout"):
+        fa_kernel.flash_attention_bwd(q, k, v, out, lse, out.bfloat16())
+    with pytest.raises(ValueError, match="out"):
+        fa_kernel.flash_attention_bwd(q, k, v, out[:, :4].contiguous(), lse,
+                                      out)
+
+
+def test_ssd_and_wkv_refuse_a_gradient_on_card(cuda):
+    """No backward kernel yet: under grad both wrappers raise and name the
+    roadmap item, instead of returning outputs with no grad_fn."""
+    x, dt, a, bi, ci, d, _ = _ssd_inputs(1, 64, 2, 16, 16, torch.float32,
+                                         cuda, False)
+    with pytest.raises(NotImplementedError, match="item 22"):
+        ssd_kernel.mamba2_ssd(x.requires_grad_(), dt, a, bi, ci, d)
+    with torch.no_grad():
+        ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d)
+    r, k, v, w, u, _ = _wkv_inputs(1, 64, 2, 16, 16, torch.float32, cuda,
+                                   False)
+    with pytest.raises(NotImplementedError, match="item 22"):
+        wkv_kernel.rwkv6_wkv(r, k, v, w, u.requires_grad_())
+    from repro_torch import configs
+    from repro_torch.models import model
+    for arch in ("zamba2-2.7b", "rwkv6-3b"):
+        cfg = configs.get_reduced(arch)
+        m = model.init_params(cfg, 0, cuda).trainable()
+        toks = torch.randint(0, cfg.vocab_size, (1, 16), device=cuda)
+        with pytest.raises(NotImplementedError, match="item 22"):
+            model.loss_fn(m, {"tokens": toks}, cfg)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_card_matches_cpu(cuda, remat):
+    """One train step of reduced starcoder2 (f32) on the card and on the
+    CPU from the same weights: loss and lr within 1e-5, the gradient no
+    further from the f64 one than max(1e-5, 2 x the CPU's f32 error), the
+    updated parameters within 2 lr + 1e-6 (AdamW's first step turns a
+    gradient near 0 into +-lr).  With remat each layer's forward launches
+    twice and its backward once."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+    cfg = configs.get_reduced("starcoder2-3b").replace(remat=remat)
+    cpu = model.init_params(cfg, 5, "cpu").trainable()
+    card = model.LM(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    card.trainable()
+    c64 = cfg.replace(dtype="float64")
+    m64 = model.LM(c64, "cpu")
+    m64.load_state_dict({k: v.double() for k, v in cpu.state_dict().items()})
+    m64.trainable()
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    grads, mets = {}, {}
+    for name, m, c in (("card", card, cfg), ("cpu", cpu, cfg),
+                       ("f64", m64, c64)):
+        named = dict(m.named_parameters())
+        fa_kernel.reset_launches()
+        loss, _ = model.loss_fn(m, {"tokens": toks.to(
+            next(m.parameters()).device)}, c)
+        g = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        if name == "card":
+            assert dict(fa_kernel.launches) == {
+                "flash_attention": cfg.n_layers * (2 if remat else 1),
+                "flash_attention_bwd": cfg.n_layers}
+        grads[name] = {k: t.detach().cpu().double() for k, t in g.items()}
+        _, _, met = adamw_update(named, g, init_opt_state(named,
+                                                          AdamWConfig()),
+                                 AdamWConfig())
+        mets[name] = dict(loss=float(loss.detach()), lr=float(met["lr"]))
+    g64 = grads.pop("f64")
+    n64 = sum(float(t.square().sum()) for t in g64.values()) ** 0.5
+    err = {n: sum(float((g[k] - g64[k]).square().sum()) for k in g64) ** 0.5
+           / n64 for n, g in grads.items()}
+    assert err["card"] <= max(1e-5, 2 * err["cpu"]), err
+    for k in ("loss", "lr"):
+        assert mets["card"][k] == pytest.approx(mets["cpu"][k], rel=1e-5)
+    lr = mets["cpu"]["lr"]
+    worst = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(card.parameters(), cpu.parameters()))
+    assert worst <= 2 * lr + 1e-6

@@ -1,0 +1,75 @@
+"""Per-tensor gradient readings of one f32 train step of starcoder2-3b at
+full width, 2 layers deep (chip_smoke.py's card-vs-CPU step), over
+several seeds: the readings from which chip_smoke.py's limits
+TRAIN_GRAD_LIMITS are set.  A measurement aid beside
+chip_smoke.py; the port never imports it.
+
+    python3 train_grad_readings.py                  # from the repo root, on a card
+    python3 train_grad_readings.py --seeds 7:9 11:13
+
+For each `params:tokens` seed pair it runs `chip_smoke._train_step_grads`
+(the card, the card with TF32 GEMMs as a control of lower precision, the
+port on the CPU in f32, and the same model in float64 on the CPU) and
+records each tensor's relative L2 gap of the card's gradient to the
+CPU's and of both to float64, the control's gap to the CPU's, and
+whether the card's gradient repeats bit for bit.  The summary gives, per
+tensor, the largest card-vs-CPU gap over the seeds and the smallest gap
+the control reads.  Prints one JSON line per seed and the summary, and
+writes everything to `chiprun_out/train_grad_readings.json`.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke
+
+ROOT = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seeds", nargs="+", default=["7:9", "11:13", "17:19"],
+                    help="params:tokens seed pairs")
+    args = ap.parse_args()
+    import torch
+    from repro_torch import device
+    if not torch.cuda.is_available():
+        print("train_grad_readings.py needs a CUDA card", file=sys.stderr)
+        return 1
+    device.strict_numerics()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    runs = []
+    for pair in args.seeds:
+        seed, tok_seed = (int(x) for x in pair.split(":"))
+        r = chip_smoke._train_step_grads(seed, tok_seed, repeat=True)
+        r.update(seed=seed, tok_seed=tok_seed)
+        runs.append(r)
+        print(json.dumps(dict(seed=seed, tok_seed=tok_seed,
+                              metrics=r["metrics"],
+                              repeat_bitwise=r["repeat_bitwise"],
+                              max_param_err=r["max_param_err"])), flush=True)
+    summary = {}
+    for k in runs[0]["tensors"]:
+        t = [r["tensors"][k] for r in runs]
+        summary[k] = dict(card_cpu_max=max(x["card_cpu"] for x in t),
+                          tf32_cpu_min=min(x["tf32_cpu"] for x in t),
+                          card_f64_max=max(x["card_f64"] for x in t),
+                          cpu_f64_max=max(x["cpu_f64"] for x in t))
+        print(f"{k:24s} " + " ".join(f"{n}={v:.3e}"
+                                     for n, v in summary[k].items()))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "train_grad_readings.json").write_text(json.dumps(
+        dict(device=smi, runs=runs, summary=summary), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
