@@ -16,15 +16,16 @@ to the CPU:
                 together, and load them.
   3. kernels  — each kernel against its plain version at its path's
                 shapes, with its device time (torch.profiler; a window the
-                profiler returns empty is taken again, and after three
-                empty ones the row is timed with CUDA events and named in
+                profiler returns empty or short is taken again, and after
+                five such the row is timed with CUDA events and named in
                 the record's `event_timed`), its time per
                 back-to-back call (CUDA events), the plain version's device
                 time, the least time the card could take (bound) and, for
                 attention, PyTorch's scaled_dot_product_attention on the
                 same inputs as a yardstick (timed only; the port never
                 calls it).  The attention backward (flash_attention_bwd,
-                three kernels per call, asserted) at starcoder2's train
+                three kernels per call, or four where the bf16 route
+                splits the GQA group, asserted) at starcoder2's train
                 shape in bf16 and f32, an MLA width and Sq < Skv, against
                 float64 oracles (the plain blocked backward and autograd
                 through the plain forward), with the backward of
@@ -39,7 +40,8 @@ to the CPU:
                 kernels (chunk states, the scan over chunks, the output):
                 its row sums their device time, gives each one's
                 (`phase_ms`), and states the kernels per call (exactly
-                three, asserted) and the scratch bytes.
+                three, asserted) and the scratch bytes (read from the
+                caching allocator, held to the wrapper's layout).
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -196,29 +198,19 @@ def device_ms(fn, iters: int, warmup: int = 3, label: str = "",
     the timed calls start (a window opened cold can miss its first
     kernel).  The profiler now and then still returns a window with no
     device events at all, or, where `expect` says each call launches that
-    many kernels, fewer kernel events than `expect * iters`; such a window
-    is taken again, and after three of them the calls are timed with CUDA
-    events (`call_ms`, an upper bound on the device time) and the row is
-    named in EVENT_TIMED.  `by_kernel`, where given, receives each
-    kernel's name and its (device ms, launches) per call from the profiler
-    window; it stays empty when the calls were event-timed."""
+    many kernels, fewer kernel events than `expect * iters` (CUPTI drops
+    kernel records now and then, at any shape); such a window is taken
+    again, and after five of them the calls are timed with CUDA events
+    (`call_ms`, an upper bound on the device time) and the row is named
+    in EVENT_TIMED.  `by_kernel`, where given, receives each kernel's name
+    and its (device ms, launches) per call from the profiler window; it
+    stays empty when the calls were event-timed."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-        events = _kernel_events(prof)
+    for attempt in range(5):
+        events = _profile_window(fn, iters)
         busy = sum(e.self_device_time_total for e in events) / 1e3
         seen = sum(e.count for e in events)
         if busy > 0.0 and seen >= expect * iters:
@@ -235,6 +227,24 @@ def device_ms(fn, iters: int, warmup: int = 3, label: str = "",
     EVENT_TIMED.append(dict(label=label, ms=ms))
     log("timing", label=label, timer="cuda events", ms=ms)
     return ms
+
+
+def _profile_window(fn, iters: int):
+    """The device-side events of one profiler window of `iters` calls of
+    `fn`, opened with one untimed call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return _kernel_events(prof)
 
 
 def _kernel_events(prof):
@@ -480,9 +490,7 @@ def phase_kernels():
         kernels = {}
         ms = device_ms(run, 200, label=label, by_kernel=kernels,
                        expect=len(GP_GRAD_PHASES))
-        phase_ms, per_call = _phases(kernels, GP_GRAD_PHASES)
-        if per_call is not None and per_call != 2:
-            raise AssertionError(f"{label}: {per_call} kernels per call")
+        phase_ms, per_call = _phases(kernels, GP_GRAD_PHASES, run, label)
         plain = device_ms(lambda: ref.gp_kernel_matrix_grad(*args), 20,
                           label=f"plain {label}")
         # bytes: G, x and ls read once, g_ls and g_var written once;
@@ -499,11 +507,12 @@ def phase_kernels():
             ms=ms, call_ms=call_ms(run, 200), plain_ms=plain, bound_ms=b,
             bound_by=by, launch_floor_ms=floor,
             kernel_launches_per_call=per_call, phase_ms=phase_ms,
-            scratch_bytes=4 * math.prod(gp_kernel.grad_scratch(n, n, d)),
+            scratch_bytes=measured_scratch(
+                run, label, 4 * math.prod(gp_kernel.grad_scratch(n, n, d))),
             note="ms sums the device time of the call's two kernels (the "
                  "tiles' partial sums, their fixed-order reduction); the "
-                 "launches per call and phase_ms are counted in the "
-                 "profiler window, null where it was event-timed"))
+                 "launches per call and phase_ms are counted in a "
+                 "profiler window"))
 
     # gp_predict: the predictor's 256-point posterior and a 2,048-point
     # one, against the top bucket (1,024 queries), two outputs; then
@@ -550,7 +559,7 @@ def phase_kernels():
         kernels = {}
         ms = device_ms(run, 50, label=label, by_kernel=kernels,
                        expect=len(GP_PREDICT_PHASES))
-        phase_ms, per_call = _phases(kernels, GP_PREDICT_PHASES)
+        phase_ms, per_call = _phases(kernels, GP_PREDICT_PHASES, run, label)
         plain = device_ms(lambda: getattr(ref, name)(*args), 50,
                           label=f"plain {label}")
         tri = n * (n + 1) // 2
@@ -561,13 +570,12 @@ def phase_kernels():
             name=label, shape=f"e{e} n{n} s{s} m{m}", max_abs_err=err,
             tol=1e-4, ms=ms, call_ms=call_ms(run, 50), plain_ms=plain,
             bound_ms=b, bound_by=by, kernel_launches_per_call=per_call,
-            phase_ms=phase_ms, scratch_bytes=4 * sum(
-                math.prod(shape) for shape in
-                gp_kernel.predict_scratch(e, n, s, m).values()),
+            phase_ms=phase_ms, scratch_bytes=measured_scratch(
+                run, label, *(4 * math.prod(shape) for shape in
+                              gp_kernel.predict_scratch(e, n, s, m).values())),
             note="ms sums the device time of the call's three kernels "
                  "(K0, triangular product, reduction); the launches per "
-                 "call and phase_ms are counted in the profiler window, "
-                 "null where it was event-timed"))
+                 "call and phase_ms are counted in a profiler window"))
     for r in rows:
         r.update(source=src, library_ms=None)
         log("kernel", **{k: (f"{v:.6g}" if isinstance(v, float) else v)
@@ -614,14 +622,27 @@ SSD_PHASES = ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output")
 WKV_PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
 
 
-def _phases(by_kernel: dict, names):
+def _phases(by_kernel: dict, names, fn, label: str):
     """From one profiler window of calls: each named kernel's device ms
     per call, and the kernels launched per call.  Each of `names` must
     match exactly one kernel, launched once per call, and the window must
-    hold no other kernel.  (None, None) where the window was event-timed
-    (no kernel seen)."""
+    hold no other kernel.  Where the timing window was event-timed (no
+    kernel seen), the kernels are read from a window of three calls of
+    `fn` of its own, taken up to five times until it holds every launch;
+    the row fails where none does."""
     if not by_kernel:
-        return None, None
+        for attempt in range(5):
+            events = _profile_window(fn, 3)
+            if sum(e.count for e in events) >= 3 * len(names):
+                by_kernel.update({e.key: (e.self_device_time_total / 1e3 / 3,
+                                          e.count / 3) for e in events})
+                break
+            log("timing", label=label, count_window=attempt,
+                note=f"the profiler saw {sum(e.count for e in events)} "
+                     f"of the {3 * len(names)} kernel launches")
+        else:
+            raise AssertionError(f"{label}: no profiler window held the "
+                                 f"{len(names)} kernels of each call")
     phase_ms, per_call = {}, 0.0
     for p in names:
         hits = [key for key in by_kernel if p in key]
@@ -638,18 +659,30 @@ def _phases(by_kernel: dict, names):
     return phase_ms, per_call
 
 
-def _ssd_scratch_bytes(x, b_in, chunk: int) -> int:
-    """The f32 scratch a call allocates: each chunk's [P, N] state and its
-    total decay, [B, H, NC, P N + 1], NC = ceil(S / chunk)."""
-    b, s, h, p = x.shape
-    return 4 * b * h * -(-s // chunk) * (p * b_in.shape[2] + 1)
-
-
-def _wkv_scratch_bytes(r, v, chunk: int) -> int:
-    """The f32 scratch a call allocates: each chunk's [K, V] state and
-    its [K] total decay, [B, H, NC, K, V + 1], NC = ceil(S / chunk)."""
-    b, s, h, kd = r.shape
-    return 4 * b * h * -(-s // chunk) * kd * (v.shape[3] + 1)
+def measured_scratch(fn, label: str, *layout: int) -> int:
+    """The device memory one call of `fn` allocates beyond the tensors
+    it returns (its scratch), read from the caching allocator's count of
+    requested bytes (the allocated count includes whatever slack of a
+    cached block the allocator hands over whole): the peak during the
+    call less what was requested before and the returned tensors'
+    storage.  `layout` is the byte size of each scratch tensor as the
+    wrapper or its library states it; the call must have requested
+    exactly those."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in (out if isinstance(out, tuple) else (out,))}
+    got = peak - before - sum(storages.values())
+    want = sum(layout)
+    if got != want:
+        raise AssertionError(f"{label}: a call allocated {got} bytes of "
+                             f"scratch, its layout states {want}")
+    return got
 
 
 def _rwkv_bound(r, v, state):
@@ -668,13 +701,13 @@ def _rwkv_bound(r, v, state):
     return bound_ms(n_bytes, 5 * b * s * h * kd * vd)
 
 
-def _attn_bwd_bound(q, k, v, flop_per_s=None):
+def _attn_bwd_bound(q, k, v):
     """The attention backward.  Bytes: q, k, v, the output and its
     gradient read once each in the operands' type, the f32 log-sum-exp
     read once, dq, dk and dv written once.  Operations: 2 (3 Dh + 2 Dv)
     per visible (query, key) pair (S recomputed once, dP = dO V^T, dV, dK
     and dQ), at the card's peak for the operands' type, as the forward's
-    bound (bf16 tensor cores, f32 CUDA cores), or at `flop_per_s`."""
+    bound (bf16 tensor cores, f32 CUDA cores)."""
     import torch
     b, sq, h, dh = q.shape
     skv, dv = k.shape[1], v.shape[3]
@@ -682,15 +715,17 @@ def _attn_bwd_bound(q, k, v, flop_per_s=None):
     elem = q.element_size()
     n_bytes = (elem * (2 * (q.numel() + k.numel() + v.numel())
                        + 2 * b * sq * h * dv) + 4 * b * h * sq)
-    if flop_per_s is None:
-        flop_per_s = (BF16_FLOP_PER_S if q.dtype == torch.bfloat16
-                      else F32_FLOP_PER_S)
     return bound_ms(n_bytes, b * h * pairs * 2 * (3 * dh + 2 * dv),
-                    flop_per_s)
+                    BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+                    else F32_FLOP_PER_S)
 
 
+# the backward's kernels in launch order: D = rowsum(dO O), dq, dk/dv and,
+# where the bf16 route splits a kv head's group over G > 1 blocks, the
+# fixed-order reduction of their partials
 ATTN_BWD_PHASES = ("flash_attention_bwd_dot", "flash_attention_bwd_dq",
                    "flash_attention_bwd_dkv")
+ATTN_BWD_REDUCE = "flash_attention_bwd_reduce"
 
 
 def _sdpa_bwd_ms(q, k, v, dout, label):
@@ -737,7 +772,15 @@ def _attention_bwd_rows(randn):
     products summed in another order, over a 1,024-key softmax); bf16
     2e-2 max|g| (the bf16 forward rounds P to bf16 before P V and its
     output to bf16, so D = rowsum(dO O) and the recomputed P carry those
-    roundings, and each gradient is rounded to bf16 once)."""
+    roundings; the bf16 backward rounds P and dS to bf16 before the
+    products that take them, and each gradient to bf16 once;
+    tests/test_torch_attention_bwd_bf16.py holds an emulation of that
+    arithmetic to the same oracles on the CPU).  Each call is three
+    kernels, or four where the bf16 route splits the GQA group
+    (`fa.bwd_splits` > 1), asserted from a profiler window; its scratch
+    is read from the allocator and held to the library's layout
+    (`fa.bwd_scratch`).  The f32 row's bound is the f32 CUDA-core one (no
+    TF32)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -779,14 +822,16 @@ def _attention_bwd_rows(randn):
         if not all(torch.equal(x, y) for x, y in zip(got, run())):
             raise AssertionError(f"flash_attention_bwd {label}: two calls "
                                  f"differ")
+        splits = fa.bwd_splits(q, k, v)
+        phases = ATTN_BWD_PHASES + ((ATTN_BWD_REDUCE,) if splits > 1
+                                    else ())
         kernels = {}
         ms = device_ms(run, 10, label=f"flash_attention_bwd {label}",
-                       by_kernel=kernels, expect=len(ATTN_BWD_PHASES))
-        phase_ms, per_call = _phases(kernels, ATTN_BWD_PHASES)
+                       by_kernel=kernels, expect=len(phases))
+        # each of `phases` launched once a call, and nothing else
+        phase_ms, per_call = _phases(kernels, phases, run,
+                                     f"flash_attention_bwd {label}")
         bnd, by = _attn_bwd_bound(q, k, v)
-        # the same work at the f32 CUDA-core peak: what this design, which
-        # multiplies in f32 on the CUDA cores for both types, could reach
-        bnd_f32, _ = _attn_bwd_bound(q, k, v, F32_FLOP_PER_S)
         rows.append(dict(
             name=f"flash_attention_bwd[{label}]", source=fa.SOURCE,
             grad_tol=f"{rel:g} max|g|" + (" + 1e-6" if dtype == f32
@@ -797,13 +842,19 @@ def _attention_bwd_rows(randn):
             plain_ms=device_ms(lambda: ref.attention_bwd(q, k, v, out, lse,
                                                           dout), 3,
                                warmup=1, label=f"plain attention_bwd {label}"),
-            bound_ms=bnd, bound_by=by, bound_f32_cuda_core_ms=bnd_f32,
+            bound_ms=bnd, bound_by=by,
             library_ms=_sdpa_bwd_ms(q, k, v, dout, label),
             kernel_launches_per_call=per_call, phase_ms=phase_ms,
+            splits=splits, scratch_bytes=measured_scratch(
+                run, f"flash_attention_bwd {label}",
+                4 * fa.bwd_scratch(q, k, v)),
             deterministic=True,
-            note="ms sums the device time of the call's three kernels "
-                 "(D = rowsum(dO O), dq, dk/dv); library_ms is the backward "
-                 "of scaled_dot_product_attention alone"))
+            note=f"ms sums the device time of the call's {len(phases)} "
+                 "kernels (D = rowsum(dO O), dq, dk/dv"
+                 + (f", the reduction of G = {splits} partials"
+                    if splits > 1 else "")
+                 + "); bf16 on mma.sync, f32 on the CUDA cores; library_ms "
+                   "is the backward of scaled_dot_product_attention alone"))
     return rows
 
 
@@ -893,7 +944,8 @@ def phase_lm_kernels():
         kernels = {}
         ms = device_ms(run, iters, label=f"mamba2_ssd {label}",
                        by_kernel=kernels, expect=len(SSD_PHASES))
-        phase_ms, per_call = _phases(kernels, SSD_PHASES)
+        phase_ms, per_call = _phases(kernels, SSD_PHASES, run,
+                                     f"mamba2_ssd {label}")
         rows.append(dict(
             name=f"mamba2_ssd[{label}]", source=ssd.SOURCE,
             tol=f"y {tol_y:g} + {tol_y:g}|y|, state 2e-3 + 2e-3|s|",
@@ -904,11 +956,12 @@ def phase_lm_kernels():
                                label=f"plain mamba2_ssd {label}"),
             bound_ms=b, bound_by=by, library_ms=None,
             kernel_launches_per_call=per_call, phase_ms=phase_ms,
-            scratch_bytes=_ssd_scratch_bytes(x, b_in, ssd.CHUNK),
+            scratch_bytes=measured_scratch(
+                run, f"mamba2_ssd {label}",
+                *(t.nbytes for t in ssd.scratch(*x.shape, n, dev))),
             note="ms sums the device time of the call's three kernels "
                  "(chunk states, state scan, output); the launches per "
-                 "call and phase_ms are counted in the profiler window, "
-                 "null where it was event-timed"))
+                 "call and phase_ms are counted in a profiler window"))
 
     # rwkv6_wkv at rwkv6-3b's widths: r, k, v, u in the activation type,
     # w f32 as the model makes it (exp(-exp(N(0, 0.5) - 1)), log w in about
@@ -956,7 +1009,8 @@ def phase_lm_kernels():
         kernels = {}
         ms = device_ms(run, iters, label=f"rwkv6_wkv {label}",
                        by_kernel=kernels, expect=len(WKV_PHASES))
-        phase_ms, per_call = _phases(kernels, WKV_PHASES)
+        phase_ms, per_call = _phases(kernels, WKV_PHASES, run,
+                                     f"rwkv6_wkv {label}")
         rows.append(dict(
             name=f"rwkv6_wkv[{label}]", source=wkv.SOURCE, tol=tol,
             shape=f"r{tuple(r.shape)} v{tuple(v.shape)}", max_abs_err=err,
@@ -965,11 +1019,12 @@ def phase_lm_kernels():
                                label=f"plain rwkv6_wkv {label}"),
             bound_ms=b, bound_by=by, library_ms=None,
             kernel_launches_per_call=per_call, phase_ms=phase_ms,
-            scratch_bytes=_wkv_scratch_bytes(r, v, wkv.CHUNK),
+            scratch_bytes=measured_scratch(
+                run, f"rwkv6_wkv {label}",
+                *(t.nbytes for t in wkv.scratch(*r.shape, v.shape[3], dev))),
             note="ms sums the device time of the call's three kernels "
                  "(chunk states, state scan, output); the launches per "
-                 "call and phase_ms are counted in the profiler window, "
-                 "null where it was event-timed"))
+                 "call and phase_ms are counted in a profiler window"))
     rows += _attention_bwd_rows(randn)
     for r in rows:
         r["source"] = str(Path(r["source"]).relative_to(ROOT))
@@ -2112,9 +2167,14 @@ def _train_step_profile(out, cfg, seed):
         wall = time.perf_counter() - t0
     busy = _device_busy_ms(prof)
     idle = None if busy <= 0.0 else 1 - busy / (wall * 1e3)
+    # the attention backward's kernels (flash_attention_bwd_*), summed
+    attn_bwd = sum(e.self_device_time_total for e in _kernel_events(prof)
+                   if "flash_attention_bwd" in e.key) / 1e3
     return dict(wall_ms=wall * 1e3,
                 device_busy_ms=busy if busy > 0.0 else None,
-                device_idle_share=idle, top_device_ops=_top_device_ops(prof, 8))
+                device_idle_share=idle,
+                attention_bwd_ms=attn_bwd if busy > 0.0 else None,
+                top_device_ops=_top_device_ops(prof, 8))
 
 
 def _train_full_depth():
@@ -2189,7 +2249,8 @@ def _train_full_depth():
     log("train.where", wall_ms=f"{p['wall_ms']:.2f}",
         device_busy_ms=p["device_busy_ms"] or "not measured",
         idle_share=p["device_idle_share"]
-        if p["device_idle_share"] is not None else "not measured")
+        if p["device_idle_share"] is not None else "not measured",
+        attention_bwd_ms=p["attention_bwd_ms"] or "not measured")
     for op, ms, calls in p["top_device_ops"]:
         log("train.op", op=repr(op), device_ms=f"{ms:.3f}", calls=calls)
     del out
@@ -2596,6 +2657,8 @@ def main() -> int:
                   kernels=kernels, launches=launches,
                   launches_by_path=by_path, main=main_out, sim=sim_out,
                   service=service_out, serve=serve_out, serve_rwkv=rwkv_out,
+                  bwd_splits={r["name"]: r["splits"] for r in rows
+                              if "splits" in r},
                   serve_check=serve_check, train=train_out, where=where,
                   event_timed=EVENT_TIMED)
     out_dir = ROOT / "chiprun_out"

@@ -642,7 +642,7 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Backward (both types): the gradient of the forward above in q, k and v
+// Backward: the gradient of the forward above in q, k and v
 // ---------------------------------------------------------------------------
 //
 // Replaces no Pallas kernel: the reference differentiates attention with
@@ -658,41 +658,91 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
 //   dQ    = dS K / sqrt(Dh);  dK = dS^T Q / sqrt(Dh);  dV = P^T dO
 //
 // with the causal diagonal offset by Skv - Sq and masked pairs exactly 0,
-// as in the reference.  Three kernels per call: the D pre-pass (one warp
-// per row), the dq kernel (one block per (batch, head, 64-row query
-// tile), looping over the key tiles that the tile can see) and the dk/dv
-// kernel (one block per (batch, kv head, 32-row key tile), looping over
-// the group's H / Hkv query heads and, for each, over the query tiles that
-// can see the key tile, in that fixed order).  Every output element is
-// summed by one thread in a fixed order, with no atomics, so a gradient
-// is the same on every run.
+// as in the reference.  K and V are read through the kv-head index and
+// never repeated.  Every output element is summed by one thread in a
+// fixed order, with no atomics, so a gradient is the same bit for bit on
+// every call.  Two routes, picked by the type; both begin with the D
+// pre-pass (one warp per row, f32 sums).
 //
-// Arithmetic: every operand is loaded into f32 shared memory (bf16 is
-// widened exactly) and every product and sum is f32 on the CUDA cores;
-// each gradient is rounded once to the inputs' type.  Each thread holds a
-// 4 x RJ patch of the score tile (rows ty + 16 i, columns tx + 16 j) and
-// of the output accumulator, as the f32 forward route does; rows of Q, K,
-// V and dO are padded by one float so that the 16 threads reading 16
-// rows hit 16 banks.
+// bf16 route: the products on the tensor cores.
 //
-// What bounds it on the H100.  At starcoder2's shape (B 2, S 1024, H 24
-// over 2 kv heads, Dh = Dv = 128, causal) the function must read q, k, v,
-// O, dO and lse and write dq, dk, dv: about 44 MB in bf16, 13 us at 3.35
-// TB/s.  Its products are 2 (3 Dh + 2 Dv) flops per visible (query, key)
-// pair (S recomputed once, dP, dV, dK and dQ): 32 GFLOP, 0.48 ms at the
-// 67 TFLOP/s of the f32 CUDA cores, which this design uses.  So it is
-// bound by operations; the dq and dk/dv kernels each recompute S and dP,
-// 1.4 times the least, and they are limited by shared-memory loads and
-// FMA issue.  The tensor cores (mma.sync / wgmma bf16) are later work.
+// What bounds it on the H100.  At starcoder2's train shape (B 2, S 1024,
+// H 24 over 2 kv heads, Dh = Dv = 128, causal) the function must read q,
+// k, v, O, dO and lse once and write dq, dk and dv once: 54.7 MB, 16 us at
+// 3.35 TB/s.  Its products are 2 (3 Dh + 2 Dv) flops per visible (query,
+// key) pair (S once, dP, dV, dK, dQ): 32 GFLOP, 0.0326 ms at the 989
+// TFLOP/s of the bf16 tensor cores.  So operations bound it, and only the
+// tensor cores come near: on the CUDA cores in f32 the same work needs
+// 0.48 ms.
+//
+// What it computes, and where it rounds.  S = Q K^T and dP = dO V^T are
+// f32 sums of bf16 products (mma.sync m16n8k16); P = exp2(S log2(e) /
+// sqrt(Dh) - lse log2(e)) and dS = P (dP - D) are f32 in registers.  Then
+// P and dS are rounded to bf16 in registers, as the A-fragments of the
+// three products that take them (dV += P^T dO, dK += dS^T Q, dQ += dS K),
+// whose sums are f32.  Each gradient is scaled and rounded to bf16 once.
+// Rounding P and dS is what the reference does not do: at most 2^-9
+// relative each (tests/test_torch_attention_bwd_bf16.py holds a plain
+// emulation of this arithmetic to the oracles at the card's 2e-2).
+//
+// Design: FlashAttention-2's backward, made deterministic.  Three or four
+// kernels a call, a number fixed by the shape (flash_attention_bwd_splits):
+//   - dq: a block of 4 warps owns 64 query rows of one (batch, head), 16
+//     per warp.  Q and dO are copied to shared memory once; the key tiles
+//     the rows can see, 32 keys each, come through a two-stage cp.async
+//     ring of K and V, and the query tiles that see the most keys are
+//     launched first.  Per tile S and dP run on mma.sync, P and dS stay in
+//     registers, and dQ += dS K takes K's B-fragments by ldmatrix.trans.
+//     dQ stays in f32 registers, each element summed in key order by one
+//     thread.
+//   - dk/dv: a block of 4 warps owns 64 key rows of one (batch, kv head)
+//     (32 where the padded width exceeds 128) and one slice of the group's
+//     query heads: the grid is (key tiles, B Hkv, G).  K and V are copied
+//     to shared memory once; the block walks its heads' query tiles that
+//     can see its keys through a two-stage ring of Q, dO, lse and D.  Each
+//     warp computes S^T = K Q^T and dP^T = V dO^T for 16 keys, P^T and
+//     dS^T in registers, then dV += P^T dO and dK += dS^T Q with dO's and
+//     Q's B-fragments read by ldmatrix.trans.  dK and dV stay in f32
+//     registers.  Where the width exceeds 128 two warps share a 16-key
+//     strip, each keeping half of the columns of dK and dV (both compute
+//     the strip's S^T and dP^T), so that registers hold the sums.
+//   - G = 1: the dk/dv kernel scales and rounds its sums.  G > 1: each
+//     block writes f32 partials to scratch [G, B, Skv, Hkv, Dh + Dv] and a
+//     fourth kernel sums the G partials in index order and rounds once.
+//     G is the smallest divisor of the group H / Hkv that gives at least
+//     two dk/dv blocks per SM (2 x 132); the whole group where none does.
+//     At starcoder2's train shape the group of 12 splits as G = 6: 384
+//     blocks of two heads each, against 64 blocks on 132 SMs unsplit, and
+//     25 MB of partials.
+//   S and dP are recomputed by both dq and dk/dv, 1.4 times the least
+//   work: the price of a dq without atomics.  As in the forward: one
+//   template instance per padded width (16..256), rows padded by 16 bytes
+//   so that an ldmatrix hits 8 distinct bank groups, element-by-element
+//   loads where a row is not 16-byte aligned, tiles wholly above the
+//   causal diagonal never walked, and only the tiles that cross it or a
+//   ragged end masked.
+//
+// f32 route: the products on the CUDA cores.
+//
+// The reference is f32 and the port allows no TF32
+// (repro_torch.device.strict_numerics), so f32 keeps the first design,
+// bound at 0.48 ms by the 67 TFLOP/s of the f32 CUDA cores at
+// starcoder2's shape.  Every operand is widened into f32 shared memory
+// and every product is an fmaf.  Three kernels: the pre-pass, dq (one
+// block per (batch, head, 64-row query tile), looping over the key tiles
+// it can see) and dk/dv (one block per (batch, kv head, 32-row key tile),
+// looping over the group's query heads and, for each, the query tiles
+// that can see it, in that fixed order).  Each thread holds a 4 x RJ
+// patch of the score tile (rows ty + 16 i, columns tx + 16 j) and of its
+// output sums, as the f32 forward route does; rows of Q, K, V and dO are
+// padded by one float so that 16 threads reading 16 rows hit 16 banks.
+// It is limited by shared-memory loads and FMA issue.
 
 constexpr int kBwdThreads = 256;   // 16 x 16
 constexpr int kBwdBQ = 64;         // query rows per tile, both kernels
 constexpr int kBwdKvRows = 32;     // key rows per block of the dk/dv kernel
 
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // D = rowsum(dO * O) in f32, one warp per (batch, query row, head); rows of
 // o and dout are contiguous [B, Sq, H, Dv], dd is [B, H, Sq]
@@ -1072,15 +1122,17 @@ cudaError_t launch_bwd_dkv(const T* q, const T* k, const T* v,
   return cudaGetLastError();
 }
 
+
 // the most shared memory a block may ask for on the H100
 constexpr size_t kMaxSmem = 232448;
 
-template <typename T>
-cudaError_t dispatch_bwd(const void* q_, const void* k_, const void* v_,
-                         const void* o_, const void* dout_, const float* lse,
-                         void* dq_, void* dk_, void* dv_, float* dd, int b,
-                         int sq, int skv, int h, int hkv, int dh, int dv,
-                         int causal, cudaStream_t stream) {
+cudaError_t dispatch_bwd_f32(const void* q_, const void* k_, const void* v_,
+                             const void* o_, const void* dout_,
+                             const float* lse, void* dq_, void* dk_,
+                             void* dv_, float* dd, int b, int sq, int skv,
+                             int h, int hkv, int dh, int dv, int causal,
+                             cudaStream_t stream) {
+  using T = float;
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
@@ -1115,6 +1167,583 @@ cudaError_t dispatch_bwd(const void* q_, const void* k_, const void* v_,
 #undef BWD_DKV
 }
 
+// ---------------------------------------------------------------------------
+// Backward, bf16 route (the design note above)
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSms = 132;          // SMs of the H100 SXM
+constexpr int kReduceThreads = 256;
+
+// 4 bytes from global to shared memory, of which the first `src_bytes`
+// (4 or 0) are read and the rest filled with zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// entries r0 .. r0 + ROWS - 1 of an f32 row vector (lse or D) into shared
+// memory; entries at or past n become zeros
+template <int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* s, const float* g,
+                                              int r0, int n) {
+  for (int i = threadIdx.x; i < ROWS; i += kTcThreads) {
+    const bool in = r0 + i < n;
+    cp_async4(smem_addr(s + i), in ? g + r0 + i : g, in ? 4 : 0);
+  }
+}
+
+// columns col and col + 1 of a bf16 row, each where below n
+__device__ __forceinline__ void store_bf16_pair(bf16* row, int col, int n,
+                                                float x0, float x1,
+                                                bool vec) {
+  if (vec && col + 1 < n) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) =
+        __floats2bfloat162_rn(x0, x1);
+  } else {
+    if (col < n) row[col] = __float2bfloat16(x0);
+    if (col + 1 < n) row[col + 1] = __float2bfloat16(x1);
+  }
+}
+
+// the dk/dv kernel's tiles: a padded width above 128 takes 32 rows, so that
+// registers hold the sums
+constexpr int bwd_tile_rows(int d) { return d > 128 ? 32 : 64; }
+
+template <int D>
+struct BwdShape {
+  static constexpr int kKeys = bwd_tile_rows(D);    // dk/dv: key rows owned
+  static constexpr int kQTile = bwd_tile_rows(D);   // dk/dv: query rows a tile
+  // dq: key rows a tile, 32 at every width (64-row tiles were slower at
+  // starcoder2's shape on the H100: more registers, coarser causal skips)
+  static constexpr int kKTile = 32;
+  static constexpr int kL = D + 8;                  // shared pitch of rows
+  static constexpr size_t kDkvSmem =
+      sizeof(bf16) * (size_t)kL * (2 * kKeys + 4 * kQTile) +
+      sizeof(float) * 4 * kQTile;
+  static constexpr size_t kDqSmem =
+      sizeof(bf16) * (size_t)kL * (2 * kBQ + 4 * kKTile);
+};
+
+// dq for 64 query rows of one (batch, head).  D: the larger of Dh and Dv
+// padded to a multiple of 16.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_attention_bwd_dq_tc(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    bf16* __restrict__ dq, int sq, int skv, int h, int hkv, int dh, int dv,
+    int causal, int vec, float scale_log2, float scale) {
+  constexpr int BKV = BwdShape<D>::kKTile, L = BwdShape<D>::kL;
+  constexpr int KD = D / 16;       // k-steps over the width
+  constexpr int NS = BKV / 8;      // n-tiles of a warp's score tile
+  constexpr int NO = D / 8;        // n-tiles of a warp's dQ
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][L]
+  bf16* s_do = s_q + kBQ * L;                      // [kBQ][L]
+  bf16* s_k = s_do + kBQ * L;                      // [2][BKV][L]
+  bf16* s_v = s_k + 2 * BKV * L;                   // [2][BKV][L]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int quad_row = lane >> 2, quad_col = 2 * (lane & 3);
+  // launch order: query tiles slowest, those that see the most keys first
+  const int lin = blockIdx.x + gridDim.x * blockIdx.y;
+  const int rank = lin / gridDim.y, bh = lin - rank * gridDim.y;
+  const int b = bh / h, head = bh - b * h;
+  const int kvh = head / (h / hkv);
+  const int q0 = (gridDim.x - 1 - rank) * kBQ;
+  const int off = skv - sq;            // causal diagonal offset
+
+  const size_t q_row = (size_t)h * dh, k_row = (size_t)hkv * dh;
+  const size_t v_row = (size_t)hkv * dv, o_row = (size_t)h * dv;
+  const bf16* qb = q + (size_t)b * sq * q_row + (size_t)head * dh;
+  const bf16* dob = dout + (size_t)b * sq * o_row + (size_t)head * dv;
+  const bf16* kb = k + (size_t)b * skv * k_row + (size_t)kvh * dh;
+  const bf16* vb = v + (size_t)b * skv * v_row + (size_t)kvh * dv;
+  bf16* dqb = dq + (size_t)b * sq * q_row + (size_t)head * dh;
+
+  int n_tiles = (skv + BKV - 1) / BKV;
+  if (causal) {   // the highest key any row of this tile can see
+    const int last_key = min(q0 + kBQ, sq) - 1 + off;
+    n_tiles = min(n_tiles, last_key / BKV + 1);
+  }
+
+  load_tile<kBQ, D, L>(s_q, qb, q_row, q0, sq, dh, vec);
+  load_tile<kBQ, D, L>(s_do, dob, o_row, q0, sq, dv, vec);
+  load_tile<BKV, D, L>(s_k, kb, k_row, 0, skv, dh, vec);
+  load_tile<BKV, D, L>(s_v, vb, v_row, 0, skv, dv, vec);
+  cp_async_commit();
+
+  // this lane's rows of the warp's 16, with their lse (in log2 units) and D
+  const int w_row0 = q0 + 16 * warp;
+  const int row_a = w_row0 + quad_row, row_b = row_a + 8;
+  float lse2[2], row_d[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_a : row_b;
+    lse2[i] = row < sq ? lse[(size_t)bh * sq + row] * kLog2e : 0.0f;
+    row_d[i] = row < sq ? dd[(size_t)bh * sq + row] : 0.0f;
+  }
+  // ldmatrix row addresses: A (Q, dO rows) as the forward's Q; B of S and
+  // dP (K, V rows) as the forward's K; B of dS K (K rows, transposed) as
+  // the forward's V
+  const int a_off = (16 * warp + (lane & 15)) * L + 8 * (lane >> 4);
+  const uint32_t q_a = smem_addr(s_q + a_off), do_a = smem_addr(s_do + a_off);
+  const int b_off = ((lane & 7) + 8 * (lane >> 4)) * L + 8 * ((lane >> 3) & 1);
+  const int t_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * L + 8 * (lane >> 4);
+  // k-steps and 16-column groups that hold any of Dh (Dv) columns
+  const int gk = (dh + 15) / 16, gv = (dv + 15) / 16;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    cp_async_wait_all();
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next copies overwrite
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      const int k1 = (t + 1) * BKV, nxt = stage ^ 1;
+      load_tile<BKV, D, L>(s_k + nxt * BKV * L, kb, k_row, k1, skv, dh, vec);
+      load_tile<BKV, D, L>(s_v + nxt * BKV * L, vb, v_row, k1, skv, dv, vec);
+      cp_async_commit();
+    }
+    const int k0 = t * BKV;
+    if (causal && k0 > w_row0 + 15 + off) continue;   // above this warp
+
+    const bf16* sk = s_k + stage * BKV * L;
+    const bf16* sv = s_v + stage * BKV * L;
+    const uint32_t k_b = smem_addr(sk + b_off), v_b = smem_addr(sv + b_off);
+    const uint32_t k_t = smem_addr(sk + t_off);
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows and the tile's keys
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      if (ks < gk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, q_a + ks * 32);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, k_b + (jp * 16 * L + ks * 16) * 2);
+          mma_bf16(s[2 * jp], a, bk[0], bk[1]);
+          mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
+        }
+      }
+      if (ks < gv) {
+        uint32_t a[4];
+        ldmatrix_x4(a, do_a + ks * 32);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bv[4];
+          ldmatrix_x4(bv, v_b + (jp * 16 * L + ks * 16) * 2);
+          mma_bf16(dp[2 * jp], a, bv[0], bv[1]);
+          mma_bf16(dp[2 * jp + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+
+    // P and dS in f32; masked pairs exactly 0, checked only on a tile that
+    // crosses the diagonal or a ragged end
+    const bool edge = k0 + BKV > skv || w_row0 + 16 > sq ||
+                      (causal && k0 + BKV - 1 > w_row0 + off);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(fmaf(s[j][e], scale_log2, -lse2[i]));
+        if (edge) {
+          const int kpos = k0 + 8 * j + quad_col + (e & 1);
+          const int qpos = i == 0 ? row_a : row_b;
+          if (!(qpos < sq && kpos < skv && (!causal || kpos <= qpos + off)))
+            p = 0.0f;
+        }
+        dp[j][e] = p * (dp[j][e] - row_d[i]);
+      }
+
+    // dQ += dS K, dS rounded to bf16 as the A-fragment
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                             pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                             pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                             pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int jp = 0; jp < NO / 2; ++jp) {
+        if (jp < gk) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, k_t + (kk * 16 * L + jp * 16) * 2);
+          mma_bf16(acc[2 * jp], a, bk[0], bk[1]);
+          mma_bf16(acc[2 * jp + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+
+  // dQ / sqrt(Dh), rounded once
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row_a : row_b;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      store_bf16_pair(dqb + row * q_row, 8 * j + quad_col, dh,
+                      acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale, vec);
+  }
+}
+
+// dk and dv for the key rows of one (batch, kv head) that a block owns,
+// summed over its slice of the group's query heads (blockIdx.z of
+// gridDim.z) and their query tiles in a fixed order.  part: null for
+// G = 1 (round and write dk, dv), else f32 scratch [G, B, Skv, Hkv,
+// Dh + Dv] of which this block writes its slice's sums.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_attention_bwd_dkv_tc(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ part,
+    size_t part_stride, int sq, int skv, int h, int hkv, int dh, int dv,
+    int causal, int vec, float scale_log2, float scale) {
+  constexpr int BKV = BwdShape<D>::kKeys, BQ = BwdShape<D>::kQTile;
+  constexpr int L = BwdShape<D>::kL;
+  constexpr int STRIPS = BKV / 16;         // 16-key strips: 4, or 2 if wide
+  constexpr int PARTS = kWarps / STRIPS;   // column parts of dK, dV: 1 or 2
+  constexpr int GROUPS = D / 16;           // 16-column groups of the width
+  constexpr int NG = (GROUPS + PARTS - 1) / PARTS;   // groups of a part
+  constexpr int KD = D / 16;               // k-steps over the width
+  constexpr int NS = BQ / 8;               // n-tiles of a warp's S^T
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_k = reinterpret_cast<bf16*>(smem_raw);   // [BKV][L]
+  bf16* s_v = s_k + BKV * L;                       // [BKV][L]
+  bf16* s_q = s_v + BKV * L;                       // [2][BQ][L]
+  bf16* s_do = s_q + 2 * BQ * L;                   // [2][BQ][L]
+  float* s_lse = reinterpret_cast<float*>(s_do + 2 * BQ * L);   // [2][BQ]
+  float* s_d = s_lse + 2 * BQ;                                  // [2][BQ]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int quad_row = lane >> 2, quad_col = 2 * (lane & 3);
+  const int strip = warp % STRIPS, g0 = (warp / STRIPS) * NG;
+  // launch order: key tiles slowest, the first (under the causal mask the
+  // one the most queries see) first
+  const int n_rest = gridDim.y * gridDim.z;
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int kt = lin / n_rest, rest = lin - kt * n_rest;
+  const int bkv = rest % gridDim.y, z = rest / gridDim.y;
+  const int b = bkv / hkv, kvh = bkv - b * hkv;
+  const int k0 = kt * BKV, ks0 = k0 + 16 * strip;   // block's, warp's keys
+  const int off = skv - sq;
+  const int group = h / hkv, per = group / gridDim.z;
+  const int head0 = kvh * group + z * per;
+
+  const size_t q_row = (size_t)h * dh, k_row = (size_t)hkv * dh;
+  const size_t v_row = (size_t)hkv * dv, o_row = (size_t)h * dv;
+  const bf16* kb = k + (size_t)b * skv * k_row + (size_t)kvh * dh;
+  const bf16* vb = v + (size_t)b * skv * v_row + (size_t)kvh * dv;
+
+  // the walk: `per` heads, each over the query tiles from the first that
+  // can see key k0
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int qt0 = causal ? max(0, k0 - off) / BQ : 0;
+  const int n_vis = n_qt - qt0, n_iter = per * n_vis;
+  auto issue = [&](int it, int st) {
+    const int head = head0 + it / n_vis, q0 = (qt0 + it % n_vis) * BQ;
+    const size_t bh = (size_t)b * h + head;
+    load_tile<BQ, D, L>(s_q + st * BQ * L,
+                        q + (size_t)b * sq * q_row + (size_t)head * dh,
+                        q_row, q0, sq, dh, vec);
+    load_tile<BQ, D, L>(s_do + st * BQ * L,
+                        dout + (size_t)b * sq * o_row + (size_t)head * dv,
+                        o_row, q0, sq, dv, vec);
+    load_rows_f32<BQ>(s_lse + st * BQ, lse + bh * sq, q0, sq);
+    load_rows_f32<BQ>(s_d + st * BQ, dd + bh * sq, q0, sq);
+  };
+
+  load_tile<BKV, D, L>(s_k, kb, k_row, k0, skv, dh, vec);
+  load_tile<BKV, D, L>(s_v, vb, v_row, k0, skv, dv, vec);
+  issue(0, 0);
+  cp_async_commit();
+
+  // ldmatrix row addresses: A (the warp's 16 K, V rows) as the forward's
+  // Q; B of S^T and dP^T (Q, dO rows) as the forward's K; B of P^T dO and
+  // dS^T Q (dO, Q rows, transposed) as the forward's V
+  const int a_off = (16 * strip + (lane & 15)) * L + 8 * (lane >> 4);
+  const uint32_t k_a = smem_addr(s_k + a_off), v_a = smem_addr(s_v + a_off);
+  const int b_off = ((lane & 7) + 8 * (lane >> 4)) * L + 8 * ((lane >> 3) & 1);
+  const int t_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * L + 8 * (lane >> 4);
+  const int gk = (dh + 15) / 16, gv = (dv + 15) / 16;
+  const int key_a = ks0 + quad_row, key_b = key_a + 8;
+
+  float acc_k[2 * NG][4], acc_v[2 * NG][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NG; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.0f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int stage = it & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_iter) {
+      issue(it + 1, stage ^ 1);
+      cp_async_commit();
+    }
+    const int q0 = (qt0 + it % n_vis) * BQ;
+    // no query of the tile sees the warp's keys
+    if (causal && ks0 > min(q0 + BQ, sq) - 1 + off) continue;
+
+    const bf16* sq_t = s_q + stage * BQ * L;
+    const bf16* sdo_t = s_do + stage * BQ * L;
+    const float* sl = s_lse + stage * BQ;
+    const float* sd = s_d + stage * BQ;
+    const uint32_t q_b = smem_addr(sq_t + b_off);
+    const uint32_t do_b = smem_addr(sdo_t + b_off);
+
+    // S^T = K Q^T and dP^T = V dO^T: rows the warp's 16 keys, columns the
+    // tile's queries
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      if (ks < gk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, k_a + ks * 32);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bq[4];
+          ldmatrix_x4(bq, q_b + (jp * 16 * L + ks * 16) * 2);
+          mma_bf16(s[2 * jp], a, bq[0], bq[1]);
+          mma_bf16(s[2 * jp + 1], a, bq[2], bq[3]);
+        }
+      }
+      if (ks < gv) {
+        uint32_t a[4];
+        ldmatrix_x4(a, v_a + ks * 32);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bo[4];
+          ldmatrix_x4(bo, do_b + (jp * 16 * L + ks * 16) * 2);
+          mma_bf16(dp[2 * jp], a, bo[0], bo[1]);
+          mma_bf16(dp[2 * jp + 1], a, bo[2], bo[3]);
+        }
+      }
+    }
+
+    // P^T and dS^T in f32; masked pairs exactly 0, checked only on a tile
+    // that crosses the diagonal or a ragged end
+    const bool edge = q0 + BQ > sq || ks0 + 16 > skv ||
+                      (causal && ks0 + 15 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float2 l2 =
+          *reinterpret_cast<const float2*>(sl + 8 * j + quad_col);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(sd + 8 * j + quad_col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l2.y : l2.x, dq = (e & 1) ? d2.y : d2.x;
+        float p = exp2f(fmaf(s[j][e], scale_log2, -lq * kLog2e));
+        if (edge) {
+          const int qpos = q0 + 8 * j + quad_col + (e & 1);
+          const int kpos = e < 2 ? key_a : key_b;
+          if (!(qpos < sq && kpos < skv && (!causal || kpos <= qpos + off)))
+            p = 0.0f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dq);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, P^T and dS^T
+    // rounded to bf16 as the A-fragments; this warp's column groups only
+    const uint32_t do_t = smem_addr(sdo_t + t_off);
+    const uint32_t q_t = smem_addr(sq_t + t_off);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) {
+        const int g = g0 + gi;
+        const int col = (kk * 16 * L + g * 16) * 2;
+        uint32_t bt[4];
+        if (g < gv) {
+          ldmatrix_x4_trans(bt, do_t + col);
+          mma_bf16(acc_v[2 * gi], pa, bt[0], bt[1]);
+          mma_bf16(acc_v[2 * gi + 1], pa, bt[2], bt[3]);
+        }
+        if (g < gk) {
+          ldmatrix_x4_trans(bt, q_t + col);
+          mma_bf16(acc_k[2 * gi], da, bt[0], bt[1]);
+          mma_bf16(acc_k[2 * gi + 1], da, bt[2], bt[3]);
+        }
+      }
+    }
+  }
+
+  // dK / sqrt(Dh) and dV: rounded once here (G = 1), or f32 partials
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? key_a : key_b;
+    if (row >= skv) continue;
+    const size_t r = ((size_t)b * skv + row) * hkv + kvh;   // [B, Skv, Hkv]
+#pragma unroll
+    for (int j = 0; j < 2 * NG; ++j) {
+      const int col = 16 * g0 + 8 * j + quad_col;
+      if (col >= D) continue;
+      const float kx0 = acc_k[j][2 * i] * scale;
+      const float kx1 = acc_k[j][2 * i + 1] * scale;
+      const float v0 = acc_v[j][2 * i], v1 = acc_v[j][2 * i + 1];
+      if (part == nullptr) {
+        store_bf16_pair(dk + r * dh, col, dh, kx0, kx1, vec);
+        store_bf16_pair(dvo + r * dv, col, dv, v0, v1, vec);
+      } else {
+        float* pr = part + z * part_stride + r * (dh + dv);
+        if (col < dh) pr[col] = kx0;
+        if (col + 1 < dh) pr[col + 1] = kx1;
+        if (col < dv) pr[dh + col] = v0;
+        if (col + 1 < dv) pr[dh + col + 1] = v1;
+      }
+    }
+  }
+}
+
+// dk and dv from the G partials of [G, n_rows, Dh + Dv]: each element
+// summed in index order, then rounded once
+__global__ void __launch_bounds__(kReduceThreads) flash_attention_bwd_reduce(
+    const float* __restrict__ part, bf16* __restrict__ dk,
+    bf16* __restrict__ dvo, size_t n, int dh, int dv, int splits) {
+  const int w = dh + dv;
+  for (size_t i = (size_t)blockIdx.x * kReduceThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kReduceThreads) {
+    float s = 0.0f;
+    for (int z = 0; z < splits; ++z) s += part[z * n + i];
+    const size_t r = i / w;
+    const int c = (int)(i - r * w);
+    if (c < dh) dk[r * dh + c] = __float2bfloat16(s);
+    else dvo[r * dv + c - dh] = __float2bfloat16(s);
+  }
+}
+
+// G, as the design note states; 1 on the f32 route
+int bwd_splits(int b, int skv, int h, int hkv, int dh, int dv, int dtype) {
+  if (dtype != 1) return 1;
+  const int group = h / hkv;
+  const int rows = bwd_tile_rows((max(dh, dv) + 15) / 16 * 16);
+  const long long blocks = (long long)((skv + rows - 1) / rows) * b * hkv;
+  for (int g = 1; g < group; ++g)
+    if (group % g == 0 && blocks * g >= 2 * kSms) return g;
+  return group;
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* dout, const float* lse, float* dd,
+                            bf16* dq, bf16* dk, bf16* dvo, int b, int sq,
+                            int skv, int h, int hkv, int dh, int dv,
+                            int causal, cudaStream_t stream) {
+  using S = BwdShape<D>;
+  auto dq_kernel = flash_attention_bwd_dq_tc<D>;
+  auto dkv_kernel = flash_attention_bwd_dkv_tc<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::kDqSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  // 16-byte rows in device memory for cp.async and paired stores: Dh, Dv
+  // multiples of 8 and every operand 16-byte aligned
+  const uintptr_t any =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+      reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+      reinterpret_cast<uintptr_t>(dvo);
+  const int vec = dh % 8 == 0 && dv % 8 == 0 && any % 16 == 0;
+  const float scale = 1.0f / sqrtf((float)dh);
+  const float scale_log2 = kLog2e * scale;
+
+  dq_kernel<<<dim3((sq + kBQ - 1) / kBQ, b * h), kTcThreads, S::kDqSmem,
+              stream>>>(q, k, v, dout, lse, dd, dq, sq, skv, h, hkv, dh, dv,
+                        causal, vec, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int splits = bwd_splits(b, skv, h, hkv, dh, dv, 1);
+  // the partials follow D in the scratch
+  float* part = splits > 1 ? dd + (size_t)b * h * sq : nullptr;
+  const size_t n = (size_t)b * skv * hkv * (dh + dv);
+  dkv_kernel<<<dim3((skv + S::kKeys - 1) / S::kKeys, b * hkv, splits),
+               kTcThreads, S::kDkvSmem, stream>>>(
+      q, k, v, dout, lse, dd, dk, dvo, part, n, sq, skv, h, hkv, dh, dv,
+      causal, vec, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+
+  const size_t blocks = (n + kReduceThreads - 1) / kReduceThreads;
+  const unsigned grid = blocks < 8 * kSms ? (unsigned)blocks : 8 * kSms;
+  flash_attention_bwd_reduce<<<grid, kReduceThreads, 0, stream>>>(
+      part, dk, dvo, n, dh, dv, splits);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bwd_bf16(const void* q_, const void* k_, const void* v_,
+                              const void* o_, const void* dout_,
+                              const float* lse, void* dq_, void* dk_,
+                              void* dv_, float* dd, int b, int sq, int skv,
+                              int h, int hkv, int dh, int dv, int causal,
+                              cudaStream_t stream) {
+  const bf16* dout = static_cast<const bf16*>(dout_);
+  const int n_rows = b * sq * h;
+  flash_attention_bwd_dot<bf16><<<(n_rows + kBwdThreads / 32 - 1) /
+                                      (kBwdThreads / 32),
+                                  kBwdThreads, 0, stream>>>(
+      static_cast<const bf16*>(o_), dout, dd, n_rows, sq, h, dv);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+#define BWD_ARGS                                                         \
+  static_cast<const bf16*>(q_), static_cast<const bf16*>(k_),            \
+      static_cast<const bf16*>(v_), dout, lse, dd,                       \
+      static_cast<bf16*>(dq_), static_cast<bf16*>(dk_),                  \
+      static_cast<bf16*>(dv_), b, sq, skv, h, hkv, dh, dv, causal, stream
+  switch ((max(dh, dv) + 15) / 16 * 16) {
+#define BWD_WIDTH(d) \
+  case d:            \
+    return launch_bwd_bf16<d>(BWD_ARGS);
+    BWD_WIDTH(16) BWD_WIDTH(32) BWD_WIDTH(48) BWD_WIDTH(64)
+    BWD_WIDTH(80) BWD_WIDTH(96) BWD_WIDTH(112) BWD_WIDTH(128)
+    BWD_WIDTH(144) BWD_WIDTH(160) BWD_WIDTH(176) BWD_WIDTH(192)
+    BWD_WIDTH(208) BWD_WIDTH(224) BWD_WIDTH(240) BWD_WIDTH(256)
+#undef BWD_WIDTH
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef BWD_ARGS
+}
+
 }  // namespace
 
 extern "C" {
@@ -1140,9 +1769,29 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)err;
 }
 
+// G, the blocks that split each kv head's group of query heads in the
+// backward's dk/dv kernel (the design note): a call with G > 1 launches
+// four kernels, otherwise three.
+int flash_attention_bwd_splits(int b, int skv, int h, int hkv, int dh,
+                               int dv, int dtype) {
+  if (hkv < 1 || h % hkv != 0) return 1;
+  return bwd_splits(b, skv, h, hkv, dh, dv, dtype);
+}
+
+// The f32 scratch, in floats, that flash_attention_bwd takes for these
+// operands: D, B * H * Sq floats, followed where G > 1 by the G dk/dv
+// partials [G, B, Skv, Hkv, Dh + Dv].
+size_t flash_attention_bwd_scratch(int b, int sq, int skv, int h, int hkv,
+                                   int dh, int dv, int dtype) {
+  const int g = flash_attention_bwd_splits(b, skv, h, hkv, dh, dv, dtype);
+  return (size_t)b * h * sq +
+         (g > 1 ? (size_t)g * b * skv * hkv * (dh + dv) : 0);
+}
+
 // The gradient in q, k and v (all in `dtype`, shapes as the forward's) of
 // the forward that produced o and lse, for the output gradient dout (o's
-// shape and type).  dd: f32 scratch of B * H * Sq floats.  Three kernels.
+// shape and type).  dd: f32 scratch of flash_attention_bwd_scratch floats.
+// Three kernels, or four where flash_attention_bwd_splits gives G > 1.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         void* dq, void* dk, void* dv_out, float* dd, int b,
@@ -1155,10 +1804,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0
-          ? dispatch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv_out, dd, b,
-                                sq, skv, h, hkv, dh, dv, causal, s)
-          : dispatch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk, dv_out, dd, b,
-                               sq, skv, h, hkv, dh, dv, causal, s);
+          ? dispatch_bwd_f32(q, k, v, o, dout, lse, dq, dk, dv_out, dd, b,
+                             sq, skv, h, hkv, dh, dv, causal, s)
+          : dispatch_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv_out, dd, b,
+                              sq, skv, h, hkv, dh, dv, causal, s);
   return (int)err;
 }
 

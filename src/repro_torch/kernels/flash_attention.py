@@ -9,23 +9,27 @@ type, float32 or bfloat16, and raises on anything else; it launches on
 `torch.cuda.current_stream()`, allocates its output with `torch.empty`
 and raises when the launch reports an error.  `launches` counts the
 forward's launches under `flash_attention` and the backward's under
-`flash_attention_bwd` (one per call; a backward call is three kernels).
+`flash_attention_bwd` (one per call; a backward call is three kernels,
+or four where `bwd_splits` is above 1).
 
-The source has two routes, picked by the type.  bfloat16 runs both
-products on the tensor cores (`mma.sync` bf16 tiles with f32 sums, K and
-V tiles copied by `cp.async` one tile ahead); it rounds each probability
-to bf16 before the P V product, which the reference does not, at most
-2^-9 relative.  float32 runs its products in f32 on the CUDA cores, as
-the reference does (no TF32).  What bounds each route on the H100, and
-what its design does about it, is written beside the kernel in the CUDA
-source.
+The source has two routes, picked by the type.  bfloat16 runs the
+products on the tensor cores (`mma.sync` bf16 tiles with f32 sums,
+operand tiles copied by `cp.async` one tile ahead).  Its forward rounds
+each probability to bf16 before the P V product, and its backward rounds
+P and dS to bf16 before the three products that take them, which the
+reference does not: at most 2^-9 relative each.  float32 runs its
+products in f32 on the CUDA cores, as the reference does (no TF32).
+What bounds each route on the H100, and what its design does about it,
+is written beside the kernels in the CUDA source.
 
 The backward (`flash_attention_bwd`) replaces no Pallas kernel: it
 computes what the reference's custom VJP `_flash_bwd`
 (`repro/kernels/ref.py:142`) computes, from the forward's output and its
-row log-sum-exp (`flash_attention(..., return_lse=True)`), in f32 on the
-CUDA cores for both types, with a fixed summation order (no atomics).
-`FlashAttention` is the `torch.autograd.Function` that joins the two.
+row log-sum-exp (`flash_attention(..., return_lse=True)`), with a fixed
+summation order (no atomics).  On the bf16 route a kv head's group of
+query heads may be split across G blocks whose f32 partials a fourth
+kernel sums in index order (`bwd_splits`).  `FlashAttention` is the
+`torch.autograd.Function` that joins the two.
 """
 from __future__ import annotations
 
@@ -51,6 +55,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
     lib.flash_attention_bwd.restype = i
+    lib.flash_attention_bwd_splits.argtypes = [i] * 7
+    lib.flash_attention_bwd_splits.restype = i
+    lib.flash_attention_bwd_scratch.argtypes = [i] * 8
+    lib.flash_attention_bwd_scratch.restype = ctypes.c_size_t
     lib.flash_attention_max_head_dim.argtypes = []
     lib.flash_attention_max_head_dim.restype = i
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
@@ -116,6 +124,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+def bwd_splits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """G: the blocks over which the backward's dk/dv kernel splits each kv
+    head's group of query heads for these operands (1 on the f32 route;
+    the rule is stated in the CUDA source).  Where G > 1 a fourth kernel
+    sums the blocks' partials."""
+    b, _, h, dh = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    return load().flash_attention_bwd_splits(b, skv, h, hkv, dh, dv,
+                                             DTYPES[q.dtype])
+
+
+def bwd_scratch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Floats of f32 scratch the backward allocates for these operands,
+    as the CUDA source lays it out: D = rowsum(dO O), then the G dk/dv
+    partials where G > 1."""
+    b, sq, h, dh = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    return load().flash_attention_bwd_scratch(b, sq, skv, h, hkv, dh, dv,
+                                              DTYPES[q.dtype])
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True
@@ -138,7 +167,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)}")
     _build.same_device(q, out, lse, dout)
     dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
-    dd = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dd = torch.empty(bwd_scratch(q, k, v), dtype=torch.float32,
+                     device=q.device)
     lib = load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

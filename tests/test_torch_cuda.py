@@ -704,7 +704,10 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
 # gradient, against max |grad|: f32 1e-4 max|g| + 1e-6 (the same f32
 # products summed in another order), bf16 2e-2 max|g| (the bf16 forward
 # rounds P and its output to bf16, which D = rowsum(dO O) and the
-# recomputed P inherit, and each gradient is rounded to bf16 once).  The
+# recomputed P inherit; the bf16 backward rounds P and dS to bf16 before
+# the products on the tensor cores, and each gradient to bf16 once;
+# tests/test_torch_attention_bwd_bf16.py holds an emulation of that
+# arithmetic to the same oracles on the CPU).  The
 # oracle is float64 on the card: the plain blocked backward
 # (ref.attention_bwd) on the same operands, and autograd through the plain
 # forward.
@@ -762,6 +765,157 @@ def test_flash_attention_bwd_is_deterministic(cuda):
     for _ in range(3):
         again = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# (b, sq, skv, h, hkv, dh, dv, G): the group split of the bf16 route's
+# dk/dv kernel (G > 1: a fourth kernel reduces the partials) at each
+# padded width instance the paths use, and 256
+BWD_SPLIT_SHAPES = [
+    (2, 1024, 1024, 24, 2, 128, 128, 6),   # starcoder2's train shape
+    (2, 512, 1024, 24, 2, 128, 128, 6),    # Sq < Skv
+    (1, 1024, 1024, 16, 16, 192, 128, 1),  # MLA widths, 32-row tiles
+    (1, 300, 300, 8, 8, 80, 80, 1),        # zamba2's heads of 80, ragged
+    (2, 300, 300, 8, 2, 128, 128, 4),      # a small grid: the whole group
+    (1, 100, 150, 4, 1, 256, 256, 4),      # the widest head, split
+    (1, 70, 70, 3, 1, 256, 200, 3),        # 256 over Dh != Dv, ragged
+]
+
+
+@pytest.mark.parametrize("shape", BWD_SPLIT_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_flash_attention_bwd_bf16_splits_and_widths(cuda, shape):
+    """The bf16 route against both f64 oracles (2e-2 max|g|), with G and
+    the kernels per call each shape gives: the pre-pass, dq, dk/dv and,
+    where G > 1, the reduction, each launched once."""
+    b, sq, skv, h, hkv, dh, dv, splits = shape
+    bf16 = torch.bfloat16
+    q = _attn_inputs(b, sq, skv, h, hkv, dh, dv, bf16, cuda)[0]
+    _, k, v = _attn_inputs(b, skv, skv, h, hkv, dh, dv, bf16, cuda, seed=1)
+    dout = torch.randn(b, sq, h, dv, generator=torch.Generator(
+        ).manual_seed(2)).to(bf16).to(cuda)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    assert fa_kernel.bwd_splits(q, k, v) == splits
+    run = lambda: fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    got = run()
+    torch.cuda.synchronize()
+    plain = ref.attention_bwd(*(t.double() for t in (q, k, v, out, lse,
+                                                      dout)))
+    _assert_grads_close(got, plain, bf16)
+    del plain
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(ref.attention(q64, k64, v64),
+                               (q64, k64, v64), dout.double())
+    _assert_grads_close(got, auto, bf16)
+    names = ["_dot", "_dq_tc", "_dkv_tc"] + (["_reduce"] if splits > 1
+                                             else [])
+    calls = 2
+    counts = _device_kernel_counts(run, calls, per_call=len(names))
+    assert len(counts) == len(names), counts
+    for n in names:
+        assert [c for key, c in counts.items()
+                if "flash_attention_bwd" + n in key] == [calls], (n, counts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_takes_operands_offset_from_allocation(cuda,
+                                                                   dtype):
+    """Operands 2 elements into their allocations (rows not 16-byte
+    aligned) take the element-by-element loads and stores, and give the
+    aligned call's gradient bit for bit."""
+    b, sq, skv, h, hkv, dh, dv = 1, 130, 130, 6, 2, 64, 64
+    q, k, v = _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, cuda)
+    dout = torch.randn_like(q)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+        moved = buf[2:].view(t.shape)
+        moved.copy_(t)
+        assert moved.is_contiguous() and moved.data_ptr() % 16 != 0
+        return moved
+
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    want = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    got = fa_kernel.flash_attention_bwd(*(offset(t) for t in (q, k, v, out)),
+                                        lse, offset(dout))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plain = ref.attention_bwd(*(t.double() for t in (q, k, v, out, lse,
+                                                      dout)))
+    _assert_grads_close(got, plain, dtype)
+
+
+def test_flash_attention_bwd_split_path_is_deterministic(cuda):
+    """starcoder2's train shape splits its group of 12 (G = 6): two calls
+    give the same gradient bit for bit."""
+    q, k, v = _attn_inputs(2, 1024, 1024, 24, 2, 128, 128, torch.bfloat16,
+                           cuda)
+    dout = torch.randn_like(q)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    assert fa_kernel.bwd_splits(q, k, v) > 1
+    first = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    again = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# (b, sq, skv, h, hkv, dh, dv, dtype, causal, lead): G > 1 and G = 1, the
+# padded widths 80, 128, 192 and 256, ragged ends, Sq < Skv, both routes;
+# `lead` elements of guard before each buffer (4098: rows not 16-byte
+# aligned, the element-by-element loads)
+BWD_GUARD_SHAPES = [
+    (2, 1024, 1024, 24, 2, 128, 128, "bf16", True, 4096),
+    (2, 512, 1024, 24, 2, 128, 128, "bf16", True, 4096),
+    (1, 1024, 1024, 16, 16, 192, 128, "bf16", True, 4096),
+    (1, 70, 70, 3, 1, 256, 200, "bf16", True, 4096),
+    (1, 77, 200, 4, 2, 80, 80, "bf16", False, 4096),
+    (2, 100, 100, 6, 3, 40, 24, "bf16", True, 4098),
+    (1, 77, 200, 4, 2, 64, 64, "f32", True, 4096),
+]
+
+
+@pytest.mark.parametrize("shape", BWD_GUARD_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_flash_attention_bwd_stays_inside_its_buffers(cuda, shape):
+    """Every operand, output and the scratch (sized by `bwd_scratch`) lies
+    inside a larger buffer filled with NaN: the library's call leaves the
+    guard bands untouched (no write outside an output or the scratch) and
+    gives the wrapper's gradient bit for bit (every output element
+    written, and no read outside an operand or an unwritten scratch
+    element reached a result)."""
+    b, sq, skv, h, hkv, dh, dv, name, causal, lead = shape
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+    q = _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, cuda)[0]
+    _, k, v = _attn_inputs(b, skv, skv, h, hkv, dh, dv, dtype, cuda, seed=1)
+    dout = torch.randn(b, sq, h, dv, generator=torch.Generator(
+        ).manual_seed(2)).to(dtype).to(cuda)
+    out, lse = fa_kernel.flash_attention(q, k, v, causal=causal,
+                                         return_lse=True)
+    bufs = []
+
+    def guarded(shape_, dtype_, like=None):
+        n = int(np.prod(shape_))
+        buf = torch.full((lead + n + 4096,), float("nan"), dtype=dtype_,
+                         device=cuda)
+        inner = buf[lead:lead + n].view(shape_)
+        if like is not None:
+            inner.copy_(like)
+        bufs.append((buf, n))
+        return inner
+
+    ops = [guarded(t.shape, t.dtype, t) for t in (q, k, v, out, dout, lse)]
+    grads = [guarded(t.shape, dtype) for t in (q, k, v)]
+    dd = guarded((fa_kernel.bwd_scratch(q, k, v),), torch.float32)
+    err = fa_kernel.load().flash_attention_bwd(
+        *(t.data_ptr() for t in ops + grads + [dd]), b, sq, skv, h, hkv,
+        dh, dv, int(causal), fa_kernel.DTYPES[dtype],
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for buf, n in bufs:
+        assert torch.isnan(buf[:lead]).all() and torch.isnan(
+            buf[lead + n:]).all()
+    want = fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal)
+    assert all(torch.equal(a, w) for a, w in zip(grads, want))
 
 
 def test_flash_attention_lse_leaves_the_output_unchanged(cuda):
