@@ -23,7 +23,10 @@ to the CPU:
                 time, the least time the card could take (bound) and, for
                 attention, PyTorch's scaled_dot_product_attention on the
                 same inputs as a yardstick (timed only; the port never
-                calls it).  The attention backward (flash_attention_bwd,
+                calls it; the kernels it ran name its backend).  The
+                attention forward at zamba2's, starcoder2's, qwen3-14b's
+                (40 over 8 kv heads of 128) and minicpm3-4b's MLA widths
+                (40 heads, Dh 96, Dv 64).  The attention backward (flash_attention_bwd,
                 three kernels per call, or four where the bf16 route
                 splits the GQA group, asserted) at starcoder2's train
                 shape in bf16 and f32, an MLA width and Sq < Skv, against
@@ -85,19 +88,23 @@ to the CPU:
                 error <= 10%), 20,000 submits under quotas with no
                 workers.  The GP launch counters are zeroed before each
                 path and read after it.
-  7. serve    — LM serving of zamba2-2.7b at its published widths (54
-                layers, d_model 2560, bf16, random weights from a seed)
-                through the Executor: 8 requests on one persistent server
-                (prompts of 64-1023 tokens, 16 new tokens each), then 2 on
-                fresh servers.  The attention and SSD launch counters are
-                zeroed just before; attention must have launched, and the
-                SSD at least once per layer per request.
-  8. serve_rwkv — the same mix for rwkv6-3b at its published widths (32
-                layers, d_model 2560, vocab 65536, bf16): the WKV launch
-                counter is zeroed just before and must read at least one
-                launch per layer per request just after.
+  7. serve    — LM serving at published widths and full depth (bf16,
+                random weights from a seed) through the Executor, one
+                arch after another: zamba2-2.7b (54 layers, d_model 2560),
+                rwkv6-3b (32 layers, vocab 65536), qwen3-14b (40 layers,
+                d_model 5120, GQA 40 over 8) and minicpm3-4b (62 layers,
+                MLA): 8 requests on one persistent server (prompts of
+                64-1023 tokens, 16 new tokens each), then 2 on fresh
+                servers.  The LM kernels' launch counters are zeroed just
+                before each; the arch's per-layer kernel (SSD, WKV,
+                attention) must read at least one launch per layer per
+                request just after, and zamba2's attention must have
+                launched; the peak device memory stays under two servers'
+                weights (fresh servers are built one at a time).
   9. serve_check — outside the timed windows, in f32 at full width:
-                zamba2 2 groups (12 layers) deep and rwkv6 4 layers deep.
+                zamba2 2 groups (12 layers) deep, rwkv6 4 layers,
+                qwen3-14b 2, minicpm3-4b 4 and yi-34b 2 (yi-34b runs on
+                the card at this cut only).
                 Greedy tokens equal the argmax of repeated full forwards,
                 and prefill logits on the card match the port on the CPU
                 with the same weights.
@@ -119,7 +126,7 @@ to the CPU:
  11. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
-                each (a 512-token prefill, then prefill + 16 new tokens),
+                (a 512-token prefill, then prefill + 16 new tokens),
                 with the operators that take the device time in the serve
                 windows.
 
@@ -159,6 +166,9 @@ SERVE_FRESH = 2
 SERVE_MAX_NEW = 16
 SERVE_MAX_LEN = 2048
 SERVE_MIN_PROMPT = 64
+# the dense family, served at published widths and full depth with the
+# same mix (yi-34b, 64.1 GiB in bf16, is checked at a depth cut only)
+DENSE_ARCHS = ("qwen3-14b", "minicpm3-4b")
 
 
 def log(phase: str, **kv) -> None:
@@ -878,14 +888,17 @@ def phase_lm_kernels():
 
     rows = []
     bf16, f32 = torch.bfloat16, torch.float32
-    for label, sq, h, hkv, dh, dtype in (
-            ("zamba2 bf16 S=1024", 1024, 32, 32, 80, bf16),
-            ("zamba2 bf16 S=777", 777, 32, 32, 80, bf16),
-            ("starcoder2 bf16 S=1024", 1024, 24, 2, 128, bf16),
-            ("zamba2 f32 S=1024", 1024, 32, 32, 80, f32)):
+    for label, sq, h, hkv, dh, dv, dtype in (
+            ("zamba2 bf16 S=1024", 1024, 32, 32, 80, 80, bf16),
+            ("zamba2 bf16 S=777", 777, 32, 32, 80, 80, bf16),
+            ("starcoder2 bf16 S=1024", 1024, 24, 2, 128, 128, bf16),
+            ("zamba2 f32 S=1024", 1024, 32, 32, 80, 80, f32),
+            ("qwen3 bf16 S=1024", 1024, 40, 8, 128, 128, bf16),
+            ("minicpm3 bf16 S=1024", 1024, 40, 40, 96, 64, bf16),
+            ("minicpm3 f32 S=1024", 1024, 40, 40, 96, 64, f32)):
         q = randn(1, sq, h, dh, dtype=dtype)
         k = randn(1, sq, hkv, dh, dtype=dtype)
-        v = randn(1, sq, hkv, dh, dtype=dtype)
+        v = randn(1, sq, hkv, dv, dtype=dtype)
         tol = 2e-2 if dtype == bf16 else 2e-5
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -894,18 +907,27 @@ def phase_lm_kernels():
             raise AssertionError(f"flash_attention {label}: {err} > {tol}")
         run = (lambda: fa.flash_attention(q, k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # every call launches at least one kernel (the port's exactly
+        # one): a window that saw fewer is taken again (`device_ms`)
+        sdpa = {}
         library = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=h != hkv), 200,
-            label=f"sdpa {label}")
+            label=f"sdpa {label}", by_kernel=sdpa, expect=1)
         b, by = _attn_bound(q, k, v)
-        rows.append(dict(
+        row = dict(
             name=f"flash_attention[{label}]", source=fa.SOURCE, tol=tol,
-            shape=f"q{tuple(q.shape)} kv{tuple(k.shape)}", max_abs_err=err,
-            ms=device_ms(run, 20, label=f"flash_attention {label}"),
+            shape=f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}",
+            max_abs_err=err,
+            ms=device_ms(run, 20, label=f"flash_attention {label}",
+                         expect=1),
             call_ms=call_ms(run, 20),
             plain_ms=device_ms(lambda: ref.attention(q, k, v), 10,
-                               label=f"plain attention {label}"),
-            bound_ms=b, bound_by=by, library_ms=library))
+                               label=f"plain attention {label}", expect=1),
+            bound_ms=b, bound_by=by, library_ms=library,
+            # which SDPA backend ran: its kernels, by device time
+            library_kernels=[name[:90] for name, _ in sorted(
+                sdpa.items(), key=lambda kv: -kv[1][0])[:3]])
+        rows.append(row)
 
     h, p, n = 80, 64, 64
     for s, dtype, with_state, iters in (
@@ -1950,16 +1972,23 @@ def phase_service(gp_state, backlog):
     return out, total
 
 
-def _serve_path(arch):
-    """`arch` at its published widths through the port's Executor: a
-    persistent server, then fresh servers.  Every LM kernel's launch
-    counter is zeroed just before and read just after."""
+def phase_serve(arch, kernels):
+    """`arch` at its published widths and depth through the port's
+    Executor: a persistent server, then fresh servers.  Every LM kernel's
+    launch counter is zeroed just before and read just after.  Every
+    prefill runs `kernels[0]` once per layer, so its counter must reach
+    n_layers x requests (warm-ups add more); each other kernel named must
+    have launched.  The fresh servers are built one at a time: the peak
+    must stay under two servers' weights (a lingering server would put a
+    third beside them)."""
     import numpy as np
     import torch
+    from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.launch import serve
+    from repro_torch.models import model
 
     counters = {"flash_attention": fa, "mamba2_ssd": ssd, "rwkv6_wkv": wkv}
     torch.cuda.synchronize()
@@ -1999,52 +2028,38 @@ def _serve_path(arch):
     lens = np.random.default_rng(0).integers(
         SERVE_MIN_PROMPT, SERVE_MAX_LEN // 2, SERVE_REQUESTS)
     out["prompt_lens"] = lens.tolist()
+    cfg = configs.get(arch)
+    out["weights_gib"] = model.count_params(cfg) * 2 / 2 ** 30
+    need = cfg.n_layers * (SERVE_REQUESTS + SERVE_FRESH)
     log("serve.total", arch=arch, seconds=f"{out['serve_s']:.3f}",
-        peak_device_gib=f"{out['peak_device_gib']:.2f}", **launches)
-    return out, launches
-
-
-def phase_serve():
-    """zamba2-2.7b: the attention kernel must have launched, and every
-    prefill runs the SSD kernel once per layer, so its counter must reach
-    n_layers x requests (warm-ups add more)."""
-    from repro_torch import configs
-    out, launches = _serve_path(SERVE_ARCH)
-    launches = {k: launches[k] for k in ("flash_attention", "mamba2_ssd")}
-    if launches["flash_attention"] < 1:
-        raise AssertionError("flash_attention never launched on the serve "
-                             "path")
-    need = configs.get(SERVE_ARCH).n_layers * (SERVE_REQUESTS + SERVE_FRESH)
-    if launches["mamba2_ssd"] < need:
-        raise AssertionError(f"mamba2_ssd launched {launches['mamba2_ssd']} "
-                             f"times on the serve path, fewer than {need}")
-    log("serve.launches", arch=SERVE_ARCH, mamba2_ssd=launches["mamba2_ssd"],
-        need=need)
-    return out, launches
-
-
-def phase_serve_rwkv():
-    """rwkv6-3b: every prefill runs the WKV kernel once per layer, so the
-    counter must reach n_layers x requests (warm-ups add more)."""
-    from repro_torch import configs
-    out, launches = _serve_path(RWKV_ARCH)
-    need = configs.get(RWKV_ARCH).n_layers * (SERVE_REQUESTS + SERVE_FRESH)
-    if launches["rwkv6_wkv"] < need:
-        raise AssertionError(f"rwkv6_wkv launched {launches['rwkv6_wkv']} "
-                             f"times on the serve path, fewer than {need}")
-    return out, {"rwkv6_wkv": launches["rwkv6_wkv"]}
+        peak_device_gib=f"{out['peak_device_gib']:.2f}",
+        weights_gib=f"{out['weights_gib']:.2f}", need=need, **launches)
+    if launches[kernels[0]] < need:
+        raise AssertionError(f"{kernels[0]} launched {launches[kernels[0]]} "
+                             f"times on the {arch} serve path, fewer than "
+                             f"{need}")
+    for k in kernels[1:]:
+        if launches[k] < 1:
+            raise AssertionError(f"{k} never launched on the {arch} serve "
+                                 f"path")
+    if out["peak_device_gib"] >= 2 * out["weights_gib"]:
+        raise AssertionError(f"{arch}: peak {out['peak_device_gib']:.2f} "
+                             f"GiB reaches two servers' weights "
+                             f"({2 * out['weights_gib']:.2f} GiB)")
+    return out, {k: launches[k] for k in kernels}
 
 
 def phase_serve_check():
     """Outside the timed windows, in f32 at full width: zamba2-2.7b 2
-    groups (12 layers) deep and rwkv6-3b 4 layers deep.  (a)
+    groups (12 layers) deep, rwkv6-3b 4 layers, qwen3-14b 2, minicpm3-4b
+    4 and yi-34b 2 (yi-34b serves on the card at this cut only).  (a)
     LMServer.generate's greedy tokens equal the argmax of repeated full
     forwards (tests/test_serve.py's check); (b) prefill logits on the card
     match the port on the CPU with the same weights, within 5e-3 relative
     to max(|x|, 1): the same f32 formulas, summed in other orders (cuBLAS
     and the kernels against the CPU's BLAS and the plain versions) over
-    d_model 2560 and d_ff 8960-10240, through random-weight layers;
-    1.3e-3 was measured on an H100 for zamba2."""
+    d_model 2560-7168 and d_ff 6400-20480, through random-weight
+    layers; 1.3e-3 was measured on an H100 for zamba2."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2054,7 +2069,9 @@ def phase_serve_check():
     out = {}
     for arch, n_layers in (
             (SERVE_ARCH, 2 * configs.get(SERVE_ARCH).shared_attn_every),
-            (RWKV_ARCH, 4)):
+            (RWKV_ARCH, 4), ("qwen3-14b", 2), ("minicpm3-4b", 4),
+            ("yi-34b", 2)):
+        t0 = time.perf_counter()
         cfg = configs.get(arch).replace(n_layers=n_layers, dtype="float32")
         srv = serve.LMServer(cfg, max_len=64, seed=5)
         prompt = np.random.default_rng(7).integers(0, cfg.vocab_size,
@@ -2079,16 +2096,18 @@ def phase_serve_check():
         del srv
         cpu, _, _ = model.prefill(cpu_params, {"tokens": batch}, cfg,
                                   model.init_cache(cfg, 1, 64, "cpu"))
+        del cpu_params
         err = float(((card.cpu() - cpu).abs()
                      / cpu.abs().clamp_min(1.0)).max())
         if not (torch.isfinite(card).all() and err <= 5e-3):
             raise AssertionError(f"{arch}: card vs CPU prefill logits: "
                                  f"{err} > 5e-3")
+        seconds = time.perf_counter() - t0
         log("serve_check", arch=arch, layers=cfg.n_layers,
             tokens=gen[0].tolist(), teacher_forced="equal",
-            prefill_logits_err=f"{err:.3g}")
+            prefill_logits_err=f"{err:.3g}", seconds=f"{seconds:.3f}")
         out[arch] = dict(layers=cfg.n_layers, tokens=gen[0].tolist(),
-                         prefill_logits_err=err)
+                         prefill_logits_err=err, seconds=seconds)
     return out
 
 
@@ -2195,12 +2214,21 @@ def _train_full_depth():
     n_params = model.count_params(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reserved_at_start = torch.cuda.memory_reserved() / 2 ** 30
+    before = torch.cuda.memory_stats()
     fa.reset_launches()
     t0 = time.perf_counter()
     out = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    after = torch.cuda.memory_stats()
+    # the caching allocator during the run: device allocations it made
+    # and frees it had to make (a full cache is emptied and the request
+    # retried: a synchronising slow path)
+    allocator = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("num_device_alloc", "num_device_free",
+                           "num_alloc_retries")}
     launches = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
@@ -2235,6 +2263,7 @@ def _train_full_depth():
         step_ms_median_last4=step_ms,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
         peak_device_gib=peak, run_s=run_s, max_param_move=moved,
+        reserved_gib_at_start=reserved_at_start, allocator=allocator,
         tensors_moved=n_moved,
         tensors=len(list(out["params"].parameters())), launches=launches)
     log("train", arch=TRAIN_ARCH, layers=cfg.n_layers, params=n_params,
@@ -2243,7 +2272,9 @@ def _train_full_depth():
         step_ms=f"{step_ms:.2f}",
         tokens_per_s=f"{res['tokens_per_s']:.1f}",
         peak_device_gib=f"{peak:.2f}",
-        tensors_moved=f"{n_moved}/{res['tensors']}", **launches)
+        reserved_gib_at_start=f"{reserved_at_start:.2f}",
+        tensors_moved=f"{n_moved}/{res['tensors']}", **launches,
+        **allocator)
     res["profiled_step"] = _train_step_profile(out, cfg, 0)
     p = res["profiled_step"]
     log("train.where", wall_ms=f"{p['wall_ms']:.2f}",
@@ -2493,6 +2524,10 @@ def phase_train():
     """starcoder2-3b training through the port: the full-depth run with its
     launch counts, the checkpoint round trip and resume at a depth cut, and
     one step on the card against the CPU."""
+    import torch
+    # a trainer runs in a process of its own: the serve phases' cached
+    # blocks are handed back first, so they do not shape its allocations
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out, launches = _train_full_depth()
     out["full_depth_s"] = time.perf_counter() - t0
@@ -2522,8 +2557,8 @@ def phase_where():
     """Where the paths' time goes, outside the counted runs: one GS2
     solve alone on one thread, and the device's busy share (profiler)
     during a solve, a 10,000-task re-cost, and one zamba2 and one rwkv6
-    request each (a 512-token prefill alone, then prefill + 16 new tokens)
-    on a warm full-width server, with the operators that take the device
+    request (a 512-token prefill alone, then prefill + 16 new tokens) on
+    a warm full-width server, with the operators that take the device
     time."""
     import numpy as np
     import torch
@@ -2561,15 +2596,7 @@ def phase_where():
                           seed=0)
     rwkv_prompt = rng.integers(0, rwkv.cfg.vocab_size, (1, 512))
     rwkv.generate(rwkv_prompt, 2)                # first use off the clock
-    for name, fn in (("solve", lambda: gs2_proxy.solve(theta)),
-                     ("recost_10k", lambda: pred.predict_many_with_sd(reqs)),
-                     ("serve_prefill_512", lambda: srv.generate(prompt, 1)),
-                     ("serve_request_512+16",
-                      lambda: srv.generate(prompt, SERVE_MAX_NEW)),
-                     ("rwkv_prefill_512", lambda: rwkv.generate(rwkv_prompt,
-                                                                1)),
-                     ("rwkv_request_512+16",
-                      lambda: rwkv.generate(rwkv_prompt, SERVE_MAX_NEW))):
+    def window(name, fn, with_ops=True):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2582,8 +2609,7 @@ def phase_where():
             busy = idle = None
         else:
             idle = 1 - busy / (wall * 1e3)
-        top = (_top_device_ops(prof)
-               if name not in ("solve", "recost_10k") else [])
+        top = _top_device_ops(prof) if with_ops else []
         out[name] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
                          device_idle_share=idle, top_device_ops=top)
         log("where", window=name, wall_ms=f"{wall * 1e3:.3f}",
@@ -2592,6 +2618,16 @@ def phase_where():
         for op, ms, calls in top:
             log("where.op", window=name, op=repr(op), device_ms=f"{ms:.3f}",
                 calls=calls)
+
+    window("solve", lambda: gs2_proxy.solve(theta), with_ops=False)
+    window("recost_10k", lambda: pred.predict_many_with_sd(reqs),
+           with_ops=False)
+    window("serve_prefill_512", lambda: srv.generate(prompt, 1))
+    window("serve_request_512+16", lambda: srv.generate(prompt,
+                                                        SERVE_MAX_NEW))
+    window("rwkv_prefill_512", lambda: rwkv.generate(rwkv_prompt, 1))
+    window("rwkv_request_512+16", lambda: rwkv.generate(rwkv_prompt,
+                                                        SERVE_MAX_NEW))
     log("where", window="solve_alone", iters=iters,
         us_per_iter=f"{out['us_per_iter']:.2f}")
     return out
@@ -2600,21 +2636,42 @@ def phase_where():
 # ---------------------------------------------------------------------------
 def main() -> int:
     t_script = time.perf_counter()
-    name, smi = phase_device()
-    build_s = phase_build()
-    rows = phase_kernels() + phase_lm_kernels()
-    main_out, main_launches, post, backlog, gp_state = phase_main()
-    sim_out, sim_launches = phase_sim(post, backlog)
-    service_out, service_launches = phase_service(gp_state, backlog)
-    serve_out, serve_launches = phase_serve()
-    rwkv_out, rwkv_launches = phase_serve_rwkv()
-    serve_check = phase_serve_check()
-    train_out, train_launches = phase_train()
-    where = phase_where()
+    phase_s = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        phase_s[label] = time.perf_counter() - t0
+        log("phase", name=label, seconds=f"{phase_s[label]:.3f}")
+        return res
+
+    name, smi = timed("device", phase_device)
+    build_s = timed("build", phase_build)
+    rows = (timed("kernels", phase_kernels)
+            + timed("lm_kernels", phase_lm_kernels))
+    main_out, main_launches, post, backlog, gp_state = timed("main",
+                                                             phase_main)
+    sim_out, sim_launches = timed("sim", phase_sim, post, backlog)
+    service_out, service_launches = timed("service", phase_service,
+                                          gp_state, backlog)
+    serve_out, serve_launches = timed("serve", phase_serve, SERVE_ARCH,
+                                      ("mamba2_ssd", "flash_attention"))
+    rwkv_out, rwkv_launches = timed("serve_rwkv", phase_serve, RWKV_ARCH,
+                                    ("rwkv6_wkv",))
+    dense_out, dense_launches = {}, {}
+    for arch in DENSE_ARCHS:
+        dense_out[arch], dense_launches[arch] = timed(
+            f"serve_{arch}", phase_serve, arch, ("flash_attention",))
+    serve_check = timed("serve_check", phase_serve_check)
+    train_out, train_launches = timed("train", phase_train)
+    where = timed("where", phase_where)
     # each path's launches, counted from zero on that path
     by_path = {"main": main_launches, "sim": sim_launches,
                "service": service_launches, "serve": serve_launches,
-               "serve_rwkv": rwkv_launches, "train": train_launches}
+               "serve_rwkv": rwkv_launches,
+               **{f"serve_{arch}": per
+                  for arch, per in dense_launches.items()},
+               "train": train_launches}
     launches = {}
     for per in by_path.values():
         for k, v in per.items():
@@ -2648,15 +2705,17 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             **{k: r[k] for k in ("kernel_launches_per_call", "scratch_bytes",
                                  "phase_ms", "launch_floor_ms", "note",
-                                 "grad_tol", "max_rel_err")
+                                 "grad_tol", "max_rel_err",
+                                 "library_kernels")
                if k in r}))
     script_s = time.perf_counter() - t_script
     log("total", seconds=f"{script_s:.1f}")
     record = dict(device=name, nvidia_smi=smi, build_s=build_s,
-                  script_s=script_s,
+                  script_s=script_s, phase_s=phase_s,
                   kernels=kernels, launches=launches,
                   launches_by_path=by_path, main=main_out, sim=sim_out,
                   service=service_out, serve=serve_out, serve_rwkv=rwkv_out,
+                  serve_dense=dense_out,
                   bwd_splits={r["name"]: r["splits"] for r in rows
                               if "splits" in r},
                   serve_check=serve_check, train=train_out, where=where,

@@ -2,7 +2,7 @@
 runs, each with its published config and a reduced smoke variant.
 
 `get(name)` / `get_reduced(name)` take the public dashed ids, as in
-`repro.configs`.  The reference's other seven archs need blocks the port
+`repro.configs`.  The reference's other four archs need blocks the port
 does not have yet; asking for one raises a `KeyError` that names the
 ROADMAP item that ports it.
 """
@@ -17,14 +17,14 @@ _MODULES: Dict[str, str] = {
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "yi-34b": "repro_torch.configs.yi_34b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
 }
 
 _LATER: Dict[str, str] = {
     "dbrx-132b": "ROADMAP.md Queue 1 item 12 (MoE)",
-    "deepseek-v3-671b": "ROADMAP.md Queue 1 items 12-13 (MoE, MLA, MTP)",
-    "minicpm3-4b": "ROADMAP.md Queue 1 item 13 (MLA)",
-    "yi-34b": "ROADMAP.md Queue 1 item 14 (the other dense configs)",
-    "qwen3-14b": "ROADMAP.md Queue 1 item 14 (the other dense configs)",
+    "deepseek-v3-671b": "ROADMAP.md Queue 1 item 12 (MoE, MTP)",
     "phi-3-vision-4.2b": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
     "musicgen-large": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
 }

@@ -1,0 +1,31 @@
+"""minicpm3-4b [dense] — multi-head latent attention (MLA).
+
+62L d_model=2560 40H d_ff=6400 vocab=73448 [hf:openbmb/MiniCPM3-4B; hf].
+MLA dims from the HF config: q_lora=768, kv_lora=256, qk_nope=64, qk_rope=32,
+v_head=64.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm3-4b",
+    family="dense",
+    attn_kind="mla",
+    n_layers=62,
+    d_model=2560,
+    n_heads=40,
+    n_kv_heads=40,
+    d_ff=6400,
+    vocab_size=73448,
+    q_lora_rank=768,
+    kv_lora_rank=256,
+    qk_nope_head_dim=64,
+    qk_rope_head_dim=32,
+    v_head_dim=64,
+    accum_steps=1,
+)
+
+REDUCED = CONFIG.replace(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=128,
+    q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+    v_head_dim=16, dtype="float32", remat=False,
+)

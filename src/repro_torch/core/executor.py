@@ -131,10 +131,18 @@ class Worker(threading.Thread):
                     wname = f"{self.name}-surrogate"
                 else:
                     server, init_t = self._get_server(req.model_name)
-                    t0 = self.pool._clock()
-                    value = server.model(req.parameters, req.config)
-                    compute_t = self.pool._clock() - t0
-                    server.n_evals += 1
+                    try:
+                        t0 = self.pool._clock()
+                        value = server.model(req.parameters, req.config)
+                        compute_t = self.pool._clock() - t0
+                        server.n_evals += 1
+                    finally:
+                        # Port change: a fresh server is dropped with its
+                        # request, failed or not, before the next one is
+                        # built, so that two never hold the device at once
+                        # (the reference keeps it until the next dispatch
+                        # returns).
+                        server = None
                     wname = self.name
                 status = "ok"
                 if req.time_limit and compute_t > req.time_limit:
@@ -1071,6 +1079,11 @@ class Executor:
         for w in self.workers:
             if w.ident is not None:            # never-started replay workers
                 w.join(timeout=1.0)
+            # Port change: a stopped worker releases its persistent servers
+            # (their weights on the device) now, not when a collector
+            # breaks the executor's reference cycles.
+            if not w.is_alive():
+                w.servers.clear()
 
     def __enter__(self):
         return self

@@ -27,7 +27,9 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.models import layers
-from repro_torch.models.attention import GQA, gqa_apply, gqa_cache_shapes
+from repro_torch.models.attention import (attention_apply,
+                                          attention_cache_shapes,
+                                          attention_module)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, ParamModule, embed_tokens,
                                        logits_from_hidden, mlp_apply,
@@ -58,9 +60,6 @@ def model_segments(cfg: ModelConfig) -> List[Segment]:
     if cfg.mtp_depth:
         raise NotImplementedError("multi-token prediction is not ported yet "
                                   "(ROADMAP.md Queue 1 item 12)")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 13)")
     if cfg.input_mode != "tokens":
         raise NotImplementedError("embedding inputs are not ported yet "
                                   "(ROADMAP.md Queue 1 item 14)")
@@ -83,7 +82,7 @@ class AttnMLPLayer(ParamModule):
         super().__init__(dtype, device)
         d = cfg.d_model
         self.add("norm1", (d,), "ones")
-        self.attn = GQA(cfg, dtype, device)
+        self.attn = attention_module(cfg, dtype, device)
         self.add("norm2", (d,), "ones")
         self.mlp = MLP(cfg, dtype, device)
 
@@ -109,7 +108,7 @@ _LAYERS = {"attn_mlp": AttnMLPLayer, "mamba2": Mamba2Layer,
 def _layer_cache_shapes(kind: str, cfg: ModelConfig, batch: int,
                         max_len: int):
     if kind == "attn_mlp":
-        return gqa_cache_shapes(cfg, batch, max_len)
+        return attention_cache_shapes(cfg, batch, max_len)
     if kind == "mamba2":
         return mamba2_cache_shapes(cfg, batch)
     if kind == "rwkv6":
@@ -118,7 +117,7 @@ def _layer_cache_shapes(kind: str, cfg: ModelConfig, batch: int,
         n = cfg.shared_attn_every
         return {"mamba": {k: (n,) + s for k, s in
                           mamba2_cache_shapes(cfg, batch).items()},
-                "shared_attn": gqa_cache_shapes(cfg, batch, max_len)}
+                "shared_attn": attention_cache_shapes(cfg, batch, max_len)}
     raise ValueError(kind)
 
 
@@ -136,8 +135,9 @@ def _layer_apply(kind: str, lp, x, cfg, *, positions, cache, decode_pos,
     """-> (x, cache or None)."""
     if kind == "attn_mlp":
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
-        attn_out, new_c = gqa_apply(lp.attn, h, cfg, positions=positions,
-                                    cache=cache, decode_pos=decode_pos)
+        attn_out, new_c = attention_apply(lp.attn, h, cfg,
+                                          positions=positions, cache=cache,
+                                          decode_pos=decode_pos)
         x = x + attn_out
         h = rms_norm(x, lp.norm2, cfg.norm_eps)
         return x + mlp_apply(lp.mlp, h, cfg), new_c

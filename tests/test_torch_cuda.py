@@ -356,6 +356,9 @@ def _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, dev, seed=0):
     (1, 50, 50, 4, 2, 20, 12),         # rows not 16-byte aligned
     (1, 130, 130, 4, 4, 192, 128),     # MLA's Dh 192, Dv 128
     (1, 2048, 2048, 8, 8, 80, 80),     # serve max_len: many KV stages
+    (1, 1024, 1024, 40, 40, 96, 64),   # minicpm3's MLA prefill, S=1024
+    (1, 333, 333, 40, 40, 96, 64),     # minicpm3's MLA widths, ragged S
+    (1, 300, 300, 40, 8, 128, 128),    # qwen3-14b's GQA group of 5
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -671,7 +674,8 @@ def test_rwkv6_wkv_rejects_bad_operands(cuda):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "starcoder2-3b",
-                                  "rwkv6-3b"])
+                                  "rwkv6-3b", "qwen3-14b", "yi-34b",
+                                  "minicpm3-4b"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     """The same weights forward on the card (through the kernels) and on
     the CPU (plain versions), f32: logits at 1e-3 relative to max(|x|,1)."""
@@ -697,6 +701,46 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
     want, _, _ = model.forward(cpu, {"tokens": toks}, cfg)
     err = ((got.cpu() - want).abs() / want.abs().clamp_min(1.0)).max()
     assert float(err) <= 1e-3
+
+
+def test_reduced_mla_prefill_and_decode_on_card_match_cpu(cuda):
+    """Reduced minicpm3-4b with the same weights on the card and on the
+    CPU, f32: a 20-token prefill (through the kernel at Dh != Dv) into a
+    32-position cache, then 4 absorbed decode steps; logits at 1e-3
+    relative to max(|x|, 1) and the latent caches alike."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get_reduced("minicpm3-4b")
+    card = model.init_params(cfg, seed=4, device=cuda)
+    cpu = model.LM(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    caches = {"card": model.init_cache(cfg, 2, 32, cuda),
+              "cpu": model.init_cache(cfg, 2, 32, "cpu")}
+    fa_kernel.reset_launches()
+    logits = {}
+    for where, params in (("card", card), ("cpu", cpu)):
+        dev = cuda if where == "card" else torch.device("cpu")
+        out, _, _ = model.prefill(params, {"tokens": toks[:, :20].to(dev)},
+                                  cfg, caches[where])
+        steps = [out[:, -1]]
+        for pos in range(20, 24):
+            out, _ = model.decode_step(
+                params, {"tokens": toks[:, pos:pos + 1].to(dev)}, cfg,
+                caches[where], pos)
+            steps.append(out)
+        logits[where] = torch.stack(steps, 1).cpu()
+    torch.cuda.synchronize()
+    assert fa_kernel.launches["flash_attention"] == cfg.n_layers
+    want = logits["cpu"]
+    err = ((logits["card"] - want).abs() / want.abs().clamp_min(1.0)).max()
+    assert float(err) <= 1e-3
+    for name in ("c_kv", "k_rope"):
+        got, ref_c = caches["card"]["layers"][name].cpu(), \
+            caches["cpu"]["layers"][name]
+        err = ((got - ref_c).abs() / ref_c.abs().clamp_min(1.0)).max()
+        assert float(err) <= 1e-3, name
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's LM substrate against `repro.models`, on the CPU.
 
-Reduced zamba2-2.7b, starcoder2-3b and rwkv6-3b (the archs the port's
-registry holds) with the reference's weights carried across by
+Reduced zamba2-2.7b, starcoder2-3b, rwkv6-3b, qwen3-14b, yi-34b and
+minicpm3-4b (MLA; the archs the port's registry holds) with the
+reference's weights carried across by
 `weights.params_from_numpy`: forward logits, prefill caches and four
 decode steps against the reference on the same tokens.  Both run in f32;
 the tolerance, 1e-4 relative to max(|x|, 1), covers summation order in a
@@ -29,7 +30,8 @@ from torch_port_util import np32, on_cpu  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
-ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b"]
+ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b", "qwen3-14b",
+         "yi-34b", "minicpm3-4b"]
 TOL = 1e-4
 
 
@@ -65,7 +67,7 @@ def test_configs_match_reference():
     assert tconfigs.get("zamba2-2.7b").activation_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen3-14b",
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "dbrx-132b",
                                   "musicgen-large"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item"):
@@ -75,7 +77,8 @@ def test_unported_archs_name_their_roadmap_item(arch):
 
 
 @pytest.mark.parametrize("kw", [dict(n_experts=4, moe_top_k=2),
-                                dict(attn_kind="mla"), dict(mtp_depth=1)])
+                                dict(input_mode="embeddings"),
+                                dict(mtp_depth=1)])
 def test_unported_blocks_raise(kw):
     cfg = ModelConfig("x", "dense", 2, 16, 32, 64, n_heads=2, n_kv_heads=2,
                       dtype="float32").replace(**kw)

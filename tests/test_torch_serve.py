@@ -8,10 +8,12 @@ the Executor for every arch; a fresh interpreter serving through the port
 loads neither `jax` nor `repro`; and without a card the default device
 raises.
 """
+import gc
 import os
 import subprocess
 import sys
 import textwrap
+import weakref
 
 import jax
 import numpy as np
@@ -22,6 +24,7 @@ from repro import configs as jconfigs
 from repro.launch import serve as jserve
 from repro_torch import configs as tconfigs
 from repro_torch import device
+from repro_torch.core import EvalRequest, Executor, LambdaModel
 from repro_torch.launch import serve as tserve
 from repro_torch.models import model as tmodel
 from repro_torch.models.weights import params_from_numpy
@@ -29,7 +32,8 @@ from torch_port_util import on_cpu  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
-ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b"]
+ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b", "qwen3-14b",
+         "yi-34b", "minicpm3-4b"]
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
 
@@ -87,15 +91,60 @@ def test_serve_benchmark_end_to_end(arch):
         assert len(out["records"]) == 3
 
 
+@pytest.mark.parametrize("fail_first", [False, True])
+@pytest.mark.parametrize("persistent", [True, False])
+def test_executor_releases_servers_without_a_collector(persistent,
+                                                       fail_first):
+    """A full-width server holds tens of GiB on the card: a fresh server
+    is gone before the next request builds its own, also when its request
+    raised inside the model, and a persistent one once the executor shuts
+    down, by reference counts alone (the collector off).  The reference
+    keeps both longer (ROADMAP.md, divergences)."""
+
+    class Weights:
+        pass
+
+    alive, live_at_build, calls = weakref.WeakSet(), [], []
+
+    def factory():
+        live_at_build.append(len(alive))
+        w = Weights()
+        alive.add(w)
+
+        def fn(params, config):
+            calls.append(id(w))
+            if fail_first and len(calls) == 1:
+                raise RuntimeError("the model failed")
+            return [[id(w)]]
+
+        return LambdaModel("m", fn, input_size=-1, output_size=-1)
+
+    gc.collect()
+    gc.disable()
+    try:
+        with Executor({"m": factory}, n_workers=1,
+                      persistent_servers=persistent) as ex:
+            results = ex.run_all([EvalRequest("m", [float(i)])
+                                  for i in range(3)], timeout=60.0)
+        assert all(r.status == "ok" for r in results)
+        assert len(calls) == 3 + fail_first
+        builds = 1 if persistent else 3 + fail_first
+        assert live_at_build == [0] * builds
+        assert len(alive) == 0
+    finally:
+        gc.enable()
+
+
 def test_serving_loads_neither_jax_nor_repro(tmp_path):
-    """Reduced zamba2 and rwkv6 serve_benchmarks through the port, in a
-    fresh interpreter: no `jax` or `repro` module is loaded."""
+    """Reduced zamba2, rwkv6 and minicpm3 (MLA) serve_benchmarks through
+    the port, in a fresh interpreter: no `jax` or `repro` module is
+    loaded."""
     script = textwrap.dedent("""
         import sys
         from repro_torch import device
         device.set_device("cpu")
         from repro_torch.launch import serve
-        for arch in ("zamba2-2.7b", "rwkv6-3b"):
+        for arch in ("zamba2-2.7b", "rwkv6-3b", "minicpm3-4b"):
             out = serve.serve_benchmark(arch, n_requests=2, max_new=2,
                                         n_workers=1, max_len=32)
             assert out["tokens"] == 4, arch
