@@ -44,7 +44,11 @@ to the CPU:
                 its row sums their device time, gives each one's
                 (`phase_ms`), and states the kernels per call (exactly
                 three, asserted) and the scratch bytes (read from the
-                caching allocator, held to the wrapper's layout).
+                caching allocator, held to the wrapper's layout).  The
+                SSD backward (mamba2_ssd_bwd, four kernels per call,
+                asserted) at zamba2's train shape (B 2, S 1024, 80 heads
+                of 64, N 64) in bf16 and f32 and at S 777 with a state,
+                against its plain version, with a bitwise repeat.
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -122,7 +126,16 @@ to the CPU:
                 checkpoint restored bit for bit, and a resume from it
                 that follows an uninterrupted 6-step run; and one f32 step 2 layers deep on the
                 card against the port on the CPU (the gradient against
-                the same model in f64 on the CPU).
+                the same model in f64 on the CPU).  Then zamba2-2.7b
+                the same way at its published widths and depth (54
+                Mamba2 layers in 9 groups with the shared attention
+                block, bf16, remat), its SSD's gradient through the
+                backward kernel: the SSD and attention counters must read
+                exactly 3 x 54 x 6 and 54 x 6, 2 x 9 x 6 and 9 x 6 (the
+                remat is nested, as the reference's); the profiled step
+                gives the SSD backward's ms; and one f32 step one group
+                (6 layers) deep on the card against the CPU at
+                ZAMBA_GRAD_LIMITS.
  11. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
@@ -623,12 +636,37 @@ def _ssd_bound(x, b_in, state):
     return bound_ms(n_bytes, 5 * bb * s * h * p * n)
 
 
+def _ssd_bwd_bound(x, b_in, state, dstate_out):
+    """The SSD's gradient.  Bytes: x, dy, B and C in x's type, dt, a, D,
+    and the state and its gradient where given, read once; dx, dB, dC in
+    x's type, ddt, da, dD and dstate written once.  Operations: the least
+    the gradient of the sequential recurrence needs, 11 f32 operations per
+    (t, h, p, n): the state's gradient dS_t = e^{la_t} dS_{t+1} + dy_t C_t^T
+    (a multiply and a multiply-add), and one multiply-add each for dC
+    (S_t^T dy_t), dxdt (dS_t B_t), dB (dS_t^T xdt_t) and the decay's
+    gradient (<dS_t, S_{t-1}>), not counting the states S_t it reads, at
+    the f32 CUDA-core peak (the state and the decays are f32)."""
+    bb, s, h, p = x.shape
+    n = b_in.shape[2]
+    elem = x.element_size()
+    state_rw = (state is not None) + (dstate_out is not None)
+    n_bytes = (3 * elem * x.numel() + 2 * 4 * bb * s * h
+               + 4 * elem * b_in.numel() + 4 * 4 * h
+               + 4 * bb * h * p * n * (state_rw + (state is not None)))
+    return bound_ms(n_bytes, 11 * bb * s * h * p * n)
+
+
 # the three kernels of one gp_predict / gp_predict_experts, one mamba2_ssd
 # and one rwkv6_wkv call, and the two of one gp_kernel_matrix_grad call, in
 # launch order (their names as the profiler shows them contain these)
 GP_PREDICT_PHASES = ("gp_predict_k0", "gp_predict_tri", "gp_predict_reduce")
 GP_GRAD_PHASES = ("gp_kernel_matrix_grad_tiles", "gp_kernel_matrix_grad_reduce")
 SSD_PHASES = ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output")
+# the four of one mamba2_ssd_bwd call: the state gradient's increments per
+# chunk, the reverse scan over chunks, the chunk gradients, and the
+# fixed-order reduction over heads and chunks
+SSD_BWD_PHASES = ("ssd_bwd_state_inc", "ssd_bwd_state_scan",
+                  "ssd_bwd_chunk_grad", "ssd_bwd_reduce")
 WKV_PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
 
 
@@ -686,7 +724,8 @@ def measured_scratch(fn, label: str, *layout: int) -> int:
     torch.cuda.synchronize()
     peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
     storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-                for t in (out if isinstance(out, tuple) else (out,))}
+                for t in (out if isinstance(out, tuple) else (out,))
+                if t is not None}
     got = peak - before - sum(storages.values())
     want = sum(layout)
     if got != want:
@@ -865,6 +904,87 @@ def _attention_bwd_rows(randn):
                     if splits > 1 else "")
                  + "); bf16 on mma.sync, f32 on the CUDA cores; library_ms "
                    "is the backward of scaled_dot_product_attention alone"))
+    return rows
+
+
+def _ssd_bwd_rows(randn):
+    """mamba2_ssd_bwd against its plain version (ref.mamba2_ssd_bwd) on the
+    card, at the train path's shape (zamba2-2.7b: B 2, S 1024, 80 heads of
+    64, N 64, no state and no final-state gradient, as a training step
+    gives it) in bf16 (d in bf16, the model's D-skip) and f32, and at a
+    ragged S with a state and the final state's gradient.  Tolerance per
+    gradient, against its max|g|: 1e-4 (the same f32 sums in another
+    order), plus 2^-8 for a gradient in bf16 (both round the f32 result
+    once).  Each call is four kernels, asserted from a profiler window,
+    and two calls on the same inputs agree bit for bit (fixed-order sums,
+    no atomics); the scratch is read from the allocator and held to the
+    library's layout (`bwd_scratch`)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("dx", "ddt", "da", "db", "dc", "dd", "dstate")
+    rows = []
+    h, p, n = 80, 64, 64
+    for label, b, s, dtype, with_state in (
+            ("zamba2 train bf16 B=2 S=1024", 2, 1024, bf16, False),
+            ("zamba2 train f32 B=2 S=1024", 2, 1024, f32, False),
+            ("zamba2 bf16 S=777 +state", 1, 777, bf16, True)):
+        x = randn(b, s, h, p, dtype=dtype)
+        dt = F.softplus(randn(b, s, h))
+        a = -torch.ones(h, device="cuda")     # zamba2's a_log init is 0
+        b_in, c_in = randn(b, s, n, dtype=dtype), randn(b, s, n, dtype=dtype)
+        d = torch.ones(h, device="cuda", dtype=dtype)
+        st = 0.1 * randn(b, h, p, n) if with_state else None
+        dy = randn(b, s, h, p, dtype=dtype)
+        dso = randn(b, h, p, n) if with_state else None
+        args = (x, dt, a, b_in, c_in, d, st)
+        _, _, states = ssd.mamba2_ssd(*args, return_states=True)
+        run = (lambda: ssd.mamba2_ssd_bwd(*args, dy, dso, states=states))
+        got = run()
+        torch.cuda.synchronize()
+        want = ref.mamba2_ssd_bwd(*args, dy, dso)
+        err, rel_err, errs = 0.0, 0.0, {}
+        for name, g_, w in zip(names, got, want):
+            if w is None:
+                continue
+            scale = float(w.float().abs().max())
+            rel = 1e-4 + (2 ** -8 if g_.dtype == bf16 else 0.0)
+            e = max_err(g_.float(), w.float())
+            errs[name] = e / scale if scale > 0 else e
+            if not (torch.isfinite(g_).all() and e <= rel * scale):
+                raise AssertionError(f"mamba2_ssd_bwd {label} {name}: {e} > "
+                                     f"{rel} x {scale}")
+            err, rel_err = max(err, e), max(rel_err, errs[name])
+        if not all(torch.equal(u, v) for u, v in zip(got, run())
+                   if u is not None):
+            raise AssertionError(f"mamba2_ssd_bwd {label}: two calls "
+                                 f"differ")
+        del want
+        kernels = {}
+        ms = device_ms(run, 10, label=f"mamba2_ssd_bwd {label}",
+                       by_kernel=kernels, expect=len(SSD_BWD_PHASES))
+        phase_ms, per_call = _phases(kernels, SSD_BWD_PHASES, run,
+                                     f"mamba2_ssd_bwd {label}")
+        bnd, by = _ssd_bwd_bound(x, b_in, st, dso)
+        rows.append(dict(
+            name=f"mamba2_ssd_bwd[{label}]", source=ssd.SOURCE,
+            grad_tol="1e-4 max|g| (+ 2^-8 max|g| for a bf16 gradient)",
+            shape=f"x{tuple(x.shape)} n{n}", max_abs_err=err,
+            max_rel_err=rel_err, rel_err_by_grad=errs, ms=ms,
+            call_ms=call_ms(run, 10),
+            plain_ms=device_ms(lambda: ref.mamba2_ssd_bwd(*args, dy, dso), 3,
+                               warmup=1, label=f"plain mamba2_ssd_bwd {label}"),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+            kernel_launches_per_call=per_call, phase_ms=phase_ms,
+            scratch_bytes=measured_scratch(
+                run, f"mamba2_ssd_bwd {label}",
+                4 * ssd.bwd_scratch(b, s, h, p, n)),
+            deterministic=True,
+            note="ms sums the device time of the call's four kernels (the "
+                 "state gradient's increments, the reverse scan, the chunk "
+                 "gradients, the reduction); f32 on the CUDA cores"))
     return rows
 
 
@@ -1047,6 +1167,7 @@ def phase_lm_kernels():
             note="ms sums the device time of the call's three kernels "
                  "(chunk states, state scan, output); the launches per "
                  "call and phase_ms are counted in a profiler window"))
+    rows += _ssd_bwd_rows(randn)
     rows += _attention_bwd_rows(randn)
     for r in rows:
         r["source"] = str(Path(r["source"]).relative_to(ROOT))
@@ -2112,6 +2233,12 @@ def phase_serve_check():
 
 
 TRAIN_ARCH = "starcoder2-3b"
+# zamba2-2.7b trains beside it at its published widths and depth (54
+# Mamba2 layers in 9 groups, each with the shared attention block), its
+# SSD's gradient through the backward kernel; its card-vs-CPU step is one
+# group deep
+ZAMBA_TRAIN_ARCH = "zamba2-2.7b"
+ZAMBA_CPU_LAYERS = 6
 TRAIN_STEPS = 6
 TRAIN_BATCH = 2
 TRAIN_SEQ = 1024
@@ -2143,6 +2270,26 @@ TRAIN_GRAD_LIMITS = (
     (r"layers\.0\..*|layers\.1\.(norm1|attn\.w_[qk])", 1.5e-2),
     # through none, the forward's error alone: <= 3.11e-4, TF32 >= 2.64e-3
     (r".*", 1e-3),
+)
+
+
+# zamba2's card-vs-CPU step (one group: 6 Mamba2 layers and the shared
+# attention block, f32): relative L2 gap per tensor, the first pattern
+# that matches the tensor's name, set as TRAIN_GRAD_LIMITS are: about 3x
+# the largest card-vs-CPU gap over three seeds and below the smallest gap
+# of the TF32 control (train_grad_readings.py --arch zamba2-2.7b on an
+# NVIDIA H100 80GB HBM3 at 700 W: the numbers beside each pattern).  As
+# in starcoder2, the gap goes by whether the gradient comes back through
+# the attention's scores: the shared block's value path, its MLP and the
+# head do not; its query and key projections, its first norm, every
+# Mamba2 layer and the embedding do.  The CPU's own f32 gradient is
+# 1.1e-4 to 1.7e-4 from float64 on the latter.
+ZAMBA_GRAD_LIMITS = (
+    # not through the scores: <= 4.73e-5, TF32 >= 1.33e-2
+    (r"final_norm|lm_head|shared_attn\.(norm2|attn\.w_[vo]|mlp\..*)",
+     1.5e-4),
+    # through the shared block's scores: <= 2.75e-4, TF32 >= 7.70e-2
+    (r".*", 8e-4),
 )
 
 
@@ -2186,39 +2333,76 @@ def _train_step_profile(out, cfg, seed):
         wall = time.perf_counter() - t0
     busy = _device_busy_ms(prof)
     idle = None if busy <= 0.0 else 1 - busy / (wall * 1e3)
-    # the attention backward's kernels (flash_attention_bwd_*), summed
-    attn_bwd = sum(e.self_device_time_total for e in _kernel_events(prof)
-                   if "flash_attention_bwd" in e.key) / 1e3
+
+    def kernel_ms(*names):
+        return sum(e.self_device_time_total for e in _kernel_events(prof)
+                   if any(k in e.key for k in names)) / 1e3
+
+    # the attention backward's kernels (flash_attention_bwd_*), and the
+    # SSD's forward and backward kernels, each summed
+    attn_bwd = kernel_ms("flash_attention_bwd")
+    ssd_bwd = kernel_ms(*SSD_BWD_PHASES)
+    ssd_fwd = kernel_ms(*SSD_PHASES)
     return dict(wall_ms=wall * 1e3,
                 device_busy_ms=busy if busy > 0.0 else None,
                 device_idle_share=idle,
                 attention_bwd_ms=attn_bwd if busy > 0.0 else None,
+                ssd_bwd_ms=ssd_bwd if busy > 0.0 else None,
+                ssd_fwd_ms=ssd_fwd if busy > 0.0 else None,
+                ssd_bwd_share_of_busy=(ssd_bwd / busy if busy > 0.0
+                                       else None),
                 top_device_ops=_top_device_ops(prof, 8))
 
 
-def _train_full_depth():
-    """starcoder2-3b at its published widths and depth (30 layers, bf16,
-    remat) through the port's `train()`: 6 AdamW steps at B 2, S 1024 on
-    synthetic data.  The attention launch counters are zeroed just before
-    and read just after: with remat each layer's forward runs twice per
-    step (the forward, and its recompute in the backward) and its
-    backward once."""
+def _train_launches_want(cfg) -> dict:
+    """The LM kernels' launches a TRAIN_STEPS-step run of `cfg` must make
+    under the port's remat (torch.utils.checkpoint: a checkpointed
+    function's forward runs again in the backward, before its backward).
+    A stack of layers checkpoints each layer: its forward twice a step,
+    its backward once.  zamba2's remat is nested, as the reference's is
+    (repro/models/model.py:155-158): each group of Mamba2 layers and the
+    shared attention block is checkpointed, and inside the group's
+    recompute each Mamba2 layer is checkpointed again.  So a Mamba2
+    layer's forward runs three times a step (the forward, its group's
+    recompute, its own recompute) and the shared block's twice."""
+    steps = TRAIN_STEPS
+    want = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "mamba2_ssd": 0, "mamba2_ssd_bwd": 0}
+    if cfg.shared_attn_every:
+        groups = cfg.n_layers // cfg.shared_attn_every
+        want.update(mamba2_ssd=3 * cfg.n_layers * steps,
+                    mamba2_ssd_bwd=cfg.n_layers * steps,
+                    flash_attention=2 * groups * steps,
+                    flash_attention_bwd=groups * steps)
+    else:
+        want.update(flash_attention=2 * cfg.n_layers * steps,
+                    flash_attention_bwd=cfg.n_layers * steps)
+    return want
+
+
+def _train_full_depth(arch: str):
+    """`arch` at its published widths and depth (bf16, remat) through the
+    port's `train()`: 6 AdamW steps at B 2, S 1024 on synthetic data.  The
+    attention and SSD launch counters are zeroed just before and read just
+    after; they must read `_train_launches_want` exactly."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.launch.train import train
     from repro_torch.models import model
 
-    cfg = configs.get(TRAIN_ARCH)
+    cfg = configs.get(arch)
     n_params = model.count_params(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reserved_at_start = torch.cuda.memory_reserved() / 2 ** 30
     before = torch.cuda.memory_stats()
     fa.reset_launches()
+    ssd.reset_launches()
     t0 = time.perf_counter()
-    out = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+    out = train(arch, reduced=False, steps=TRAIN_STEPS,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
@@ -2229,18 +2413,17 @@ def _train_full_depth():
     allocator = {k: after.get(k, 0) - before.get(k, 0)
                  for k in ("num_device_alloc", "num_device_free",
                            "num_alloc_retries")}
-    launches = dict(fa.launches)
+    launches = {**fa.launches, **ssd.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    want = _train_launches_want(cfg)
     if launches != want:
-        raise AssertionError(f"train: attention launches {launches}, "
-                             f"expected {want} (remat: two forwards and "
-                             f"one backward per layer per step)")
+        raise AssertionError(f"train {arch}: launches {launches}, expected "
+                             f"{want} (_train_launches_want: the remat "
+                             f"recomputes)")
     if not (np.isfinite(out["losses"]).all()
             and np.isfinite(out["grad_norms"]).all()):
-        raise AssertionError(f"train: losses {out['losses']} grad norms "
-                             f"{out['grad_norms']}")
+        raise AssertionError(f"train {arch}: losses {out['losses']} grad "
+                             f"norms {out['grad_norms']}")
     # bf16 parameters: a step of lr x delta below half a bf16 step of the
     # parameter rounds back to it, as in the reference, so at warm-up's
     # small lr not every tensor moves; the run must move some
@@ -2253,10 +2436,10 @@ def _train_full_depth():
                                   start.parameters()))
     del start
     if not moved > 0:
-        raise AssertionError("train: no parameter moved")
+        raise AssertionError(f"train {arch}: no parameter moved")
     step_ms = float(np.median(out["step_s"][-4:])) * 1e3
     res = dict(
-        arch=TRAIN_ARCH, layers=cfg.n_layers, params=n_params,
+        arch=arch, layers=cfg.n_layers, params=n_params,
         dtype=cfg.dtype, remat=cfg.remat, steps=TRAIN_STEPS,
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=out["losses"],
         grad_norms=out["grad_norms"], step_s=out["step_s"],
@@ -2266,7 +2449,7 @@ def _train_full_depth():
         reserved_gib_at_start=reserved_at_start, allocator=allocator,
         tensors_moved=n_moved,
         tensors=len(list(out["params"].parameters())), launches=launches)
-    log("train", arch=TRAIN_ARCH, layers=cfg.n_layers, params=n_params,
+    log("train", arch=arch, layers=cfg.n_layers, params=n_params,
         steps=TRAIN_STEPS, losses=[f"{x:.4f}" for x in out["losses"]],
         grad_norms=[f"{x:.3f}" for x in out["grad_norms"]],
         step_ms=f"{step_ms:.2f}",
@@ -2277,13 +2460,16 @@ def _train_full_depth():
         **allocator)
     res["profiled_step"] = _train_step_profile(out, cfg, 0)
     p = res["profiled_step"]
-    log("train.where", wall_ms=f"{p['wall_ms']:.2f}",
+    log("train.where", arch=arch, wall_ms=f"{p['wall_ms']:.2f}",
         device_busy_ms=p["device_busy_ms"] or "not measured",
         idle_share=p["device_idle_share"]
         if p["device_idle_share"] is not None else "not measured",
-        attention_bwd_ms=p["attention_bwd_ms"] or "not measured")
+        attention_bwd_ms=p["attention_bwd_ms"] or "not measured",
+        ssd_bwd_ms=p["ssd_bwd_ms"] or "not measured",
+        ssd_fwd_ms=p["ssd_fwd_ms"] or "not measured")
     for op, ms, calls in p["top_device_ops"]:
-        log("train.op", op=repr(op), device_ms=f"{ms:.3f}", calls=calls)
+        log("train.op", arch=arch, op=repr(op), device_ms=f"{ms:.3f}",
+            calls=calls)
     del out
     torch.cuda.empty_cache()
     return res, launches
@@ -2389,9 +2575,10 @@ def _train_checkpoint_resume():
 
 
 def _train_step_grads(seed: int = 7, tok_seed: int = 9,
-                      repeat: bool = False) -> dict:
-    """One train step of starcoder2-3b at full width, TRAIN_CPU_LAYERS
-    deep, in f32, from the same parameters (drawn from `seed`) and batch
+                      repeat: bool = False, arch: str = TRAIN_ARCH,
+                      layers: int = TRAIN_CPU_LAYERS) -> dict:
+    """One train step of `arch` (starcoder2-3b, or zamba2-2.7b) at full
+    width, `layers` deep, in f32, from the same parameters (drawn from `seed`) and batch
     (from `tok_seed`): the gradient of `loss_fn`, then `adamw_update` (the
     train step at one micro-batch), on the card and through the port on
     the CPU; the same gradient on the card with TF32 GEMMs (a control of
@@ -2407,8 +2594,7 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
     from repro_torch.models import model
     from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
-    cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_CPU_LAYERS,
-                                          dtype="float32")
+    cfg = configs.get(arch).replace(n_layers=layers, dtype="float32")
     cpu = model.init_params(cfg, seed, "cpu").trainable()
     card = model.LM(cfg, "cuda")
     card.load_state_dict(cpu.state_dict())
@@ -2474,20 +2660,22 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
     return out
 
 
-def _train_card_vs_cpu():
+def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
+                       limits=TRAIN_GRAD_LIMITS):
     """`_train_step_grads` at its default seeds, held to the CPU: loss and
     lr within 1e-5 relative and the updated parameters within 2 lr + 1e-6,
     the CPU tests' tolerances (f32 sums in other orders; AdamW's first
     step turns a gradient near 0 into +-lr).  Each tensor's gradient is
-    within its TRAIN_GRAD_LIMITS limit of the CPU's, the TF32 control must
+    within its limit in `limits` (TRAIN_GRAD_LIMITS for starcoder2,
+    ZAMBA_GRAD_LIMITS for zamba2) of the CPU's, the TF32 control must
     read more than that limit on every tensor, and the gradient norm is
     held to the bound those limits give it (|‖a‖ − ‖b‖| <= ‖a − b‖)."""
     import re
-    r = _train_step_grads()
+    r = _train_step_grads(arch=arch, layers=layers)
     met, per = r["metrics"], r["tensors"]
     rel = {k: abs(met["card"][k] - met["cpu"][k]) / abs(met["cpu"][k])
            for k in ("loss", "grad_norm", "lr")}
-    lim = {k: next(v for pat, v in TRAIN_GRAD_LIMITS if re.fullmatch(pat, k))
+    lim = {k: next(v for pat, v in limits if re.fullmatch(pat, k))
            for k in per}
     over = {k: t["card_cpu"] for k, t in per.items()
             if not t["card_cpu"] <= lim[k]}
@@ -2501,13 +2689,13 @@ def _train_card_vs_cpu():
                              and rel["grad_norm"] <= norm_tol
                              and err <= 2 * lr + 1e-6):
         raise AssertionError(
-            f"train card vs CPU: {rel} (grad norm tol {norm_tol}); tensors "
+            f"train card vs CPU ({arch}): {rel} (grad norm tol {norm_tol}); tensors "
             f"over their limit {over}; tensors the TF32 control passes "
             f"{blind}; parameters {err} > {2 * lr + 1e-6}")
     by_limit = {}
     for k, v in lim.items():
         by_limit.setdefault(v, []).append(k)
-    log("train.card_vs_cpu", layers=TRAIN_CPU_LAYERS, dtype="float32",
+    log("train.card_vs_cpu", arch=arch, layers=layers, dtype="float32",
         loss=f"{met['card']['loss']:.6f}",
         **{f"{k}_rel": f"{v:.3g}" for k, v in rel.items()},
         grad_norm_tol=f"{norm_tol:.3g}",
@@ -2515,21 +2703,24 @@ def _train_card_vs_cpu():
                            f" tf32_min {min(per[k]['tf32_cpu'] for k in ks):.3g}"
            for v, ks in by_limit.items()},
         max_param_err=f"{err:.3g}", param_tol=f"{2 * lr + 1e-6:.3g}")
-    return dict(layers=TRAIN_CPU_LAYERS, metrics=met, rel=rel,
+    return dict(arch=arch, layers=layers, metrics=met, rel=rel,
                 grad_norm_tol=norm_tol, tensors=per, limits=lim,
                 max_param_err=err, param_tol=2 * lr + 1e-6)
 
 
 def phase_train():
-    """starcoder2-3b training through the port: the full-depth run with its
-    launch counts, the checkpoint round trip and resume at a depth cut, and
-    one step on the card against the CPU."""
+    """Training through the port: starcoder2-3b's full-depth run with its
+    launch counts, the checkpoint round trip and resume at a depth cut,
+    and one step on the card against the CPU; then zamba2-2.7b's
+    full-depth run (its SSD's gradient through the backward kernel) and
+    its one-group step on the card against the CPU.  No checkpoint round
+    for zamba2: the format is the model's tree, which starcoder2 proves."""
     import torch
     # a trainer runs in a process of its own: the serve phases' cached
     # blocks are handed back first, so they do not shape its allocations
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out, launches = _train_full_depth()
+    out, launches = _train_full_depth(TRAIN_ARCH)
     out["full_depth_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     out["checkpoint"] = _train_checkpoint_resume()
@@ -2537,11 +2728,23 @@ def phase_train():
     t1 = time.perf_counter()
     out["card_vs_cpu"] = _train_card_vs_cpu()
     out["card_vs_cpu_s"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    zamba, zamba_launches = _train_full_depth(ZAMBA_TRAIN_ARCH)
+    zamba["full_depth_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    zamba["card_vs_cpu"] = _train_card_vs_cpu(
+        ZAMBA_TRAIN_ARCH, ZAMBA_CPU_LAYERS, ZAMBA_GRAD_LIMITS)
+    zamba["card_vs_cpu_s"] = time.perf_counter() - t1
+    out["zamba2"] = zamba
+    launches = {k: launches[k] + zamba_launches[k] for k in launches}
     out["seconds"] = time.perf_counter() - t0
     log("train.total", seconds=f"{out['seconds']:.3f}",
         full_depth_s=f"{out['full_depth_s']:.3f}",
         checkpoint_s=f"{out['checkpoint_s']:.3f}",
-        card_vs_cpu_s=f"{out['card_vs_cpu_s']:.3f}", **launches)
+        card_vs_cpu_s=f"{out['card_vs_cpu_s']:.3f}",
+        zamba2_full_depth_s=f"{zamba['full_depth_s']:.3f}",
+        zamba2_card_vs_cpu_s=f"{zamba['card_vs_cpu_s']:.3f}", **launches)
     return out, launches
 
 
@@ -2691,6 +2894,9 @@ def main() -> int:
                                        "(_flash_bwd, custom VJP; no Pallas "
                                        "kernel)",
                 "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:24",
+                "mamba2_ssd_bwd": "src/repro/kernels/ref.py:310 "
+                                  "(XLA's autodiff of mamba2_ssd_chunked; "
+                                  "no Pallas kernel)",
                 "rwkv6_wkv": "src/repro/kernels/rwkv6_scan.py:24"}
     kernels = []
     for r in rows:
@@ -2706,6 +2912,7 @@ def main() -> int:
             **{k: r[k] for k in ("kernel_launches_per_call", "scratch_bytes",
                                  "phase_ms", "launch_floor_ms", "note",
                                  "grad_tol", "max_rel_err",
+                                 "rel_err_by_grad",
                                  "library_kernels")
                if k in r}))
     script_s = time.perf_counter() - t_script

@@ -314,6 +314,11 @@ class LifecycleStepper:
         requeue timestamp drifts off the parity trace)."""
         return [d[0] for d in self._deferred]
 
+    def deferred_requests(self) -> List[Any]:
+        """Requests held back until their release time (retries in their
+        backoff), in the order they were deferred."""
+        return [d[2] for d in self._deferred]
+
     def _release_deferred(self, now: float) -> None:
         if not self._deferred:
             return

@@ -953,6 +953,13 @@ class Executor:
             pending = [req for req, _ in self.policy.pending()]
             pending += [req for req, _ in self._waiting]
             pending += [req for req, _, _, _ in self._running.values()]
+            # a retry in its backoff (RetryPolicy.base_s > 0, cluster mode)
+            # sits in the stepper until its release time: neither queued
+            # nor running, so the reference's snapshot drops it and a
+            # journal written then never runs it again.  The port lists
+            # it as pending (`_fail` defers it under this same lock).
+            if self._stepper is not None:
+                pending += self._stepper.deferred_requests()
             sd = getattr(self.predictor, "state_dict", None)
             return {
                 "completed": {tid: {"value": r.value, "status": r.status}

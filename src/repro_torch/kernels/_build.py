@@ -124,13 +124,12 @@ def raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def refuse_grad(name: str, *operands) -> None:
-    """Raise where a kernel without a backward would be asked to record a
-    gradient: its output carries no `grad_fn`, so the gradient upstream of
-    it would be dropped without a word.  The plain versions (CPU tensors)
-    differentiate through autograd."""
+def refuse_grad(name: str, *operands, reason: str) -> None:
+    """Raise where a kernel wrapper would be asked to record a gradient
+    that its output cannot carry: with no `grad_fn`, the gradient upstream
+    of it would be dropped without a word.  `reason` says where the
+    gradient goes instead.  The plain versions (CPU tensors) differentiate
+    through autograd."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet (ROADMAP.md Queue 1 item "
-            f"22): training through it runs on the CPU only")
+        raise NotImplementedError(f"{name} records no gradient: {reason}")

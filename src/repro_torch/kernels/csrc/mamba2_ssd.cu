@@ -70,6 +70,41 @@
 // the tensor cores would take them over.  At S = 16,384 the chunk states'
 // round trip through device memory (336 MB each way) makes the scan a
 // third of the call.
+//
+// The backward (mamba2_ssd_bwd) replaces no Pallas kernel: the reference
+// differentiates its chunked SSD with XLA (repro/kernels/ref.py:310,
+// mamba2_ssd_chunked), which is NaN at zamba2's 256-step chunk.  Its
+// formulas are written beside its kernels below.  What bounds it on the
+// H100: at zamba2's train shape (B 2, S 1024, H 80, P = N = 64) the
+// gradient of the sequential recurrence needs 11 f32 operations per
+// (t, h, p, n), 7.4 GFLOP, ~110 us at 67 TFLOP/s, against ~65 MB read
+// and written, ~20 us: the f32 rate bounds it, as it does the forward.
+// Design: four launches, no block walking more than one chunk, no
+// atomics.
+//   1. ssd_bwd_state_inc, phase 1's body with other weights: each
+//      chunk's sum_t e^{cum_t} dy_t C_t^T.
+//   2. ssd_bwd_state_scan, one thread per (b, h, p, n): the state's
+//      gradient from the last chunk to the first, written over the
+//      increments (dstate at the end).
+//   3. ssd_bwd_chunk_grad, one block per (chunk, b, h), all of P in
+//      64-column tiles (so ddt needs no reduction across blocks): reads
+//      the chunk's state S_c, which the forward's phase 2 left in its
+//      scratch and the autograd Function saved, instead of recomputing
+//      it.  Eight 64 x 64 x 64 f32 products per block (dy.x, S^T dy,
+//      G^T x, C B^T, B G^T, and three triangular ones at half the work:
+//      the sums for dC and dB, M^T dy; with step 1's, about 1.4x the
+//      least work), 4 x 4 register tiles on the CUDA cores.  dB and dC are shared by the heads, da and dD
+//      by the batch and the chunks: each block writes f32 partials.
+//   4. ssd_bwd_reduce sums them in index order, so the same inputs give
+//      the same bits.
+// Every exponent taken is <= 0 (e^{cum_t - cum_j} with j <= t, and
+// e^{cum_L - cum_j}); steps past the end of S carry dt = 0 and zero
+// operands, and their gradients are not written.  What holds it back:
+// step 3 runs one block of 256 threads per SM (164 registers a thread,
+// 141 KB of shared memory at N = 64), so 8 warps hide each other's
+// latency; its tiles come in by scalar loads, and every product is f32
+// FMA.  The bf16 route's dy.x and C B^T could run on the tensor cores
+// (products of bf16 values are exact in f32), as the forward's C B^T does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -280,9 +315,11 @@ size_t smem_state_bytes(int np) {
 // Phase 1: dS = sum_j (exp(cum_last - cum_j) dt_j x_j) B_j^T for one chunk,
 // one (b, h) and 64 columns of P; clast = cum_last.  NPF: N padded to a
 // multiple of 16, fixed at compile time (64, zamba2's), or 0 to derive it
-// from n.
-template <typename T, int NPF>
-__global__ void __launch_bounds__(kThreads, 5) ssd_chunk_state(
+// from n.  With kBwd the same outer-product sum takes the weights
+// exp(cum_j) instead: the backward's sum_t exp(cum_t) dy_t C_t^T, with dy
+// in x's place and C in B's.
+template <typename T, int NPF, bool kBwd>
+__device__ __forceinline__ void chunk_state_body(
     const T* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ a, const T* __restrict__ bm,
     float* __restrict__ ds, float* __restrict__ clast, int s, int h, int p,
@@ -321,8 +358,13 @@ __global__ void __launch_bounds__(kThreads, 5) ssd_chunk_state(
     float d[2], cum[2];
     const float last = chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows,
                                     a[head], d, cum);
-    s_w[2 * tid] = expf(last - cum[0]) * d[0];
-    s_w[2 * tid + 1] = expf(last - cum[1]) * d[1];
+    if constexpr (kBwd) {
+      s_w[2 * tid] = expf(cum[0]);
+      s_w[2 * tid + 1] = expf(cum[1]);
+    } else {
+      s_w[2 * tid] = expf(last - cum[0]) * d[0];
+      s_w[2 * tid + 1] = expf(last - cum[1]) * d[1];
+    }
     if (tid == 0 && blockIdx.z == 0) clast[(size_t)bh * nc + chunk] = last;
   }
   cp_async_wait<0>();
@@ -367,6 +409,28 @@ __global__ void __launch_bounds__(kThreads, 5) ssd_chunk_state(
       }
     }
   }
+}
+
+template <typename T, int NPF>
+__global__ void __launch_bounds__(kThreads, 5) ssd_chunk_state(
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ bm,
+    float* __restrict__ ds, float* __restrict__ clast, int s, int h, int p,
+    int n, int nc, bool vec) {
+  chunk_state_body<T, NPF, false>(x, dt, a, bm, ds, clast, s, h, p, n, nc,
+                                  vec);
+}
+
+// Backward phase 1: the increments of the state's gradient,
+// dds_c = sum_t exp(cum_t) dy_t C_t^T, and clast (as phase 1's).
+template <typename T, int NPF>
+__global__ void __launch_bounds__(kThreads, 5) ssd_bwd_state_inc(
+    const T* __restrict__ dy, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ cm,
+    float* __restrict__ dds, float* __restrict__ clast, int s, int h, int p,
+    int n, int nc, bool vec) {
+  chunk_state_body<T, NPF, true>(dy, dt, a, cm, dds, clast, s, h, p, n, nc,
+                                 vec);
 }
 
 // Phase 2: per (b, h, p, n), S_{c+1} = exp(clast_c) S_c + dS_c over the
@@ -596,6 +660,426 @@ __global__ void __launch_bounds__(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward.  Per (b, h) and chunk c, with S_c the state entering the
+// chunk (phase 2's, saved by the forward) and G_c the gradient of the state
+// leaving it (a reverse scan over chunks, started at the final state's
+// gradient):
+//   dxdt_j = sum_{t>=j} M[t][j] dy_t + e^{cum_L-cum_j} G B_j,
+//            M[t][j] = (C_t . B_j) e^{cum_t-cum_j}  (j <= t)
+//   dx_j   = dt_j dxdt_j + D dy_j
+//   dC_t   = e^{cum_t} S^T dy_t + sum_{j<=t} Dm[t][j] B_j,
+//            Dm[t][j] = (dy_t . xdt_j) e^{cum_t-cum_j}  (j <= t)
+//   dB_j   = sum_{t>=j} Dm[t][j] C_t + e^{cum_L-cum_j} G^T xdt_j
+//   dla_i  = sum_{t>=i} r_t + q + sum_{j<i} v_j + sum_{t>=i} sum_{j<i} W[t][j]
+//            r_t = e^{cum_t} C_t . S^T dy_t,  v_j = e^{cum_L-cum_j} B_j . G^T xdt_j,
+//            q = e^{cum_L} <G, S>,  W = M o (dy . xdt)
+//   ddt_j  = a dla_j + sum_p dxdt_j x_j,  da = sum dt dla,  dD = sum dy . x
+// (dla is the gradient of the log decay la = dt a.  Taken term by term,
+// not as a reverse cumulative sum of the gradient of cum: there the
+// diagonal W[t][t] enters with both signs, and under a strong decay what
+// is left after it cancels is below its rounding.)
+
+constexpr int kMaxNH = kMaxState / 64;   // 64-column groups of N, at most
+constexpr int kBwdVecs = 8;              // per-step vectors of the block
+
+// Sum of v over the block, in a fixed order (a butterfly inside each warp,
+// then the warps in index order), returned to every thread.  red: 8 floats
+// of shared memory, free on entry.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) t += red[w];
+  return t;
+}
+
+__host__ __device__ constexpr int round64(int n) { return (n + 63) & ~63; }
+
+// shared memory of ssd_bwd_chunk_grad for N padded to ncol (64 or 128)
+size_t smem_bwd_bytes(int ncol) {
+  const size_t ldn = ncol + 4;
+  const size_t fixed = 2 * kC * ldn + 2 * kC * kLdG + kBwdVecs * kC + 32;
+  const size_t tiles_a = 2 * kC * kLdX + 2 * ncol * kLdX;   // x, dy, S^T, G^T
+  const size_t tiles_b = 2 * kC * ldn + kC * kLdG;          // U, V, W
+  const size_t tiles_c = 2 * kC * kLdX + kC * ldn;          // x, dy, G
+  const size_t u = tiles_a > tiles_b ? tiles_a : tiles_b;
+  return sizeof(float) * (fixed + (u > tiles_c ? u : tiles_c));
+}
+
+// Backward phase 3: one block per (chunk, b, h), all of P in 64-column
+// tiles.  Writes dx and ddt for the chunk's steps, and f32 partials that
+// ssd_bwd_reduce sums: dB and dC per head [B, H, S, N], da and dD per
+// chunk [B, H, NC].  NPF as in the forward.
+template <typename T, int NPF>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ bm,
+    const T* __restrict__ cm, const void* __restrict__ dskip, int d_bf16,
+    const T* __restrict__ dy, const float* __restrict__ states,
+    const float* __restrict__ dstates, T* __restrict__ dx,
+    float* __restrict__ ddt, float* __restrict__ dbp,
+    float* __restrict__ dcp, float* __restrict__ dap,
+    float* __restrict__ ddp, int s, int h, int p, int n, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  const int ncol = NPF > 0 ? round64(NPF) : round64(n);
+  const int nh = ncol / 64, ldn = ncol + 4;
+  float* s_c = smem;                   // [kC][ldn]  C
+  float* s_b = s_c + kC * ldn;         // [kC][ldn]  B
+  float* s_m = s_b + kC * ldn;         // [kC][kLdG] M[t][j]
+  float* s_dm = s_m + kC * kLdG;       // [kC][kLdG] Dm[t][j]
+  float* s_cum = s_dm + kC * kLdG;     // [kC] cum_t
+  float* s_dt = s_cum + kC;            // [kC] dt_t
+  float* s_ecum = s_dt + kC;           // [kC] e^{cum_t}
+  float* s_edec = s_ecum + kC;         // [kC] e^{cum_L - cum_j}
+  float* s_r = s_edec + kC;            // [kC] r_t
+  float* s_v = s_r + kC;               // [kC] v_j
+  float* s_dla = s_v + kC;             // [kC] dla_i
+  float* s_ddt = s_dla + kC;           // [kC] sum_p dxdt_j x_j
+  float* s_red = s_ddt + kC;           // [32] block sums; [16] = cum_L
+  float* s_un = s_red + 32;            // the tiles of one phase at a time
+  // phase A: x, dy [kC][kLdX] (rows t, a 64-column tile of P);
+  // S^T, G^T [ncol][kLdX] (rows n)
+  float* s_x = s_un;
+  float* s_dy = s_x + kC * kLdX;
+  float* s_st = s_dy + kC * kLdX;
+  float* s_gt = s_st + ncol * kLdX;
+  // phase B: U = S^T dy, V = G^T xdt [kC][ldn]; W, then its prefix sums
+  float* s_uu = s_un;
+  float* s_vv = s_uu + kC * ldn;
+  float* s_w = s_vv + kC * ldn;
+  // phase C: x, dy as in A; G [kC][ldn] (rows p)
+  float* s_g = s_dy + kC * kLdX;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, tr = 4 * ty;
+  const int chunk = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const T* xb = x + (row0 * h + head) * p;
+  const T* dyb = dy + (row0 * h + head) * p;
+  const size_t rx = (size_t)h * p;
+  const size_t pn = (size_t)p * n;
+  const float* sc = states + ((size_t)bh * nc + chunk) * pn;
+  const float* gc = dstates + ((size_t)bh * nc + chunk) * pn;
+  const float a_h = a[head];
+
+  scalar_tile(s_c, ldn, cm + row0 * n, (size_t)n, nrows, 0, ncol, n);
+  scalar_tile(s_b, ldn, bm + row0 * n, (size_t)n, nrows, 0, ncol, n);
+  if (tid < 32) {
+    float d2[2], cum[2];
+    const float last = chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows,
+                                    a_h, d2, cum);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = 2 * tid + i;
+      s_cum[k] = cum[i];
+      s_dt[k] = d2[i];
+      s_ecum[k] = expf(cum[i]);
+      s_edec[k] = expf(last - cum[i]);
+      s_ddt[k] = 0.0f;
+    }
+    if (tid == 0) s_red[16] = last;
+  }
+
+  // Phase A, over the tiles of P: DX[t][j] = dy_t . x_j, U = S^T dy_t,
+  // G^T x_j (dt_j folded in below) and <G, S>, in registers
+  float adx[4][4] = {}, au[kMaxNH][4][4] = {}, av[kMaxNH][4][4] = {};
+  float q_part = 0.0f;
+  for (int p0 = 0; p0 < p; p0 += kPB) {
+    __syncthreads();                   // the previous tile is read
+    scalar_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
+    scalar_tile(s_dy, kLdX, dyb, rx, nrows, p0, kPB, p);
+    for (int e = tid; e < kPB * ncol; e += kThreads) {
+      const int c = e / ncol, k = e - c * ncol;
+      const bool ok = p0 + c < p && k < n;
+      s_st[k * kLdX + c] = ok ? sc[(size_t)(p0 + c) * n + k] : 0.0f;
+      s_gt[k * kLdX + c] = ok ? gc[(size_t)(p0 + c) * n + k] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int c = 0; c < kPB; c += 4) {
+      float4 dyr[4], xr[4], xc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dyr[i] = ld4(s_dy + (tr + i) * kLdX + c);
+        xr[i] = ld4(s_x + (tr + i) * kLdX + c);
+        xc[i] = ld4(s_x + (tx + 16 * i) * kLdX + c);
+      }
+      rows_by_rows(adx, dyr, xc);
+#pragma unroll
+      for (int hh = 0; hh < kMaxNH; ++hh) {
+        if (hh < nh) {
+          float4 sv[4], gv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            sv[i] = ld4(s_st + (64 * hh + tx + 16 * i) * kLdX + c);
+            gv[i] = ld4(s_gt + (64 * hh + tx + 16 * i) * kLdX + c);
+          }
+          rows_by_rows(au[hh], dyr, sv);
+          rows_by_rows(av[hh], xr, gv);
+        }
+      }
+    }
+    for (int e = tid; e < kPB * ncol; e += kThreads) {
+      const int k = e / kPB, c = e - k * kPB;
+      q_part = fmaf(s_st[k * kLdX + c], s_gt[k * kLdX + c], q_part);
+    }
+  }
+  const float last = s_red[16];
+  const float q = expf(last) * block_sum(q_part, s_red);
+  float dd_part = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      if (tr + i == tx + 16 * jj) dd_part += adx[i][jj];
+  const float dd_sum = block_sum(dd_part, s_red);   // phase A is read
+
+  // U, V and, with C B^T, M, Dm and W into shared memory
+#pragma unroll
+  for (int hh = 0; hh < kMaxNH; ++hh) {
+    if (hh < nh) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = tr + i;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int k = 64 * hh + tx + 16 * jj;
+          s_uu[t * ldn + k] = au[hh][i][jj];
+          s_vv[t * ldn + k] = av[hh][i][jj] * s_dt[t];
+        }
+      }
+    }
+  }
+  {
+    float cb[4][4] = {};
+    for (int c = 0; c < ncol; c += 4) {
+      float4 cv[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        cv[i] = ld4(s_c + (tr + i) * ldn + c);
+        bv[i] = ld4(s_b + (tx + 16 * i) * ldn + c);
+      }
+      rows_by_rows(cb, cv, bv);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int t = tr + i, j = tx + 16 * jj;
+        const float e = j <= t ? expf(s_cum[t] - s_cum[j]) : 0.0f;
+        const float dxm = adx[i][jj] * s_dt[j];     // dy_t . xdt_j
+        s_m[t * kLdG + j] = cb[i][jj] * e;
+        s_dm[t * kLdG + j] = dxm * e;
+        s_w[t * kLdG + j] = cb[i][jj] * (dxm * e);
+      }
+  }
+  __syncthreads();
+
+  // Phase B.  dC rows t, dB rows j, columns 64 hh + tx + 16 jj of N
+  for (int hh = 0; hh < nh; ++hh) {
+    float o[4][4] = {};
+    for (int j = 0; j <= tr + 3; ++j) {
+      const float4 dmv = make_float4(
+          s_dm[tr * kLdG + j], s_dm[(tr + 1) * kLdG + j],
+          s_dm[(tr + 2) * kLdG + j], s_dm[(tr + 3) * kLdG + j]);
+      float bv[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        bv[jj] = s_b[j * ldn + 64 * hh + tx + 16 * jj];
+      outer(o, dmv, bv);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = tr + i;
+      if (t >= nrows) break;
+      float* row = dcp + ((size_t)bh * s + t0 + t) * n;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int k = 64 * hh + tx + 16 * jj;
+        if (k < n) row[k] = fmaf(s_ecum[t], s_uu[t * ldn + k], o[i][jj]);
+      }
+    }
+  }
+  for (int hh = 0; hh < nh; ++hh) {
+    float o[4][4] = {};
+    for (int t = tr; t < kC; ++t) {
+      float cv[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        cv[jj] = s_c[t * ldn + 64 * hh + tx + 16 * jj];
+      outer(o, ld4(s_dm + t * kLdG + tr), cv);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = tr + i;
+      if (j >= nrows) break;
+      float* row = dbp + ((size_t)bh * s + t0 + j) * n;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int k = 64 * hh + tx + 16 * jj;
+        if (k < n) row[k] = fmaf(s_edec[j], s_vv[j * ldn + k], o[i][jj]);
+      }
+    }
+  }
+  // r_t, v_j, and each row of W turned into its exclusive prefix sums
+  if (tid < kC) {
+    float acc = 0.0f;
+    for (int k = 0; k < ncol; ++k)
+      acc = fmaf(s_c[tid * ldn + k], s_uu[tid * ldn + k], acc);
+    s_r[tid] = s_ecum[tid] * acc;
+  } else if (tid < 2 * kC) {
+    const int j = tid - kC;
+    float acc = 0.0f;
+    for (int k = 0; k < ncol; ++k)
+      acc = fmaf(s_b[j * ldn + k], s_vv[j * ldn + k], acc);
+    s_v[j] = s_edec[j] * acc;
+  } else if (tid < 3 * kC) {
+    float* row = s_w + (tid - 2 * kC) * kLdG;
+    float run = 0.0f;
+    for (int i = 0; i < kC; ++i) {
+      const float w = row[i];
+      row[i] = run;
+      run += w;
+    }
+  }
+  __syncthreads();
+  if (tid < kC) {
+    const int i = tid;
+    float rs = 0.0f, vp = 0.0f, ws = 0.0f;
+    for (int t = i; t < kC; ++t) rs += s_r[t];
+    for (int j = 0; j < i; ++j) vp += s_v[j];
+    for (int t = i; t < kC; ++t) ws += s_w[t * kLdG + i];
+    s_dla[i] = ((rs + q) + vp) + ws;
+  }
+
+  // Phase C, over the tiles of P: dxdt, then dx and sum_p dxdt x
+  const float d_h = d_bf16 ? to_f32(static_cast<const bf16*>(dskip)[head])
+                           : static_cast<const float*>(dskip)[head];
+  for (int p0 = 0; p0 < p; p0 += kPB) {
+    __syncthreads();                   // phase B's tiles, or the last, read
+    scalar_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
+    scalar_tile(s_dy, kLdX, dyb, rx, nrows, p0, kPB, p);
+    for (int e = tid; e < kPB * ncol; e += kThreads) {
+      const int c = e / ncol, k = e - c * ncol;
+      s_g[c * ldn + k] =
+          (p0 + c < p && k < n) ? gc[(size_t)(p0 + c) * n + k] : 0.0f;
+    }
+    __syncthreads();
+    // rows j = tr + i, columns tx + 16 jj of the tile
+    float o[4][4] = {}, gb[4][4] = {};
+    for (int t = tr; t < kC; ++t) {
+      float dv[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) dv[jj] = s_dy[t * kLdX + tx + 16 * jj];
+      outer(o, ld4(s_m + t * kLdG + tr), dv);
+    }
+    for (int c = 0; c < ncol; c += 4) {
+      float4 bv[4], gv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        bv[i] = ld4(s_b + (tr + i) * ldn + c);
+        gv[i] = ld4(s_g + (tx + 16 * i) * ldn + c);
+      }
+      rows_by_rows(gb, bv, gv);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = tr + i;
+      T* row = dx + ((row0 + j) * h + head) * p + p0;
+      float part = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const float g = fmaf(s_edec[j], gb[i][jj], o[i][jj]);
+        part = fmaf(g, s_x[j * kLdX + c], part);
+        if (j < nrows && p0 + c < p)
+          store1(row + c, fmaf(s_dt[j], g, d_h * s_dy[j * kLdX + c]));
+      }
+      // the 16 lanes of this row group, in a fixed order
+#pragma unroll
+      for (int o2 = 8; o2 > 0; o2 >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o2);
+      if (tx == 0) s_ddt[j] += part;
+    }
+  }
+  __syncthreads();
+  if (tid < nrows)
+    ddt[(row0 + tid) * h + head] = fmaf(a_h, s_dla[tid], s_ddt[tid]);
+  if (tid == 0) {
+    float sa = 0.0f;
+    for (int i = 0; i < kC; ++i) sa = fmaf(s_dt[i], s_dla[i], sa);
+    dap[(size_t)bh * nc + chunk] = sa;
+    ddp[(size_t)bh * nc + chunk] = dd_sum;
+  }
+}
+
+// Backward phase 2: per (b, h, p, n), from the last chunk to the first:
+// the gradient of the state leaving chunk c is written over its increment,
+// then G_{c-1} = exp(clast_c) G_c + inc_c; dstate = G_{-1} (where wanted).
+__global__ void __launch_bounds__(kThreads) ssd_bwd_state_scan(
+    const float* __restrict__ dstate_out, float* __restrict__ dds,
+    const float* __restrict__ clast, float* __restrict__ dstate, int nbh,
+    int pn, int nc) {
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)nbh * pn) return;
+  const size_t bh = e / pn, rem = e - bh * pn;
+  float g = dstate_out != nullptr ? dstate_out[e] : 0.0f;
+  float* d = dds + bh * nc * pn + rem;
+  const float* cl = clast + bh * nc;
+  for (int c = nc - 1; c >= 0; --c) {
+    const float inc = d[(size_t)c * pn];
+    d[(size_t)c * pn] = g;
+    g = fmaf(expf(cl[c]), g, inc);
+  }
+  if (dstate != nullptr) dstate[e] = g;
+}
+
+// Backward phase 4: dB and dC summed over the heads in index order, one
+// thread per (b, t, n), rounded to the operands' type once; then one
+// thread per head sums da and dD over (b, chunk) in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_reduce(
+    const float* __restrict__ dbp, const float* __restrict__ dcp,
+    const float* __restrict__ dap, const float* __restrict__ ddp,
+    T* __restrict__ db, T* __restrict__ dc, float* __restrict__ da,
+    void* __restrict__ dd, int d_bf16, int batch, int s, int h, int n,
+    int nc) {
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t sn = (size_t)s * n, total = (size_t)batch * sn;
+  if (e < total) {
+    const size_t b = e / sn, rem = e - b * sn;
+    const float* pb = dbp + b * h * sn + rem;
+    const float* pc = dcp + b * h * sn + rem;
+    float sb = 0.0f, scc = 0.0f;
+    for (int hh = 0; hh < h; ++hh) {
+      sb += pb[hh * sn];
+      scc += pc[hh * sn];
+    }
+    store1(db + e, sb);
+    store1(dc + e, scc);
+  } else if (e < total + h) {
+    const int hh = (int)(e - total);
+    float sa = 0.0f, sd = 0.0f;
+    for (int b = 0; b < batch; ++b)
+      for (int c = 0; c < nc; ++c) {
+        const size_t i = ((size_t)b * h + hh) * nc + c;
+        sa += dap[i];
+        sd += ddp[i];
+      }
+    da[hh] = sa;
+    if (d_bf16)
+      store1(static_cast<bf16*>(dd) + hh, sd);
+    else
+      static_cast<float*>(dd)[hh] = sd;
+  }
+}
+
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
@@ -669,6 +1153,100 @@ cudaError_t launch_any(const void* x, const float* dt, const float* a,
                       clast, batch, s, h, p, n, stream);
 }
 
+
+// The backward's shared-memory limits, raised once per instance.
+template <typename T, int NPF>
+cudaError_t configure_bwd() {
+  static const cudaError_t err = [] {
+    const int np = NPF > 0 ? NPF : kMaxState;
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_bwd_state_inc<T, NPF>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_state_bytes(np));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_bwd_chunk_grad<T, NPF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bwd_bytes(round64(np)));
+    return e;
+  }();
+  return err;
+}
+
+// Floats of f32 scratch the backward takes, in this order: the state's
+// gradient per chunk dds [B, H, NC, P, N], clast [B, H, NC], the per-head
+// partials of dB and dC [B, H, S, N] each, those of da and dD [B, H, NC]
+// each.
+size_t bwd_scratch_floats(int batch, int s, int h, int p, int n) {
+  const size_t nc = (s + kC - 1) / kC, nbh = (size_t)batch * h;
+  return nbh * nc * p * n + nbh * nc + 2 * nbh * s * n + 2 * nbh * nc;
+}
+
+template <typename T, int NPF>
+cudaError_t launch_bwd(const void* x, const float* dt, const float* a,
+                       const void* bm, const void* cm, const void* d,
+                       int d_bf16, const void* dy, const float* states,
+                       const float* dstate_out, void* dx, float* ddt,
+                       float* da, void* db, void* dc, void* dd,
+                       float* dstate, float* scratch, int batch, int s,
+                       int h, int p, int n, cudaStream_t stream) {
+  cudaError_t err = configure_bwd<T, NPF>();
+  if (err != cudaSuccess) return err;
+  const int np = round16(n);
+  const int nc = (s + kC - 1) / kC, nbh = batch * h;
+  float* dds = scratch;
+  float* clast = dds + (size_t)nbh * nc * p * n;
+  float* dbp = clast + (size_t)nbh * nc;
+  float* dcp = dbp + (size_t)nbh * s * n;
+  float* dap = dcp + (size_t)nbh * s * n;
+  float* ddp = dap + (size_t)nbh * nc;
+  const bool vec = n % 8 == 0 && p % 8 == 0 && aligned16(dy) &&
+                   aligned16(cm) && aligned16(dds);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* ct = static_cast<const T*>(cm);
+
+  ssd_bwd_state_inc<T, NPF>
+      <<<dim3(nc, nbh, (p + kPB - 1) / kPB), kThreads, smem_state_bytes(np),
+         stream>>>(dyt, dt, a, ct, dds, clast, s, h, p, n, nc, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t n2 = (size_t)nbh * p * n;
+  ssd_bwd_state_scan<<<(unsigned)((n2 + kThreads - 1) / kThreads), kThreads,
+                       0, stream>>>(dstate_out, dds, clast, dstate, nbh,
+                                    p * n, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  ssd_bwd_chunk_grad<T, NPF>
+      <<<dim3(nc, nbh), kThreads, smem_bwd_bytes(round64(np)), stream>>>(
+          static_cast<const T*>(x), dt, a, static_cast<const T*>(bm), ct, d,
+          d_bf16, dyt, states, dds, static_cast<T*>(dx), ddt, dbp, dcp, dap,
+          ddp, s, h, p, n, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t n4 = (size_t)batch * s * n + h;
+  ssd_bwd_reduce<T><<<(unsigned)((n4 + kThreads - 1) / kThreads), kThreads,
+                      0, stream>>>(dbp, dcp, dap, ddp, static_cast<T*>(db),
+                                   static_cast<T*>(dc), da, dd, d_bf16,
+                                   batch, s, h, n, nc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_any(const void* x, const float* dt, const float* a,
+                           const void* bm, const void* cm, const void* d,
+                           int d_bf16, const void* dy, const float* states,
+                           const float* dstate_out, void* dx, float* ddt,
+                           float* da, void* db, void* dc, void* dd,
+                           float* dstate, float* scratch, int batch, int s,
+                           int h, int p, int n, cudaStream_t stream) {
+  if (n == 64)
+    return launch_bwd<T, 64>(x, dt, a, bm, cm, d, d_bf16, dy, states,
+                             dstate_out, dx, ddt, da, db, dc, dd, dstate,
+                             scratch, batch, s, h, p, n, stream);
+  return launch_bwd<T, 0>(x, dt, a, bm, cm, d, d_bf16, dy, states,
+                          dstate_out, dx, ddt, da, db, dc, dd, dstate,
+                          scratch, batch, s, h, p, n, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -700,6 +1278,45 @@ int mamba2_ssd_fwd(const void* x, const void* dt, const void* a,
                                      dsf, cl, batch, s, h, p, n, st)
                  : launch_any<bf16>(x, dtf, af, bm, cm, d, d_dtype, s0, y,
                                     so, dsf, cl, batch, s, h, p, n, st);
+  return (int)err;
+}
+
+size_t mamba2_ssd_bwd_scratch(int batch, int s, int h, int p, int n) {
+  return bwd_scratch_floats(batch, s, h, p, n);
+}
+
+// The gradient of mamba2_ssd_fwd: dx, db, dc in x's type, ddt, da and
+// dstate in f32, dd in d's type.  states: the forward's ds after the call
+// (each chunk's starting state); dstate_out and dstate may be null (zeros;
+// not written).  scratch: mamba2_ssd_bwd_scratch(...) floats of f32.
+int mamba2_ssd_bwd(const void* x, const void* dt, const void* a,
+                   const void* bm, const void* cm, const void* d,
+                   const void* dy, const void* states,
+                   const void* dstate_out, void* dx, void* ddt, void* da,
+                   void* db, void* dc, void* dd, void* dstate, void* scratch,
+                   int batch, int s, int h, int p, int n, int dtype,
+                   int d_dtype, void* stream) {
+  if (n < 1 || n > kMaxState || p < 1 || h < 1 || batch < 1 || s < 1 ||
+      batch * h > 65535 || dtype < 0 || dtype > 1 ||
+      (d_dtype != 0 && d_dtype != dtype))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(a);
+  const float* sts = static_cast<const float*>(states);
+  const float* dso = static_cast<const float*>(dstate_out);
+  float* ddtf = static_cast<float*>(ddt);
+  float* daf = static_cast<float*>(da);
+  float* dsf = static_cast<float*>(dstate);
+  float* scr = static_cast<float*>(scratch);
+  const cudaError_t err =
+      dtype == 0
+          ? launch_bwd_any<float>(x, dtf, af, bm, cm, d, 0, dy, sts, dso, dx,
+                                  ddtf, daf, db, dc, dd, dsf, scr, batch, s,
+                                  h, p, n, st)
+          : launch_bwd_any<bf16>(x, dtf, af, bm, cm, d, d_dtype, dy, sts,
+                                 dso, dx, ddtf, daf, db, dc, dd, dsf, scr,
+                                 batch, s, h, p, n, st);
   return (int)err;
 }
 

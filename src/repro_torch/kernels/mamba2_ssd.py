@@ -1,5 +1,5 @@
-"""CUDA Mamba2 SSD scan (`csrc/mamba2_ssd.cu`), bound through a plain C
-interface.
+"""CUDA Mamba2 SSD scan and its gradient (`csrc/mamba2_ssd.cu`), bound
+through a plain C interface.
 
 Replaces the Pallas kernel `repro/kernels/mamba2_ssd.py` (`mamba2_ssd` /
 `_ssd_kernel`) and the D-skip term its wrapper adds.  The library is
@@ -13,9 +13,22 @@ launches the kernel's three phases on `torch.cuda.current_stream()`
 (chunk states, the scan over chunks, the output), and raises when a
 launch reports an error.  Nothing else runs on the device: the kernel
 adds the D-skip in f32 and rounds y to x's type once, as the plain
-version does.  `launches` adds one per call (its three kernels count
-once).  What bounds the kernel on the H100, and what its design does
-about it, is written beside the kernel in the CUDA source.
+version does.  With `return_states` it also returns the chunk states,
+which the backward reads.
+
+The backward (`mamba2_ssd_bwd`) replaces no Pallas kernel: the reference
+differentiates its chunked SSD with XLA (`repro/kernels/ref.py:310`,
+`mamba2_ssd_chunked`).  It is four kernels per call: the increments of
+the state's gradient per chunk, a reverse scan over chunks, one block per
+(chunk, b, h) for dx, ddt and per-head partials of dB, dC, da and dD, and
+a fixed-order reduction of those partials (no atomics: the same inputs
+give the same bits).  Its plain version is `ref.mamba2_ssd_bwd`.
+`Mamba2SSD` is the `torch.autograd.Function` that joins the two, and the
+only route to a gradient: the raw `mamba2_ssd` refuses one.
+`launches` counts the forward's calls under `mamba2_ssd` and the
+backward's under `mamba2_ssd_bwd`, one per call.  What bounds the kernels
+on the H100, and what their design does about it, is written beside them
+in the CUDA source.
 """
 from __future__ import annotations
 
@@ -33,7 +46,7 @@ CHUNK = 64                # kC in the CUDA source: steps per chunk
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = (torch.float32,)
 
-launches = _build.Launches("mamba2_ssd")
+launches = _build.Launches("mamba2_ssd", "mamba2_ssd_bwd")
 reset_launches = launches.reset
 
 
@@ -41,6 +54,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mamba2_ssd_fwd.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.mamba2_ssd_fwd.restype = i
+    lib.mamba2_ssd_bwd.argtypes = [p] * 17 + [i] * 7 + [p]
+    lib.mamba2_ssd_bwd.restype = i
+    lib.mamba2_ssd_bwd_scratch.argtypes = [i] * 5
+    lib.mamba2_ssd_bwd_scratch.restype = ctypes.c_size_t
     for fn in (lib.mamba2_ssd_max_state, lib.mamba2_ssd_chunk):
         fn.argtypes = []
         fn.restype = i
@@ -65,21 +82,9 @@ def scratch(b: int, s: int, h: int, p: int, n: int, dev
             torch.empty((b, h, nc), dtype=torch.float32, device=dev))
 
 
-def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-               b_in: torch.Tensor, c_in: torch.Tensor, d: torch.Tensor,
-               state: Optional[torch.Tensor] = None, *, chunk: int = 128
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B,S,H,P]; dt: [B,S,H] f32; a: [H] f32 (negative); b, c: [B,S,N]
-    in x's dtype; d: [H] f32 or in x's dtype; state: [B,H,P,N] f32 or None
-    (zeros).  Returns (y [B,S,H,P] in x's dtype, final state [B,H,P,N]
-    f32).
-
-    `chunk` is the reference's chunk length; the kernel cuts the sequence
-    into chunks of its own (64 steps), and the result does not depend on
-    the length beyond rounding, so it only has to be positive."""
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    _build.refuse_grad("mamba2_ssd", x, dt, a, b_in, c_in, d, state)
+def _check(x, dt, a, b_in, c_in, d, state) -> Tuple[int, ...]:
+    """Raise unless the forward's operands are ones the kernels take;
+    returns (B, S, H, P, N)."""
     _build.check_cuda("x", x, 4, tuple(DTYPES))
     _build.check_cuda("dt", dt, 3, _F32)
     _build.check_cuda("a", a, 1, _F32)
@@ -110,6 +115,29 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"empty operands: S = {s}, P = {p}")
     if bb * h > 65535:
         raise ValueError(f"B*H = {bb * h} exceeds the grid's 65535")
+    return bb, s, h, p, n
+
+
+def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+               b_in: torch.Tensor, c_in: torch.Tensor, d: torch.Tensor,
+               state: Optional[torch.Tensor] = None, *, chunk: int = 128,
+               return_states: bool = False):
+    """x: [B,S,H,P]; dt: [B,S,H] f32; a: [H] f32 (negative); b, c: [B,S,N]
+    in x's dtype; d: [H] f32 or in x's dtype; state: [B,H,P,N] f32 or None
+    (zeros).  Returns (y [B,S,H,P] in x's dtype, final state [B,H,P,N]
+    f32), and with `return_states` also each 64-step chunk's starting
+    state [B,H,NC,P,N] f32, which the backward takes.
+
+    `chunk` is the reference's chunk length; the kernel cuts the sequence
+    into chunks of its own (64 steps), and the result does not depend on
+    the length beyond rounding, so it only has to be positive."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    _build.refuse_grad(
+        "mamba2_ssd", x, dt, a, b_in, c_in, d, state,
+        reason="its output carries no grad_fn; a gradient goes through "
+               "`Mamba2SSD` (ops.mamba2_ssd takes it under grad)")
+    bb, s, h, p, n = _check(x, dt, a, b_in, c_in, d, state)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     final = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
     ds, clast = scratch(bb, s, h, p, n, x.device)
@@ -124,4 +152,85 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             n, DTYPES[x.dtype], DTYPES[d.dtype], stream)
     _build.raise_on(err, "mamba2_ssd")
     launches.count("mamba2_ssd")
-    return y, final
+    return (y, final, ds) if return_states else (y, final)
+
+
+def bwd_scratch(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Floats of f32 scratch the backward allocates, as the CUDA source
+    lays it out: the state's gradient per chunk, the chunks' total log
+    decays, and the per-head partials of dB, dC, da and dD."""
+    return load().mamba2_ssd_bwd_scratch(b, s, h, p, n)
+
+
+def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b_in: torch.Tensor, c_in: torch.Tensor, d: torch.Tensor,
+                   state: Optional[torch.Tensor], dy: torch.Tensor,
+                   dstate_out: Optional[torch.Tensor], *,
+                   states: torch.Tensor):
+    """The gradient (dx, ddt, da, db, dc, dd, dstate) of `mamba2_ssd(x,
+    dt, a, b_in, c_in, d, state)` for the output gradients dy ([B,S,H,P]
+    in x's type) and dstate_out ([B,H,P,N] f32, or None for zeros), given
+    that call's chunk states (`return_states=True`).  Each gradient comes
+    in its operand's type; dstate is None when state is."""
+    bb, s, h, p, n = _check(x, dt, a, b_in, c_in, d, state)
+    _build.check_cuda("dy", dy, 4, (x.dtype,))
+    if dy.shape != x.shape:
+        raise ValueError(f"dy: expected {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    nc = -(-s // CHUNK)
+    _build.check_cuda("states", states, 5, _F32)
+    if tuple(states.shape) != (bb, h, nc, p, n):
+        raise ValueError(f"states: expected {(bb, h, nc, p, n)}, got "
+                         f"{tuple(states.shape)}")
+    tensors = [x, dy, states]
+    if dstate_out is not None:
+        _build.check_cuda("dstate_out", dstate_out, 4, _F32)
+        if tuple(dstate_out.shape) != (bb, h, p, n):
+            raise ValueError(f"dstate_out: expected {(bb, h, p, n)}, got "
+                             f"{tuple(dstate_out.shape)}")
+        tensors.append(dstate_out)
+    _build.same_device(*tensors)
+    dx, ddt, da, db, dc, dd = (torch.empty_like(t)
+                               for t in (x, dt, a, b_in, c_in, d))
+    dstate = None if state is None else torch.empty_like(state)
+    work = torch.empty(bwd_scratch(bb, s, h, p, n), dtype=torch.float32,
+                       device=x.device)
+    lib = load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mamba2_ssd_bwd(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(),
+            c_in.data_ptr(), d.data_ptr(), dy.data_ptr(), states.data_ptr(),
+            None if dstate_out is None else dstate_out.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), dd.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), work.data_ptr(),
+            bb, s, h, p, n, DTYPES[x.dtype], DTYPES[d.dtype], stream)
+    _build.raise_on(err, "mamba2_ssd_bwd")
+    launches.count("mamba2_ssd_bwd")
+    return dx, ddt, da, db, dc, dd, dstate
+
+
+class Mamba2SSD(torch.autograd.Function):
+    """`mamba2_ssd` with its gradient through `mamba2_ssd_bwd`: the
+    forward asks for the chunk states and saves the operands with them.
+    `ops.mamba2_ssd` takes this route only when a gradient is being
+    recorded, so a forward without one launches as before and saves
+    nothing.  Either output's gradient may be None (a loss that reads y
+    alone): y's is then zeros, the final state's is passed as None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in, d, state):
+        y, final, states = mamba2_ssd(x, dt, a, b_in, c_in, d, state,
+                                      return_states=True)
+        ctx.save_for_backward(x, dt, a, b_in, c_in, d, state, states)
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a, b_in, c_in, d, state, states = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        return mamba2_ssd_bwd(
+            x, dt, a, b_in, c_in, d, state, dy,
+            None if dfinal is None else dfinal.contiguous(), states=states)

@@ -38,9 +38,15 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 def mamba2_ssd(x, dt, a, b, c, d, state: Optional[torch.Tensor] = None, *,
                chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked Mamba2 SSD: (y [B,S,H,P], final state [B,H,P,N] f32)."""
+    """Chunked Mamba2 SSD: (y [B,S,H,P], final state [B,H,P,N] f32).
+    Differentiable: on the CPU through autograd of the plain version, on a
+    card through the backward kernel (`mamba2_ssd.Mamba2SSD`)."""
     if _on_cpu(x):
         return ref.mamba2_ssd(x, dt, a, b, c, d, state, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, d, state)):
+        return ssd_kernel.Mamba2SSD.apply(x, dt, a, b, c, d, state)
     return ssd_kernel.mamba2_ssd(x, dt, a, b, c, d, state, chunk=chunk)
 
 

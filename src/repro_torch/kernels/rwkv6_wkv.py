@@ -76,7 +76,10 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the length beyond rounding, so it only has to be positive."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    _build.refuse_grad("rwkv6_wkv", r, k, v, w, u, state)
+    _build.refuse_grad(
+        "rwkv6_wkv", r, k, v, w, u, state,
+        reason="it has no backward kernel yet (ROADMAP.md Queue 1 item "
+               "22b); training through it runs on the CPU only")
     _build.check_cuda("r", r, 4, tuple(DTYPES))
     for name, t in (("k", k), ("v", v)):
         _build.check_cuda(name, t, 4, (r.dtype,))

@@ -2,9 +2,11 @@
 
 Layout follows the reference Mamba2: fused in-projection producing
 (z, x, B, C, dt), causal depthwise conv over (x, B, C), per-head scalar
-decay SSD recurrence, gated RMSNorm, out-projection.  Prefill goes through
-`kernels.ops.mamba2_ssd` (the CUDA kernel on the card); decode is the
-one-step recurrence.  The caches keep the reference's dtypes (the
+decay SSD recurrence, gated RMSNorm, out-projection.  Prefill and training
+go through `kernels.ops.mamba2_ssd` (the CUDA kernel on the card, and its
+backward kernel when a gradient is recorded: the parameters a_log,
+dt_bias and d_skip get theirs through it); decode is the one-step
+recurrence.  The caches keep the reference's dtypes (the
 activation dtype, the SSD state included, cast back to f32 on entry) and
 are written in place.
 """

@@ -90,12 +90,16 @@ def run_chains(executor: Executor, model_name: str, *,
     pool (chains are independent; steps within a chain are ordered)."""
     import threading
     out: List[Optional[MCMCResult]] = [None] * len(x0s)
+    # the seed is read once, before any thread starts: chain i runs from
+    # seed + i (from i without one).  The reference pops it from the
+    # shared `kw` inside each thread, so only the first chain to pop gets
+    # seed + i, the rest get i, and a thread that iterates `kw` while
+    # another pops can raise
+    base = kw.pop("seed", 0)
 
     def _one(i):
-        out[i] = run_chain(executor, model_name, x0=x0s[i],
-                           seed=kw.pop("seed", 0) + i if "seed" in kw
-                           else i, **{k: v for k, v in kw.items()
-                                      if k != "seed"})
+        out[i] = run_chain(executor, model_name, x0=x0s[i], seed=base + i,
+                           **kw)
 
     threads = [threading.Thread(target=_one, args=(i,))
                for i in range(len(x0s))]

@@ -25,7 +25,12 @@ tensor cores (at most 2^-9 relative each; tests/test_torch_lm_kernels.py
 holds a plain emulation of that arithmetic to the reference on the CPU).
 SSD: 2e-3
 absolute and relative in f32 (the reference's own tolerance: chunked sums
-in another order), 2e-2 in bf16 (both round an f32 y to bf16 once).
+in another order), 2e-2 in bf16 (both round an f32 y to bf16 once).  SSD
+backward, against its plain version (`ref.mamba2_ssd_bwd`, the same
+chunked algorithm): each gradient within 1e-4 of its max|g| (f32 sums in
+another order), plus 2^-8 max|g| for a gradient in bf16 (both round the
+f32 result once); under a strong decay against autograd of the
+sequential recurrence in f64 at the same limits.
 WKV: 2e-4 in f32 (the reference's own tolerance, tests/test_kernels.py:
 the kernel's exponentials are exp2 of log2 sums, and its sums run in
 another order); in bf16 out within 2e-2 + 2e-2 |y| (both round an f32
@@ -431,7 +436,7 @@ def _ssd_inputs(b, s, h, p, n, dtype, dev, with_state, seed=5):
 
 
 # (b, s, h, p, n)
-@pytest.mark.parametrize("shape", [
+SSD_SHAPES = [
     (2, 100, 3, 8, 16),
     (1, 31, 1, 8, 8),
     (2, 130, 4, 20, 128),      # P not a multiple of 16, widest N
@@ -440,7 +445,10 @@ def _ssd_inputs(b, s, h, p, n, dtype, dev, with_state, seed=5):
     (1, 64, 4, 64, 64),        # exactly one chunk
     (2, 65, 3, 64, 64),        # one step into a second chunk
     (1, 4096, 8, 64, 64),      # 64 chunks of state passing
-])
+]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba2_ssd_matches_plain(cuda, shape, with_state, dtype):
@@ -550,6 +558,155 @@ def test_mamba2_ssd_rejects_bad_operands(cuda):
         ssd_kernel.mamba2_ssd(*wide)
     with pytest.raises(ValueError, match="chunk"):
         ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, st, chunk=0)
+
+
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd", "dstate")
+
+
+def _ssd_bwd_inputs(shape, dtype, dev, with_state, d_type=torch.float32,
+                    seed=13):
+    """`_ssd_inputs`, d in `d_type`, then dy in x's type and dstate_out
+    f32, and the forward's chunk states."""
+    x, dt, a, bi, ci, d, st = _ssd_inputs(*shape, dtype, dev, with_state,
+                                          seed=seed)
+    d = d.to(d_type)
+    g = torch.Generator().manual_seed(seed + 1)
+    b, s, h, p, n = shape
+    dy = torch.randn(b, s, h, p, generator=g).to(dtype).to(dev)
+    dso = torch.randn(b, h, p, n, generator=g).to(dev)
+    _, _, states = ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d, st,
+                                         return_states=True)
+    return (x, dt, a, bi, ci, d, st), dy, dso, states
+
+
+def _assert_ssd_grads_close(got, want, rel_bf16=2 ** -8):
+    """Each gradient within 1e-4 max|g| of the plain version's (f32 sums in
+    another order); a bf16 one also within one rounding of the result
+    (2^-8 relative), which both take once from f32."""
+    for name, g, w in zip(SSD_GRADS, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        rel = 1e-4 + (rel_bf16 if g.dtype == torch.bfloat16 else 0.0)
+        err = float((g.float() - w.float()).abs().max())
+        assert torch.isfinite(g).all() and err <= rel * scale, (name, err,
+                                                                scale)
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_bwd_matches_plain(cuda, shape, with_state, dtype):
+    args, dy, dso, states = _ssd_bwd_inputs(shape, dtype, cuda, with_state)
+    before = ssd_kernel.launches["mamba2_ssd_bwd"]
+    got = ssd_kernel.mamba2_ssd_bwd(*args, dy, dso, states=states)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches["mamba2_ssd_bwd"] == before + 1
+    _assert_ssd_grads_close(got, ref.mamba2_ssd_bwd(*args, dy, dso))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_bwd_d_in_the_activation_type_and_no_state_gradient(
+        cuda, dtype):
+    """The model's D-skip in x's type gets its gradient in that type; a
+    final state whose gradient is None is a zero cotangent."""
+    args, dy, _, states = _ssd_bwd_inputs((2, 130, 8, 64, 64), dtype, cuda,
+                                          True, d_type=dtype)
+    got = ssd_kernel.mamba2_ssd_bwd(*args, dy, None, states=states)
+    assert got[5].dtype == dtype
+    _assert_ssd_grads_close(got, ref.mamba2_ssd_bwd(*args, dy, None))
+
+
+def test_mamba2_ssd_bwd_strong_decay_matches_sequential(cuda):
+    """a = -8: the chunks' log decays sum to about -550.  The backward
+    stays finite and matches autograd of the sequential recurrence in
+    f64 (the plain chunked form's own f32 gap there is 1.7e-5)."""
+    args, dy, dso, states = _ssd_bwd_inputs((1, 300, 4, 64, 64),
+                                            torch.float32, cuda, True)
+    args = list(args)
+    args[2] = torch.full((4,), -8.0, device=cuda)
+    _, _, states = ssd_kernel.mamba2_ssd(*args, return_states=True)
+    got = ssd_kernel.mamba2_ssd_bwd(*args, dy, dso, states=states)
+    leaves = [t.double().requires_grad_() for t in args]
+    y, fin = ref.mamba2_ssd_scan(*leaves)
+    want = torch.autograd.grad((y, fin), leaves, (dy.double(), dso.double()))
+    _assert_ssd_grads_close(got, [w.float() for w in want])
+
+
+def test_mamba2_ssd_bwd_is_deterministic(cuda):
+    """dB and dC sum the heads, da and dD the chunks, in a fixed order with
+    no atomics: two calls on the same inputs agree bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args, dy, dso, states = _ssd_bwd_inputs((2, 777, 80, 64, 64), dtype,
+                                                cuda, True)
+        first = ssd_kernel.mamba2_ssd_bwd(*args, dy, dso, states=states)
+        again = ssd_kernel.mamba2_ssd_bwd(*args, dy, dso, states=states)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_mamba2_ssd_bwd_launches_four_kernels_per_call(cuda):
+    """One backward call is its four kernels and nothing else on the
+    device: the state gradient's increments, the reverse scan, the chunk
+    gradients and the fixed-order reduction."""
+    args, dy, dso, states = _ssd_bwd_inputs((1, 300, 8, 64, 64),
+                                            torch.bfloat16, cuda, True)
+    calls = 4
+    counts = _device_kernel_counts(
+        lambda: ssd_kernel.mamba2_ssd_bwd(*args, dy, dso, states=states),
+        calls, per_call=4)
+    assert len(counts) == 4 and sum(counts.values()) == 4 * calls, counts
+    for phase in ("ssd_bwd_state_inc", "ssd_bwd_state_scan",
+                  "ssd_bwd_chunk_grad", "ssd_bwd_reduce"):
+        assert [c for k, c in counts.items() if phase in k] == [calls], counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_mamba2_ssd_under_grad_goes_through_the_function(cuda, dtype):
+    """`ops.mamba2_ssd` with a gradient recorded takes `Mamba2SSD`: one
+    forward and one backward launch, gradients equal to the plain
+    backward's (the final state's gradient None: a loss of y alone).
+    Without a gradient it launches the forward alone, with no graph."""
+    from repro_torch.kernels import ops
+    (x, dt, a, bi, ci, d, st), dy, _, _ = _ssd_bwd_inputs(
+        (2, 200, 4, 64, 64), dtype, cuda, True)
+    leaves = [t.requires_grad_() for t in (x, dt, a, bi, ci, d, st)]
+    ssd_kernel.reset_launches()
+    y, fin = ops.mamba2_ssd(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, dy)
+    assert dict(ssd_kernel.launches) == {"mamba2_ssd": 1,
+                                         "mamba2_ssd_bwd": 1}
+    plain = [t.detach() for t in leaves]
+    _assert_ssd_grads_close(got, ref.mamba2_ssd_bwd(*plain, dy, None))
+    with torch.no_grad():
+        y, _ = ops.mamba2_ssd(*leaves)
+    assert y.grad_fn is None
+    assert dict(ssd_kernel.launches) == {"mamba2_ssd": 2,
+                                         "mamba2_ssd_bwd": 1}
+
+
+def test_mamba2_ssd_bwd_rejects_bad_operands(cuda):
+    args, dy, dso, states = _ssd_bwd_inputs((1, 70, 2, 16, 16),
+                                            torch.bfloat16, cuda, True)
+
+    def call(**kw):
+        kw = {"dy": dy, "dstate_out": dso, "states": states, **kw}
+        return ssd_kernel.mamba2_ssd_bwd(*args, kw["dy"], kw["dstate_out"],
+                                         states=kw["states"])
+    with pytest.raises(ValueError, match="dy"):
+        call(dy=dy.float())
+    with pytest.raises(ValueError, match="dy"):
+        call(dy=dy[:, :10].contiguous())
+    with pytest.raises(ValueError, match="states"):
+        call(states=states[:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="dstate_out"):
+        call(dstate_out=dso.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        call(dy=dy.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(dy=dy.transpose(1, 2))
 
 
 def _wkv_inputs(b, s, h, kd, vd, dtype, dev, with_state, log_w=None,
@@ -1018,17 +1175,19 @@ def test_flash_attention_bwd_rejects_bad_operands(cuda):
 
 
 def test_ssd_and_wkv_refuse_a_gradient_on_card(cuda):
-    """No backward kernel yet: under grad both wrappers raise and name the
-    roadmap item, instead of returning outputs with no grad_fn."""
+    """The raw wrappers return outputs with no grad_fn: under grad they
+    raise, the SSD's naming its autograd Function (`Mamba2SSD`, which
+    `ops.mamba2_ssd` takes), the WKV's the roadmap item of its backward.
+    So a reduced zamba2 differentiates on the card, and rwkv6 raises."""
     x, dt, a, bi, ci, d, _ = _ssd_inputs(1, 64, 2, 16, 16, torch.float32,
                                          cuda, False)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="Mamba2SSD"):
         ssd_kernel.mamba2_ssd(x.requires_grad_(), dt, a, bi, ci, d)
     with torch.no_grad():
         ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d)
     r, k, v, w, u, _ = _wkv_inputs(1, 64, 2, 16, 16, torch.float32, cuda,
                                    False)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="item 22b"):
         wkv_kernel.rwkv6_wkv(r, k, v, w, u.requires_grad_())
     from repro_torch import configs
     from repro_torch.models import model
@@ -1036,8 +1195,13 @@ def test_ssd_and_wkv_refuse_a_gradient_on_card(cuda):
         cfg = configs.get_reduced(arch)
         m = model.init_params(cfg, 0, cuda).trainable()
         toks = torch.randint(0, cfg.vocab_size, (1, 16), device=cuda)
-        with pytest.raises(NotImplementedError, match="item 22"):
-            model.loss_fn(m, {"tokens": toks}, cfg)
+        if arch == "rwkv6-3b":
+            with pytest.raises(NotImplementedError, match="item 22b"):
+                model.loss_fn(m, {"tokens": toks}, cfg)
+            continue
+        loss, _ = model.loss_fn(m, {"tokens": toks}, cfg)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        assert all(torch.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.parametrize("remat", [False, True])

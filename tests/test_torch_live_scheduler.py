@@ -834,6 +834,37 @@ def test_snapshot_holds_a_task_a_worker_has_taken():
     assert taken(J, lambda ex: JWorker(ex, 0)) == ("taken", [])
 
 
+def test_snapshot_holds_a_retry_in_its_backoff():
+    """Cluster mode, a RetryPolicy with a backoff: a task that fails once
+    is handed to the stepper until its release time, neither queued nor
+    running.  The port's snapshot lists it as pending, so a journal
+    written during the backoff keeps it.  The reference's reads only the
+    policy, the waiting list and the running table: the task is in no
+    snapshot, and a broker recovered from one never runs it.  The clock
+    stands still and no monitor steps, so the release never comes."""
+    def backoff(p):
+        ex = p.core.Executor({"toy": _toy_factory(p)}, n_workers=0,
+                             cluster=p.cluster.Broker(), clock=lambda: 0.0,
+                             monitor_interval=None)
+        try:
+            req = p.core.EvalRequest(
+                "toy", [[1.0]], task_id="backoff",
+                retry=p.task.RetryPolicy(base_s=5.0))
+            ex.submit(req)
+            popped, attempt = ex._queue_get(0.01)
+            ex._fail(popped, attempt, "boom", None)
+            deferred = [(d[0], d[2].task_id, d[3])
+                        for d in ex._stepper._deferred]
+            snap = ex.snapshot()
+            return deferred, [q["task_id"] for q in snap["pending"]]
+        finally:
+            ex.shutdown()
+
+    assert backoff(T) == ([(5.0, "backoff", 2)], ["backoff"])
+    # the reference defers the same retry; its snapshot loses it
+    assert backoff(J) == ([(5.0, "backoff", 2)], [])
+
+
 def test_snapshots_never_lose_a_task_under_load():
     """Stress, on the port: 8 worker threads drain 600 one-millisecond
     tasks under a 1 µs switch interval while the test thread snapshots

@@ -40,6 +40,8 @@ from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import init_opt_state as jinit_opt_state
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import mamba2_ssd as ssd_kernel
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_wkv as wkv_kernel
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
@@ -280,11 +282,13 @@ def _wkv_args(requires_grad):
 @pytest.mark.parametrize("fn,args", [(ssd_kernel.mamba2_ssd, _ssd_args),
                                      (wkv_kernel.rwkv6_wkv, _wkv_args)])
 def test_kernels_without_backward_refuse_a_gradient(fn, args):
-    """The SSD and WKV wrappers have no backward kernel: asked to record a
-    gradient they raise, naming the roadmap item, instead of returning an
-    output with no grad_fn.  Without a gradient they go on to their usual
-    operand checks (these CPU tensors are refused there)."""
-    with pytest.raises(NotImplementedError, match="item 22"):
+    """The raw SSD and WKV wrappers return outputs with no grad_fn: asked
+    to record a gradient they raise instead, naming where the gradient
+    goes (the SSD's autograd Function) or the roadmap item that brings
+    it (the WKV's backward).  Without a gradient they go on to their
+    usual operand checks (these CPU tensors are refused there)."""
+    route = "Mamba2SSD" if fn is ssd_kernel.mamba2_ssd else "item 22b"
+    with pytest.raises(NotImplementedError, match=route):
         fn(*args(True))
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         fn(*args(True))
@@ -297,6 +301,81 @@ def test_scan_models_train_on_the_cpu(arch):
     """zamba2 and rwkv6 train through the plain SSD and WKV on the CPU."""
     out = ttrain.train(arch, steps=2, batch=2, seq=16, log_every=100)
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+
+
+def _ssd_function_on_the_cpu(monkeypatch, calls):
+    """Route `ops.mamba2_ssd` through `Mamba2SSD` on CPU tensors, its two
+    kernels replaced by their plain versions: the forward at the kernel's
+    64-step chunk (no chunk states: the plain backward recomputes them),
+    the backward `ref.mamba2_ssd_bwd`.  `calls` counts each."""
+    def fwd(x, dt, a, b, c, d, state=None, *, chunk=128,
+            return_states=False):
+        assert return_states and not torch.is_grad_enabled()
+        calls["fwd"] += 1
+        y, final = tref.mamba2_ssd(x, dt, a, b, c, d, state,
+                                   chunk=tref.SSD_BWD_CHUNK)
+        return y, final, torch.empty(0)
+
+    def bwd(x, dt, a, b, c, d, state, dy, dstate_out, *, states):
+        calls["bwd"] += 1
+        calls["dstate_out"].append(dstate_out)
+        return tref.mamba2_ssd_bwd(x, dt, a, b, c, d, state, dy,
+                                   dstate_out)
+
+    monkeypatch.setattr(ssd_kernel, "mamba2_ssd", fwd)
+    monkeypatch.setattr(ssd_kernel, "mamba2_ssd_bwd", bwd)
+    monkeypatch.setattr(
+        tops, "mamba2_ssd",
+        lambda x, dt, a, b, c, d, state=None, *, chunk=128:
+        ssd_kernel.Mamba2SSD.apply(x, dt, a, b, c, d, state))
+
+
+@pytest.mark.parametrize("dtype,remat", [("float32", False),
+                                         ("float32", True),
+                                         ("bfloat16", True)])
+def test_zamba2_step_through_the_ssd_function(monkeypatch, dtype, remat):
+    """A reduced zamba2 step whose SSD goes through the autograd Function
+    the card uses (`Mamba2SSD`), with the kernels' plain versions in their
+    place, against autograd of the plain forward from the same weights:
+    the Function saves what its backward takes (across remat's
+    recompute), passes None for the final state's unused gradient,
+    returns each gradient in its operand's type, and reaches a_log,
+    dt_bias and d_skip.  Each tensor's gradient within 1e-4 of the other
+    in relative L2 in f32 (two chunkings of the same f32 sums); in bf16
+    within 2e-2 (each path rounds its bf16 gradients in other places)."""
+    cfg = tconfigs.get_reduced("zamba2-2.7b").replace(dtype=dtype,
+                                                      remat=remat)
+    model = tmodel.init_params(cfg, 3).trainable()
+    named = dict(model.named_parameters())
+    toks = torch.from_numpy(_tokens(cfg, 2, 40, seed=12)).long()
+
+    def grads():
+        loss, _ = tmodel.loss_fn(model, {"tokens": toks}, cfg)
+        return (float(loss.detach()),
+                torch.autograd.grad(loss, list(named.values())))
+
+    want_loss, want = grads()
+    calls = {"fwd": 0, "bwd": 0, "dstate_out": []}
+    _ssd_function_on_the_cpu(monkeypatch, calls)
+    got_loss, got = grads()
+    # remat is nested, as in the reference (repro/models/model.py:155-158
+    # checkpoints the group's body and, inside it, each Mamba2 layer's):
+    # a layer's forward runs in the forward, in its group's recompute and
+    # in its own recompute
+    assert calls["fwd"] == cfg.n_layers * (3 if remat else 1)
+    assert calls["bwd"] == cfg.n_layers
+    assert calls["dstate_out"] == [None] * cfg.n_layers
+    rel = 1e-4 if dtype == "float32" else 2e-2
+    assert got_loss == pytest.approx(want_loss, rel=rel)
+    for name, g, w in zip(named, got, want):
+        assert g.dtype == w.dtype == named[name].dtype, name
+        gap = float((g.double() - w.double()).norm() / w.double().norm())
+        assert gap <= rel, (name, gap)
+    for leaf in ("a_log", "dt_bias", "d_skip"):
+        hits = [k for k in named if k.endswith(leaf)]
+        assert len(hits) == cfg.n_layers, leaf
+        for k in hits:
+            assert float(got[list(named).index(k)].abs().max()) > 0, k
 
 
 def test_train_rejects_a_mesh():

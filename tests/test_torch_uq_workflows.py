@@ -129,6 +129,30 @@ def test_mcmc_chains_interleave_like_reference():
         assert t.accept_rate == j.accept_rate
 
 
+def test_mcmc_chain_i_runs_from_seed_plus_i(monkeypatch):
+    """`run_chains(..., seed=s)`: the port gives chain i the seed s + i,
+    read once before the threads start.  The reference pops `seed` from
+    the shared keyword dict inside each chain's thread: the first chain
+    to pop gets s + i and every later one its bare index i (a thread can
+    also raise while another pops), so at most one of three chains runs
+    from s + i there."""
+    def seeds(mcmc):
+        got = {}
+
+        def spy(executor, model_name, *, x0, seed, **kw):
+            assert kw == {"n_steps": 5}
+            got[int(x0[0])] = seed
+        monkeypatch.setattr(mcmc, "run_chain", spy)
+        mcmc.run_chains(None, "quad", x0s=[np.full(2, float(i))
+                                           for i in range(3)],
+                        seed=100, n_steps=5)
+        return got
+
+    assert seeds(tmcmc) == {0: 100, 1: 101, 2: 102}
+    ref = seeds(jmcmc)
+    assert sum(ref.get(i) == 100 + i for i in range(3)) <= 1, ref
+
+
 def test_gaussian_loglike_matches_reference():
     out, obs = [0.3, -1.2], [0.1, -1.0]
     for sigma in (0.1, 1.0):

@@ -1,11 +1,13 @@
-"""Per-tensor gradient readings of one f32 train step of starcoder2-3b at
-full width, 2 layers deep (chip_smoke.py's card-vs-CPU step), over
-several seeds: the readings from which chip_smoke.py's limits
-TRAIN_GRAD_LIMITS are set.  A measurement aid beside
-chip_smoke.py; the port never imports it.
+"""Per-tensor gradient readings of one f32 train step at full width
+(chip_smoke.py's card-vs-CPU step), over several seeds: starcoder2-3b 2
+layers deep, or zamba2-2.7b one group (6 layers) deep.  These are the
+readings from which chip_smoke.py's limits TRAIN_GRAD_LIMITS and
+ZAMBA_GRAD_LIMITS are set.  A measurement aid beside chip_smoke.py; the
+port never imports it.
 
     python3 train_grad_readings.py                  # from the repo root, on a card
     python3 train_grad_readings.py --seeds 7:9 11:13
+    python3 train_grad_readings.py --arch zamba2-2.7b
 
 For each `params:tokens` seed pair it runs `chip_smoke._train_step_grads`
 (the card, the card with TF32 GEMMs as a control of lower precision, the
@@ -15,7 +17,8 @@ CPU's and of both to float64, the control's gap to the CPU's, and
 whether the card's gradient repeats bit for bit.  The summary gives, per
 tensor, the largest card-vs-CPU gap over the seeds and the smallest gap
 the control reads.  Prints one JSON line per seed and the summary, and
-writes everything to `chiprun_out/train_grad_readings.json`.
+writes everything to `chiprun_out/train_grad_readings.json`
+(`train_grad_readings_zamba2-2.7b.json` for zamba2).
 """
 from __future__ import annotations
 
@@ -34,7 +37,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", nargs="+", default=["7:9", "11:13", "17:19"],
                     help="params:tokens seed pairs")
+    ap.add_argument("--arch", default=chip_smoke.TRAIN_ARCH,
+                    choices=(chip_smoke.TRAIN_ARCH,
+                             chip_smoke.ZAMBA_TRAIN_ARCH))
     args = ap.parse_args()
+    layers = (chip_smoke.TRAIN_CPU_LAYERS
+              if args.arch == chip_smoke.TRAIN_ARCH
+              else chip_smoke.ZAMBA_CPU_LAYERS)
     import torch
     from repro_torch import device
     if not torch.cuda.is_available():
@@ -48,7 +57,8 @@ def main() -> int:
     runs = []
     for pair in args.seeds:
         seed, tok_seed = (int(x) for x in pair.split(":"))
-        r = chip_smoke._train_step_grads(seed, tok_seed, repeat=True)
+        r = chip_smoke._train_step_grads(seed, tok_seed, repeat=True,
+                                         arch=args.arch, layers=layers)
         r.update(seed=seed, tok_seed=tok_seed)
         runs.append(r)
         print(json.dumps(dict(seed=seed, tok_seed=tok_seed,
@@ -62,12 +72,15 @@ def main() -> int:
                           tf32_cpu_min=min(x["tf32_cpu"] for x in t),
                           card_f64_max=max(x["card_f64"] for x in t),
                           cpu_f64_max=max(x["cpu_f64"] for x in t))
-        print(f"{k:24s} " + " ".join(f"{n}={v:.3e}"
+        print(f"{k:32s} " + " ".join(f"{n}={v:.3e}"
                                      for n, v in summary[k].items()))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "train_grad_readings.json").write_text(json.dumps(
-        dict(device=smi, runs=runs, summary=summary), indent=1))
+    name = ("train_grad_readings.json" if args.arch == chip_smoke.TRAIN_ARCH
+            else f"train_grad_readings_{args.arch}.json")
+    (out_dir / name).write_text(json.dumps(
+        dict(device=smi, arch=args.arch, layers=layers, runs=runs,
+             summary=summary), indent=1))
     return 0
 
 
