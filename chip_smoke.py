@@ -48,7 +48,9 @@ to the CPU:
                 SSD backward (mamba2_ssd_bwd, four kernels per call,
                 asserted) at zamba2's train shape (B 2, S 1024, 80 heads
                 of 64, N 64) in bf16 and f32 and at S 777 with a state,
-                against its plain version, with a bitwise repeat.
+                against its plain version, with a bitwise repeat and each
+                kernel's blocks per SM (the bf16 chunk gradients must
+                hold two).
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -915,10 +917,15 @@ def _ssd_bwd_rows(randn):
     ragged S with a state and the final state's gradient.  Tolerance per
     gradient, against its max|g|: 1e-4 (the same f32 sums in another
     order), plus 2^-8 for a gradient in bf16 (both round the f32 result
-    once).  Each call is four kernels, asserted from a profiler window,
-    and two calls on the same inputs agree bit for bit (fixed-order sums,
-    no atomics); the scratch is read from the allocator and held to the
-    library's layout (`bwd_scratch`)."""
+    once).  The bf16 route multiplies on the tensor cores with its f32
+    operands split into two bf16 pieces each
+    (tests/test_torch_ssd_bwd_tc.py holds an emulation of that arithmetic
+    to the same tolerance on the CPU).  Each call is four kernels,
+    asserted from a profiler window, and two calls on the same inputs
+    agree bit for bit (fixed-order sums, no atomics); the scratch is read
+    from the allocator and held to the library's layout (`bwd_scratch`).
+    Each row carries each kernel's blocks per SM (CUDA's occupancy
+    calculator); the bf16 chunk gradients at N = 64 must hold two."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import mamba2_ssd as ssd
@@ -968,6 +975,10 @@ def _ssd_bwd_rows(randn):
         phase_ms, per_call = _phases(kernels, SSD_BWD_PHASES, run,
                                      f"mamba2_ssd_bwd {label}")
         bnd, by = _ssd_bwd_bound(x, b_in, st, dso)
+        blocks = ssd.bwd_blocks_per_sm(dtype, n)
+        if dtype == bf16 and blocks["ssd_bwd_chunk_grad"] < 2:
+            raise AssertionError(f"mamba2_ssd_bwd {label}: the chunk "
+                                 f"gradients hold {blocks} blocks per SM")
         rows.append(dict(
             name=f"mamba2_ssd_bwd[{label}]", source=ssd.SOURCE,
             grad_tol="1e-4 max|g| (+ 2^-8 max|g| for a bf16 gradient)",
@@ -981,10 +992,11 @@ def _ssd_bwd_rows(randn):
             scratch_bytes=measured_scratch(
                 run, f"mamba2_ssd_bwd {label}",
                 4 * ssd.bwd_scratch(b, s, h, p, n)),
-            deterministic=True,
+            deterministic=True, blocks_per_sm=blocks,
             note="ms sums the device time of the call's four kernels (the "
                  "state gradient's increments, the reverse scan, the chunk "
-                 "gradients, the reduction); f32 on the CUDA cores"))
+                 "gradients, the reduction); bf16 on mma.sync with split "
+                 "f32 operands, f32 on the CUDA cores"))
     return rows
 
 
@@ -2912,7 +2924,7 @@ def main() -> int:
             **{k: r[k] for k in ("kernel_launches_per_call", "scratch_bytes",
                                  "phase_ms", "launch_floor_ms", "note",
                                  "grad_tol", "max_rel_err",
-                                 "rel_err_by_grad",
+                                 "rel_err_by_grad", "blocks_per_sm",
                                  "library_kernels")
                if k in r}))
     script_s = time.perf_counter() - t_script

@@ -85,26 +85,39 @@
 //      chunk's sum_t e^{cum_t} dy_t C_t^T.
 //   2. ssd_bwd_state_scan, one thread per (b, h, p, n): the state's
 //      gradient from the last chunk to the first, written over the
-//      increments (dstate at the end).
+//      increments (dstate at the end), the loads of 8 chunks in flight.
 //   3. ssd_bwd_chunk_grad, one block per (chunk, b, h), all of P in
 //      64-column tiles (so ddt needs no reduction across blocks): reads
 //      the chunk's state S_c, which the forward's phase 2 left in its
 //      scratch and the autograd Function saved, instead of recomputing
-//      it.  Eight 64 x 64 x 64 f32 products per block (dy.x, S^T dy,
-//      G^T x, C B^T, B G^T, and three triangular ones at half the work:
-//      the sums for dC and dB, M^T dy; with step 1's, about 1.4x the
-//      least work), 4 x 4 register tiles on the CUDA cores.  dB and dC are shared by the heads, da and dD
-//      by the batch and the chunks: each block writes f32 partials.
+//      it.  Eight 64 x 64 x 64 products per block (dy.x, S^T dy, G^T x,
+//      C B^T, B G^T, and three triangular ones at half the work: the sums
+//      for dC and dB, M^T dy).  The bf16 route runs them on the tensor
+//      cores (mma.sync m16n8k16, f32 sums): dy.x and C B^T take bf16 on
+//      both sides, exact products; the other six have one f32 operand
+//      (S, G, M, Dm), which is split into two bf16 pieces (hi, and the
+//      rounding of what hi leaves: the value to about 2^-16 of itself),
+//      each piece multiplied into the same f32 sums.  The decays, W, its
+//      prefix sums, r, v, q and the block sums stay f32 on the CUDA
+//      cores.  Tiles come in by 16-byte cp.async (C and B while the first
+//      products run), bf16 tiles stay bf16, and the N = 64 instance fits
+//      two blocks per SM (110 KiB of shared memory, 128 registers).  The
+//      f32 route (the card-vs-CPU checks) takes the same loads and keeps
+//      its products f32 on the CUDA cores (the port allows no TF32).  dB
+//      and dC are shared by the heads, da and dD by the batch and the
+//      chunks: each block writes f32 partials.
 //   4. ssd_bwd_reduce sums them in index order, so the same inputs give
 //      the same bits.
 // Every exponent taken is <= 0 (e^{cum_t - cum_j} with j <= t, and
 // e^{cum_L - cum_j}); steps past the end of S carry dt = 0 and zero
-// operands, and their gradients are not written.  What holds it back:
-// step 3 runs one block of 256 threads per SM (164 registers a thread,
-// 141 KB of shared memory at N = 64), so 8 warps hide each other's
-// latency; its tiles come in by scalar loads, and every product is f32
-// FMA.  The bf16 route's dy.x and C B^T could run on the tensor cores
-// (products of bf16 values are exact in f32), as the forward's C B^T does.
+// operands, and their gradients are not written.  What still holds it
+// back (zamba2 bf16 train shape, on an H100): step 3 takes about 61% of
+// the call, step 1 16%, step 4 12%, the scan 10%.  Step 3's phases are
+// serial behind block barriers (the 64-thread prefix sums and dla loops
+// among them), and where P spans more than one tile, x, dy and G are
+// read a second time for phase C.  The scan reads and writes the chunk
+// gradients (42 MB each way), and step 3 writes the per-head partials of
+// dB and dC that step 4 reads (84 MB).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -681,7 +694,37 @@ __global__ void __launch_bounds__(
 // is left after it cancels is below its rounding.)
 
 constexpr int kMaxNH = kMaxState / 64;   // 64-column groups of N, at most
-constexpr int kBwdVecs = 8;              // per-step vectors of the block
+constexpr int kBwdVecs = 8;              // per-step vectors (f32 route)
+constexpr int kTcVecs = 12;              // per-step vectors (bf16 route)
+constexpr int kPieces = 2;               // bf16 pieces of an f32 operand
+constexpr int kLdC = pad_ld<bf16>(kC);   // row stride of bf16 [64][64] tiles
+
+// four 8 x 8 b16 matrices, each transposed on the way (as ldmatrix_x4)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// (v0, v1) rounded to bf16, v0 in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float v0, float v1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// An f32 pair as kPieces bf16 pairs, largest first: each piece is the
+// bf16 rounding of what the earlier ones leave (each difference is exact
+// in f32).  Two pieces hold the pair to about 2^-16 of itself.
+__device__ __forceinline__ void split_pair(float v0, float v1,
+                                           uint32_t (&w)[kPieces]) {
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    w[i] = pack_bf16(v0, v1);
+    v0 -= bf16_lo(w[i]);
+    v1 -= bf16_hi(w[i]);
+  }
+}
 
 // Sum of v over the block, in a fixed order (a butterfly inside each warp,
 // then the warps in index order), returned to every thread.  red: 8 floats
@@ -698,34 +741,126 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-__host__ __device__ constexpr int round64(int n) { return (n + 63) & ~63; }
-
-// shared memory of ssd_bwd_chunk_grad for N padded to ncol (64 or 128)
-size_t smem_bwd_bytes(int ncol) {
-  const size_t ldn = ncol + 4;
-  const size_t fixed = 2 * kC * ldn + 2 * kC * kLdG + kBwdVecs * kC + 32;
-  const size_t tiles_a = 2 * kC * kLdX + 2 * ncol * kLdX;   // x, dy, S^T, G^T
-  const size_t tiles_b = 2 * kC * ldn + kC * kLdG;          // U, V, W
-  const size_t tiles_c = 2 * kC * kLdX + kC * ldn;          // x, dy, G
-  const size_t u = tiles_a > tiles_b ? tiles_a : tiles_b;
-  return sizeof(float) * (fixed + (u > tiles_c ? u : tiles_c));
+// the sum of v over the four lanes of a quad (one row of an mma tile)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Backward phase 3: one block per (chunk, b, h), all of P in 64-column
-// tiles.  Writes dx and ddt for the chunk's steps, and f32 partials that
-// ssd_bwd_reduce sums: dB and dC per head [B, H, S, N], da and dD per
-// chunk [B, H, NC].  NPF as in the forward.
-template <typename T, int NPF>
-__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
-    const T* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a, const T* __restrict__ bm,
-    const T* __restrict__ cm, const void* __restrict__ dskip, int d_bf16,
-    const T* __restrict__ dy, const float* __restrict__ states,
-    const float* __restrict__ dstates, T* __restrict__ dx,
-    float* __restrict__ ddt, float* __restrict__ dbp,
+__host__ __device__ constexpr int round64(int n) { return (n + 63) & ~63; }
+
+// A tile of one chunk into shared memory, as async_tile and scalar_tile
+// lay it out: 16-byte cp.async copies where the operands allow (vec),
+// element by element otherwise.  Each thread walks whole rows' strides, so
+// a loop over tiles keeps no per-copy address in a register.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+                                          size_t rstride, int nrows,
+                                          int col0, int ncols, int width,
+                                          bool vec) {
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int ng = ncols / kPer;       // copies per row, divides kThreads
+    const int c = kPer * (threadIdx.x % ng);
+    const bool col_ok = col0 + c < width;
+#pragma unroll 1
+    for (int t = threadIdx.x / ng; t < kC; t += kThreads / ng) {
+      const bool ok = col_ok && t < nrows;
+      cp_async16(dst + t * ld + c, ok ? src + t * rstride + col0 + c : src,
+                 ok);
+    }
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < kC * ncols; e += kThreads) {
+      const int t = e / ncols, c = e - t * ncols;
+      dst[t * ld + c] = (t < nrows && col0 + c < width)
+                            ? src[t * rstride + col0 + c]
+                            : T(0.0f);
+    }
+  }
+}
+
+// A staged f32 tile [kPB][ncol] (rows of P, unpadded) rewritten in place:
+// every thread reads its pairs into registers, the block waits, then
+// put(row, col, pair) writes each pair where the route wants it.  A
+// thread takes the same column pair in rows kThreads / (ncol / 2) apart.
+// NC: ncol fixed at compile time, or 0.
+template <int NC, typename Put>
+__device__ __forceinline__ void restage(const float* stage, int ncol,
+                                        Put put) {
+  constexpr int kPairs = (NC > 0 ? NC : kMaxState) * kPB / 2 / kThreads;
+  const int half = ncol / 2, step = kThreads / half;
+  const int r0 = threadIdx.x / half, c = 2 * (threadIdx.x % half);
+  float2 v[kPairs];
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i)
+    if (r0 + i * step < kPB)
+      v[i] = *reinterpret_cast<const float2*>(stage +
+                                              (r0 + i * step) * ncol + c);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i)
+    if (r0 + i * step < kPB) put(r0 + i * step, c, v[i]);
+}
+
+// row[c], row[c + 1] (those below width) to device memory, as one store
+// where the pair's address is aligned to it
+__device__ __forceinline__ void store_pair(float* row, int c, int width,
+                                           float v0, float v1) {
+  float* q = row + c;
+  if (c + 1 < width && (reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+    *reinterpret_cast<float2*>(q) = make_float2(v0, v1);
+  } else {
+    if (c < width) q[0] = v0;
+    if (c + 1 < width) q[1] = v1;
+  }
+}
+__device__ __forceinline__ void store_pair(bf16* row, int c, int width,
+                                           float v0, float v1) {
+  bf16* q = row + c;
+  if (c + 1 < width && (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(q) = pack_bf16(v0, v1);
+  } else {
+    if (c < width) q[0] = __float2bfloat16(v0);
+    if (c + 1 < width) q[1] = __float2bfloat16(v1);
+  }
+}
+
+// shared memory of ssd_bwd_chunk_grad for N padded to ncol (64 or 128)
+template <typename T>
+size_t smem_bwd_bytes(int ncol) {
+  if constexpr (sizeof(T) == 2) {
+    // C, B and two slots of kPieces [64][ncol] bf16 tiles; Dm's pieces, x
+    // and dy [64][64] bf16; W [64][kLdG] f32
+    const size_t tile = (size_t)kC * pad_ld<bf16>(ncol) * sizeof(bf16);
+    const size_t tile_c = (size_t)kC * kLdC * sizeof(bf16);
+    return (2 + 2 * kPieces) * tile + (kPieces + 2) * tile_c +
+           sizeof(float) * (kC * kLdG + kTcVecs * kC + 32);
+  } else {
+    const size_t ldn = ncol + 4;
+    const size_t fixed = 2 * kC * ldn + 2 * kC * kLdG + kBwdVecs * kC + 32;
+    const size_t tiles_a = 2 * kC * kLdX + 2 * ncol * kLdX;  // x, dy, S^T, G^T
+    const size_t tiles_b = 2 * kC * ldn + kC * kLdG;          // U, V, W
+    const size_t tiles_c = 2 * kC * kLdX + kC * ldn;          // x, dy, G
+    const size_t u = tiles_a > tiles_b ? tiles_a : tiles_b;
+    return sizeof(float) * (fixed + (u > tiles_c ? u : tiles_c));
+  }
+}
+
+// The f32 route of backward phase 3 (the card-vs-CPU checks): every
+// product f32 FMA on the CUDA cores in 4 x 4 register tiles.
+template <int NPF>
+__device__ __forceinline__ void chunk_grad_fma(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const float* __restrict__ bm,
+    const float* __restrict__ cm, const void* __restrict__ dskip,
+    int d_bf16, const float* __restrict__ dy,
+    const float* __restrict__ states, const float* __restrict__ dstates,
+    float* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dbp,
     float* __restrict__ dcp, float* __restrict__ dap,
-    float* __restrict__ ddp, int s, int h, int p, int n, int nc) {
+    float* __restrict__ ddp, int s, int h, int p, int n, int nc, bool vec) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int kNC = NPF > 0 ? round64(NPF) : 0;
   const int ncol = NPF > 0 ? round64(NPF) : round64(n);
   const int nh = ncol / 64, ldn = ncol + 4;
   float* s_c = smem;                   // [kC][ldn]  C
@@ -743,7 +878,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
   float* s_red = s_ddt + kC;           // [32] block sums; [16] = cum_L
   float* s_un = s_red + 32;            // the tiles of one phase at a time
   // phase A: x, dy [kC][kLdX] (rows t, a 64-column tile of P);
-  // S^T, G^T [ncol][kLdX] (rows n)
+  // S^T, G^T [ncol][kLdX] (rows n), each staged there first as [kPB][ncol]
   float* s_x = s_un;
   float* s_dy = s_x + kC * kLdX;
   float* s_st = s_dy + kC * kLdX;
@@ -760,16 +895,17 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
   const int b = bh / h, head = bh - b * h;
   const int t0 = chunk * kC, nrows = min(kC, s - t0);
   const size_t row0 = (size_t)b * s + t0;
-  const T* xb = x + (row0 * h + head) * p;
-  const T* dyb = dy + (row0 * h + head) * p;
+  const float* xb = x + (row0 * h + head) * p;
+  const float* dyb = dy + (row0 * h + head) * p;
   const size_t rx = (size_t)h * p;
   const size_t pn = (size_t)p * n;
   const float* sc = states + ((size_t)bh * nc + chunk) * pn;
   const float* gc = dstates + ((size_t)bh * nc + chunk) * pn;
   const float a_h = a[head];
 
-  scalar_tile(s_c, ldn, cm + row0 * n, (size_t)n, nrows, 0, ncol, n);
-  scalar_tile(s_b, ldn, bm + row0 * n, (size_t)n, nrows, 0, ncol, n);
+  load_tile(s_c, ldn, cm + row0 * n, (size_t)n, nrows, 0, ncol, n, vec);
+  load_tile(s_b, ldn, bm + row0 * n, (size_t)n, nrows, 0, ncol, n, vec);
+  cp_async_commit();
   if (tid < 32) {
     float d2[2], cum[2];
     const float last = chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows,
@@ -792,14 +928,28 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
   float q_part = 0.0f;
   for (int p0 = 0; p0 < p; p0 += kPB) {
     __syncthreads();                   // the previous tile is read
-    scalar_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
-    scalar_tile(s_dy, kLdX, dyb, rx, nrows, p0, kPB, p);
-    for (int e = tid; e < kPB * ncol; e += kThreads) {
-      const int c = e / ncol, k = e - c * ncol;
-      const bool ok = p0 + c < p && k < n;
-      s_st[k * kLdX + c] = ok ? sc[(size_t)(p0 + c) * n + k] : 0.0f;
-      s_gt[k * kLdX + c] = ok ? gc[(size_t)(p0 + c) * n + k] : 0.0f;
-    }
+    load_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p, vec);
+    load_tile(s_dy, kLdX, dyb, rx, nrows, p0, kPB, p, vec);
+    load_tile(s_st, ncol, sc + (size_t)p0 * n, (size_t)n, p - p0, 0, ncol,
+              n, vec);
+    load_tile(s_gt, ncol, gc + (size_t)p0 * n, (size_t)n, p - p0, 0, ncol,
+              n, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int e = tid; e < kPB * ncol; e += kThreads)
+      q_part = fmaf(s_st[e], s_gt[e], q_part);
+    // S and G from rows of P to rows of N
+    restage<kNC>(
+        s_st, ncol, [&](int r, int c, float2 v) {
+          s_st[c * kLdX + r] = v.x;
+          s_st[(c + 1) * kLdX + r] = v.y;
+        });
+    restage<kNC>(
+        s_gt, ncol, [&](int r, int c, float2 v) {
+          s_gt[c * kLdX + r] = v.x;
+          s_gt[(c + 1) * kLdX + r] = v.y;
+        });
     __syncthreads();
 #pragma unroll 2
     for (int c = 0; c < kPB; c += 4) {
@@ -824,10 +974,6 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
           rows_by_rows(av[hh], xr, gv);
         }
       }
-    }
-    for (int e = tid; e < kPB * ncol; e += kThreads) {
-      const int k = e / kPB, c = e - k * kPB;
-      q_part = fmaf(s_st[k * kLdX + c], s_gt[k * kLdX + c], q_part);
     }
   }
   const float last = s_red[16];
@@ -963,13 +1109,12 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
                            : static_cast<const float*>(dskip)[head];
   for (int p0 = 0; p0 < p; p0 += kPB) {
     __syncthreads();                   // phase B's tiles, or the last, read
-    scalar_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p);
-    scalar_tile(s_dy, kLdX, dyb, rx, nrows, p0, kPB, p);
-    for (int e = tid; e < kPB * ncol; e += kThreads) {
-      const int c = e / ncol, k = e - c * ncol;
-      s_g[c * ldn + k] =
-          (p0 + c < p && k < n) ? gc[(size_t)(p0 + c) * n + k] : 0.0f;
-    }
+    load_tile(s_x, kLdX, xb, rx, nrows, p0, kPB, p, vec);
+    load_tile(s_dy, kLdX, dyb, rx, nrows, p0, kPB, p, vec);
+    load_tile(s_g, ldn, gc + (size_t)p0 * n, (size_t)n, p - p0, 0, ncol, n,
+              vec);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
     // rows j = tr + i, columns tx + 16 jj of the tile
     float o[4][4] = {}, gb[4][4] = {};
@@ -991,7 +1136,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int j = tr + i;
-      T* row = dx + ((row0 + j) * h + head) * p + p0;
+      float* row = dx + ((row0 + j) * h + head) * p + p0;
       float part = 0.0f;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -999,7 +1144,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
         const float g = fmaf(s_edec[j], gb[i][jj], o[i][jj]);
         part = fmaf(g, s_x[j * kLdX + c], part);
         if (j < nrows && p0 + c < p)
-          store1(row + c, fmaf(s_dt[j], g, d_h * s_dy[j * kLdX + c]));
+          row[c] = fmaf(s_dt[j], g, d_h * s_dy[j * kLdX + c]);
       }
       // the 16 lanes of this row group, in a fixed order
 #pragma unroll
@@ -1019,9 +1164,495 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grad(
   }
 }
 
+// The bf16 route of backward phase 3 (zamba2's training), on the tensor
+// cores: mma.sync m16n8k16 with bf16 operands from ldmatrix and f32 sums.
+// Eight warps; warp w owns rows 16 (w / 2) .. + 15 and columns
+// 32 (w % 2) .. + 31 of every [64 x 64] product (per 64 columns of N).
+// dy.x^T and C B^T take bf16 on both sides, exact products.  The other
+// six have one f32 operand (S, G, M, Dm), split into kPieces bf16 tiles
+// when it reaches shared memory; each piece is multiplied by the bf16
+// operand into the same f32 sums.  The triangular products skip the
+// k-steps wholly outside the triangle.  Shared memory: C and B; slot 0
+// holds S's pieces (A), then M's (B, C); slot 1 G's; then Dm's pieces, x
+// and dy, and W.  S and G arrive as f32 (cp.async) in their slot and are
+// split there.  Where P is one tile, phase C finds x, dy and G's pieces
+// still in place from phase A.
+template <int NPF>
+__device__ __forceinline__ void chunk_grad_tc(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const bf16* __restrict__ bm,
+    const bf16* __restrict__ cm, const void* __restrict__ dskip,
+    int d_bf16, const bf16* __restrict__ dy,
+    const float* __restrict__ states, const float* __restrict__ dstates,
+    bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dbp,
+    float* __restrict__ dcp, float* __restrict__ dap,
+    float* __restrict__ ddp, int s, int h, int p, int n, int nc, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kNC = NPF > 0 ? round64(NPF) : 0;
+  constexpr int kNH = NPF > 0 ? round64(NPF) / 64 : kMaxNH;
+  const int ncol = NPF > 0 ? round64(NPF) : round64(n);
+  const int nh = ncol / 64, ldt = pad_ld<bf16>(ncol);
+  const int tile = kC * ldt;                     // elements of a piece
+  constexpr int kTileC = kC * kLdC;              // elements of a [64][64]
+  bf16* s_c = reinterpret_cast<bf16*>(smem_raw);   // [kC][ldt] C
+  bf16* s_b = s_c + tile;                          // [kC][ldt] B
+  bf16* slot0 = s_b + tile;
+  bf16* slot1 = slot0 + kPieces * tile;
+  bf16* s_dm = slot1 + kPieces * tile;             // [kC][kLdC] Dm pieces
+  bf16* s_x = s_dm + kPieces * kTileC;             // [kC][kLdC] x
+  bf16* s_dy = s_x + kTileC;                       // [kC][kLdC] dy
+  float* s_w = reinterpret_cast<float*>(s_dy + kTileC);   // [kC][kLdG] W
+  float* stage_s = reinterpret_cast<float*>(slot0);   // [kPB][ncol] S
+  float* stage_g = reinterpret_cast<float*>(slot1);   // [kPB][ncol] G
+  float* s_cum = s_w + kC * kLdG;      // [kC] cum_t
+  float* s_dt = s_cum + kC;            // [kC] dt_t
+  float* s_ecum = s_dt + kC;           // [kC] e^{cum_t}
+  float* s_edec = s_ecum + kC;         // [kC] e^{cum_L - cum_j}
+  float* s_dla = s_edec + kC;          // [kC] dla_i
+  float* s_ddt = s_dla + kC;           // [kC] sum_p dxdt_j x_j
+  float* s_rp = s_ddt + kC;            // [2][kC] C_t . U_t, per column half
+  float* s_vp = s_rp + 2 * kC;         // [2][kC] B_j . V_j, per column half
+  float* s_dp = s_vp + 2 * kC;         // [2][kC] sum_p dxdt x, per half
+  float* s_red = s_dp + 2 * kC;        // [32] block sums; [16] cum_L, [17] q,
+                                       // [18] sum dy . x
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1, g8 = lane >> 2, q4 = lane & 3;
+  // the warp's [t][j] tile reaches the triangle j <= t
+  const bool lower = 32 * wn <= 16 * wm + 15;
+  const int chunk = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const bf16* xb = x + (row0 * h + head) * p;
+  const bf16* dyb = dy + (row0 * h + head) * p;
+  const size_t rx = (size_t)h * p;
+  const size_t pn = (size_t)p * n;
+  const float* sc = states + ((size_t)bh * nc + chunk) * pn;
+  const float* gc = dstates + ((size_t)bh * nc + chunk) * pn;
+
+  // ldmatrix lane offsets (elements): an A operand from rows m (non-trans)
+  // or from rows k (trans); a B operand, two n-tiles, from rows n
+  // (non-trans) or from rows k (trans)
+  const int a_row = 16 * wm + (lane & 15), a_col = 8 * (lane >> 4);
+  const int at_row = (lane & 7) + 8 * (lane >> 4);
+  const int at_col = 16 * wm + 8 * ((lane >> 3) & 1);
+  const int b_row = 32 * wn + (lane & 7) + 8 * (lane >> 4);
+  const int b_col = 8 * ((lane >> 3) & 1);
+  const int bt_row = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int bt_col = 32 * wn + 8 * (lane >> 4);
+  // shared addresses (bytes) of the regions, one piece apart, and each
+  // fragment's lane term on a tile of row stride ldt or kLdC
+  const uint32_t piece = 2 * tile;
+  const uint32_t sh_c = smem_addr(smem_raw), sh_b = sh_c + piece;
+  const uint32_t sh_s0 = sh_b + piece, sh_s1 = sh_s0 + kPieces * piece;
+  const uint32_t sh_dm = sh_s1 + kPieces * piece;
+  const uint32_t sh_x = sh_dm + kPieces * 2 * kTileC;
+  const uint32_t sh_dy = sh_x + 2 * kTileC;
+  const uint32_t la_t = 2 * (a_row * ldt + a_col);
+  const uint32_t la_c = 2 * (a_row * kLdC + a_col);
+  const uint32_t lat_c = 2 * (at_row * kLdC + at_col);
+  const uint32_t lb_t = 2 * (b_row * ldt + b_col);
+  const uint32_t lb_c = 2 * (b_row * kLdC + b_col);
+  const uint32_t lbt_t = 2 * (bt_row * ldt + bt_col);
+  const uint32_t lbt_c = 2 * (bt_row * kLdC + bt_col);
+  auto split_into = [&](bf16* pieces, int ld) {
+    return [=](int r, int c, float2 v) {
+      uint32_t w[kPieces];
+      split_pair(v.x, v.y, w);
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i)
+        *reinterpret_cast<uint32_t*>(pieces + i * tile + r * ld + c) = w[i];
+    };
+  };
+  auto load_a = [&](int p0) {          // phase A's tiles of P
+    load_tile(s_x, kLdC, xb, rx, nrows, p0, kPB, p, vec);
+    load_tile(s_dy, kLdC, dyb, rx, nrows, p0, kPB, p, vec);
+    load_tile(stage_s, ncol, sc + (size_t)p0 * n, (size_t)n, p - p0, 0,
+              ncol, n, vec);
+    load_tile(stage_g, ncol, gc + (size_t)p0 * n, (size_t)n, p - p0, 0,
+              ncol, n, vec);
+    cp_async_commit();
+  };
+
+  load_a(0);
+  // C and B, first read in phase B: in flight through phase A
+  load_tile(s_c, ldt, cm + row0 * n, (size_t)n, nrows, 0, ncol, n, vec);
+  load_tile(s_b, ldt, bm + row0 * n, (size_t)n, nrows, 0, ncol, n, vec);
+  cp_async_commit();
+  if (tid < 32) {
+    float d2[2], cum[2];
+    const float last = chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows,
+                                    a[head], d2, cum);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = 2 * tid + i;
+      s_cum[k] = cum[i];
+      s_dt[k] = d2[i];
+      s_ecum[k] = expf(cum[i]);
+      s_edec[k] = expf(last - cum[i]);
+      s_ddt[k] = 0.0f;
+    }
+    if (tid == 0) s_red[16] = last;
+  }
+
+  // Phase A, over the tiles of P: DX = dy x^T, U = dy S, V = x G and
+  // <G, S>, in registers
+  float adx[4][4] = {}, au[kNH][4][4] = {}, av[kNH][4][4] = {};
+  float q_part = 0.0f;
+  for (int p0 = 0; p0 < p; p0 += kPB) {
+    if (p0 > 0) {
+      __syncthreads();                 // the previous tile is read
+      load_a(p0);
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();              // C and B may still be in flight
+    }
+    __syncthreads();
+    for (int e = tid; e < kPB * ncol; e += kThreads)
+      q_part = fmaf(stage_s[e], stage_g[e], q_part);
+    restage<kNC>(stage_s, ncol, split_into(slot0, ldt));
+    restage<kNC>(stage_g, ncol, split_into(slot1, ldt));
+    __syncthreads();
+#pragma unroll 1
+    for (int ks = 0; ks < kPB / 16; ++ks) {
+      uint32_t fdy[4], fx[4];
+      ldmatrix_x4(fdy, sh_dy + la_c + 32 * ks);
+      ldmatrix_x4(fx, sh_x + la_c + 32 * ks);
+      if (lower) {
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t f[4];
+          ldmatrix_x4(f, sh_x + lb_c + 32 * (jp * kLdC + ks));
+          mma_bf16(adx[2 * jp], fdy, f[0], f[1]);
+          mma_bf16(adx[2 * jp + 1], fdy, f[2], f[3]);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < kNH; ++hh) {
+        if (hh >= nh) break;
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i)
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            const uint32_t off =
+                i * piece + lbt_t + 32 * (ks * ldt + 4 * hh + jp);
+            uint32_t f[4];
+            ldmatrix_x4_trans(f, sh_s0 + off);
+            mma_bf16(au[hh][2 * jp], fdy, f[0], f[1]);
+            mma_bf16(au[hh][2 * jp + 1], fdy, f[2], f[3]);
+            ldmatrix_x4_trans(f, sh_s1 + off);
+            mma_bf16(av[hh][2 * jp], fx, f[0], f[1]);
+            mma_bf16(av[hh][2 * jp + 1], fx, f[2], f[3]);
+          }
+      }
+    }
+  }
+  const float last = s_red[16];
+  const float q_sum = block_sum(q_part, s_red);   // A is read
+  if (tid == 0) s_red[17] = expf(last) * q_sum;    // q
+
+  // Phase B.  Dm from DX: its pieces into slot 1, its f32 value where W
+  // goes; then C B^T, M (split) into slot 0 and W = (C B^T) o Dm
+  float dd_part = 0.0f;
+  if (lower) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int t = 16 * wm + g8 + 8 * r2;
+        const int j = 32 * wn + 8 * nt + 2 * q4;
+        float dm[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float e =
+              j + k <= t ? expf(s_cum[t] - s_cum[j + k]) : 0.0f;
+          const float dxm = adx[nt][2 * r2 + k] * s_dt[j + k];
+          dm[k] = dxm * e;
+          if (j + k == t) dd_part += adx[nt][2 * r2 + k];
+        }
+        uint32_t pd[kPieces];
+        split_pair(dm[0], dm[1], pd);
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i)
+          *reinterpret_cast<uint32_t*>(s_dm + i * kTileC + t * kLdC + j) =
+              pd[i];
+        *reinterpret_cast<float2*>(s_w + t * kLdG + j) =
+            make_float2(dm[0], dm[1]);
+      }
+  }
+  const float dd_sum = block_sum(dd_part, s_red);
+  if (tid == 0) s_red[18] = dd_sum;
+  cp_async_wait<0>();
+  __syncthreads();                     // C and B have landed
+  if (lower) {
+    float cb[4][4] = {};
+#pragma unroll 1
+    for (int ks = 0; ks < ncol / 16; ++ks) {
+      uint32_t fc[4];
+      ldmatrix_x4(fc, sh_c + la_t + 32 * ks);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t f[4];
+        ldmatrix_x4(f, sh_b + lb_t + 32 * (jp * ldt + ks));
+        mma_bf16(cb[2 * jp], fc, f[0], f[1]);
+        mma_bf16(cb[2 * jp + 1], fc, f[2], f[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int t = 16 * wm + g8 + 8 * r2;
+        const int j = 32 * wn + 8 * nt + 2 * q4;
+        float2* wp = reinterpret_cast<float2*>(s_w + t * kLdG + j);
+        const float2 dm = *wp;         // this thread's own, written above
+        float m[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float e =
+              j + k <= t ? expf(s_cum[t] - s_cum[j + k]) : 0.0f;
+          m[k] = cb[nt][2 * r2 + k] * e;
+        }
+        uint32_t pm[kPieces];
+        split_pair(m[0], m[1], pm);
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i)
+          *reinterpret_cast<uint32_t*>(slot0 + i * tile + t * kLdC + j) =
+              pm[i];
+        *wp = make_float2(cb[nt][2 * r2] * dm.x, cb[nt][2 * r2 + 1] * dm.y);
+      }
+  }
+  __syncthreads();
+
+  // Each row t of W turned into its exclusive prefix sums, up to the
+  // diagonal (warps 4 and 5, before their products)
+  if (tid >= 2 * kC && tid < 3 * kC) {
+    const int t = tid - 2 * kC;
+    float* row = s_w + t * kLdG;
+    float run = 0.0f;
+    for (int i = 0; i <= t; ++i) {
+      const float w = row[i];
+      row[i] = run;
+      run += w;
+    }
+  }
+  // dC rows t = e^{cum_t} U + Dm B and dB rows j = e^{cum_L-cum_j} V dt_j
+  // + Dm^T C, summed into U's and V's registers; first their scaled
+  // values' row sums with C_t and B_j, which r and v are
+  float rpart[2] = {}, vpart[2] = {};
+#pragma unroll
+  for (int hh = 0; hh < kNH; ++hh) {
+    if (hh >= nh) break;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int t = 16 * wm + g8 + 8 * r2;   // also j, for dB
+        const int k = 64 * hh + 32 * wn + 8 * nt + 2 * q4;
+        const uint32_t cv =
+            *reinterpret_cast<const uint32_t*>(s_c + t * ldt + k);
+        const uint32_t bv =
+            *reinterpret_cast<const uint32_t*>(s_b + t * ldt + k);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& u = au[hh][nt][2 * r2 + i];
+          float& v = av[hh][nt][2 * r2 + i];
+          u *= s_ecum[t];
+          v = (v * s_dt[t]) * s_edec[t];
+          rpart[r2] = fmaf(i ? bf16_hi(cv) : bf16_lo(cv), u, rpart[r2]);
+          vpart[r2] = fmaf(i ? bf16_hi(bv) : bf16_lo(bv), v, vpart[r2]);
+        }
+      }
+  }
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const float rs = quad_sum(rpart[r2]), vs = quad_sum(vpart[r2]);
+    if (q4 == 0) {
+      s_rp[wn * kC + 16 * wm + g8 + 8 * r2] = rs;
+      s_vp[wn * kC + 16 * wm + g8 + 8 * r2] = vs;
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < kNH; ++hh) {
+    if (hh >= nh) break;
+    for (int ks = 0; ks <= wm; ++ks) {           // j <= t
+      uint32_t af[kPieces][4];
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i)
+        ldmatrix_x4(af[i], sh_dm + i * 2 * kTileC + la_c + 32 * ks);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t f[4];
+        ldmatrix_x4_trans(f, sh_b + lbt_t + 32 * (ks * ldt + 4 * hh + jp));
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i) {
+          mma_bf16(au[hh][2 * jp], af[i], f[0], f[1]);
+          mma_bf16(au[hh][2 * jp + 1], af[i], f[2], f[3]);
+        }
+      }
+    }
+    for (int ks = wm; ks < kC / 16; ++ks) {      // t >= j
+      uint32_t af[kPieces][4];
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i)
+        ldmatrix_x4_trans(af[i],
+                          sh_dm + i * 2 * kTileC + lat_c + 32 * ks * kLdC);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t f[4];
+        ldmatrix_x4_trans(f, sh_c + lbt_t + 32 * (ks * ldt + 4 * hh + jp));
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i) {
+          mma_bf16(av[hh][2 * jp], af[i], f[0], f[1]);
+          mma_bf16(av[hh][2 * jp + 1], af[i], f[2], f[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int t = 16 * wm + g8 + 8 * r2;
+        if (t >= nrows) continue;
+        const int k = 64 * hh + 32 * wn + 8 * nt + 2 * q4;
+        const size_t row = ((size_t)bh * s + t0 + t) * n;
+        store_pair(dcp + row, k, n, au[hh][nt][2 * r2],
+                   au[hh][nt][2 * r2 + 1]);
+        store_pair(dbp + row, k, n, av[hh][nt][2 * r2],
+                   av[hh][nt][2 * r2 + 1]);
+      }
+  }
+  __syncthreads();
+  if (tid < kC) {
+    const int i = tid;
+    float rs = 0.0f, vp = 0.0f, ws = 0.0f;
+    for (int t = i; t < kC; ++t) rs += s_rp[t] + s_rp[kC + t];
+    for (int j = 0; j < i; ++j) vp += s_vp[j] + s_vp[kC + j];
+    for (int t = i; t < kC; ++t) ws += s_w[t * kLdG + i];
+    s_dla[i] = ((rs + s_red[17]) + vp) + ws;
+  }
+
+  // Phase C, over the tiles of P: dxdt = M^T dy + e^{cum_L-cum_j} B G^T,
+  // then dx and sum_p dxdt x
+  const float d_h = d_bf16 ? to_f32(static_cast<const bf16*>(dskip)[head])
+                           : static_cast<const float*>(dskip)[head];
+  for (int p0 = 0; p0 < p; p0 += kPB) {
+    __syncthreads();                   // the last tile is read
+    if (p > kPB) {                     // else phase A's tile is in place
+      load_tile(s_x, kLdC, xb, rx, nrows, p0, kPB, p, vec);
+      load_tile(s_dy, kLdC, dyb, rx, nrows, p0, kPB, p, vec);
+      load_tile(stage_g, ncol, gc + (size_t)p0 * n, (size_t)n, p - p0, 0,
+                ncol, n, vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      restage<kNC>(stage_g, ncol, split_into(slot1, ldt));
+      __syncthreads();
+    }
+    // B G^T, scaled by e^{cum_L - cum_j}, then M^T dy summed into it
+    float o[4][4] = {};
+#pragma unroll 1
+    for (int ks = 0; ks < ncol / 16; ++ks) {
+      uint32_t fb[4];
+      ldmatrix_x4(fb, sh_b + la_t + 32 * ks);
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t f[4];
+          ldmatrix_x4(f, sh_s1 + i * piece + lb_t + 32 * (jp * ldt + ks));
+          mma_bf16(o[2 * jp], fb, f[0], f[1]);
+          mma_bf16(o[2 * jp + 1], fb, f[2], f[3]);
+        }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[nt][e] *= s_edec[16 * wm + g8 + 8 * (e >> 1)];
+    for (int ks = wm; ks < kC / 16; ++ks) {      // t >= j
+      uint32_t af[kPieces][4];
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i)
+        ldmatrix_x4_trans(af[i], sh_s0 + i * piece + lat_c + 32 * ks * kLdC);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t f[4];
+        ldmatrix_x4_trans(f, sh_dy + lbt_c + 32 * (ks * kLdC + jp));
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i) {
+          mma_bf16(o[2 * jp], af[i], f[0], f[1]);
+          mma_bf16(o[2 * jp + 1], af[i], f[2], f[3]);
+        }
+      }
+    }
+    float part[2] = {};
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int j = 16 * wm + g8 + 8 * r2;
+      bf16* row = dx + ((row0 + j) * h + head) * p + p0;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = 32 * wn + 8 * nt + 2 * q4;
+        const uint32_t xv =
+            *reinterpret_cast<const uint32_t*>(s_x + j * kLdC + c);
+        const uint32_t dv =
+            *reinterpret_cast<const uint32_t*>(s_dy + j * kLdC + c);
+        const float g0 = o[nt][2 * r2], g1 = o[nt][2 * r2 + 1];
+        part[r2] = fmaf(g0, bf16_lo(xv), part[r2]);
+        part[r2] = fmaf(g1, bf16_hi(xv), part[r2]);
+        if (j < nrows)
+          store_pair(row, c, p - p0,
+                     fmaf(s_dt[j], g0, d_h * bf16_lo(dv)),
+                     fmaf(s_dt[j], g1, d_h * bf16_hi(dv)));
+      }
+      const float ps = quad_sum(part[r2]);
+      if (q4 == 0) s_dp[wn * kC + j] = ps;
+    }
+    __syncthreads();
+    if (tid < kC) s_ddt[tid] += s_dp[tid] + s_dp[kC + tid];
+  }
+  __syncthreads();
+  if (tid < nrows)
+    ddt[(row0 + tid) * h + head] = fmaf(a[head], s_dla[tid], s_ddt[tid]);
+  if (tid == 0) {
+    float sa = 0.0f;
+    for (int i = 0; i < kC; ++i) sa = fmaf(s_dt[i], s_dla[i], sa);
+    dap[(size_t)bh * nc + chunk] = sa;
+    ddp[(size_t)bh * nc + chunk] = s_red[18];
+  }
+}
+
+// Backward phase 3: one block per (chunk, b, h), all of P in 64-column
+// tiles.  Writes dx and ddt for the chunk's steps, and f32 partials that
+// ssd_bwd_reduce sums: dB and dC per head [B, H, S, N], da and dD per
+// chunk [B, H, NC].  NPF as in the forward.  The bf16 N = 64 instance
+// (zamba2's) runs two blocks per SM; the others one.
+template <typename T, int NPF>
+__global__ void __launch_bounds__(
+    kThreads, sizeof(T) == 2 && NPF == 64 ? 2 : 1) ssd_bwd_chunk_grad(
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ bm,
+    const T* __restrict__ cm, const void* __restrict__ dskip, int d_bf16,
+    const T* __restrict__ dy, const float* __restrict__ states,
+    const float* __restrict__ dstates, T* __restrict__ dx,
+    float* __restrict__ ddt, float* __restrict__ dbp,
+    float* __restrict__ dcp, float* __restrict__ dap,
+    float* __restrict__ ddp, int s, int h, int p, int n, int nc, bool vec) {
+  if constexpr (sizeof(T) == 2)
+    chunk_grad_tc<NPF>(x, dt, a, bm, cm, dskip, d_bf16, dy, states, dstates,
+                       dx, ddt, dbp, dcp, dap, ddp, s, h, p, n, nc, vec);
+  else
+    chunk_grad_fma<NPF>(x, dt, a, bm, cm, dskip, d_bf16, dy, states, dstates,
+                        dx, ddt, dbp, dcp, dap, ddp, s, h, p, n, nc, vec);
+}
+
 // Backward phase 2: per (b, h, p, n), from the last chunk to the first:
 // the gradient of the state leaving chunk c is written over its increment,
 // then G_{c-1} = exp(clast_c) G_c + inc_c; dstate = G_{-1} (where wanted).
+// Chunks go kAhead at a time, as in phase 2 of the forward, and the loads
+// of the next kAhead are issued before the current ones are written.
 __global__ void __launch_bounds__(kThreads) ssd_bwd_state_scan(
     const float* __restrict__ dstate_out, float* __restrict__ dds,
     const float* __restrict__ clast, float* __restrict__ dstate, int nbh,
@@ -1032,10 +1663,29 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_state_scan(
   float g = dstate_out != nullptr ? dstate_out[e] : 0.0f;
   float* d = dds + bh * nc * pn + rem;
   const float* cl = clast + bh * nc;
-  for (int c = nc - 1; c >= 0; --c) {
-    const float inc = d[(size_t)c * pn];
-    d[(size_t)c * pn] = g;
-    g = fmaf(expf(cl[c]), g, inc);
+  constexpr int kAhead = 8;          // chunks whose loads are in flight
+  float inc[kAhead], dec[kAhead];
+  auto fetch = [&](int c1, float (&in)[kAhead], float (&de)[kAhead]) {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (c1 - i >= 0) {
+        in[i] = d[(size_t)(c1 - i) * pn];
+        de[i] = cl[c1 - i];
+      }
+  };
+  fetch(nc - 1, inc, dec);
+  for (int c1 = nc - 1; c1 >= 0; c1 -= kAhead) {
+    float inc2[kAhead], dec2[kAhead];
+    fetch(c1 - kAhead, inc2, dec2);
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (c1 - i >= 0) {
+        d[(size_t)(c1 - i) * pn] = g;
+        g = fmaf(expf(dec[i]), g, inc[i]);
+      }
+      inc[i] = inc2[i];
+      dec[i] = dec2[i];
+    }
   }
   if (dstate != nullptr) dstate[e] = g;
 }
@@ -1154,7 +1804,9 @@ cudaError_t launch_any(const void* x, const float* dt, const float* a,
 }
 
 
-// The backward's shared-memory limits, raised once per instance.
+// The backward's shared-memory limits, raised once per instance; the
+// chunk gradients prefer the largest shared-memory carveout, which holds
+// two blocks of the bf16 N = 64 instance on an SM.
 template <typename T, int NPF>
 cudaError_t configure_bwd() {
   static const cudaError_t err = [] {
@@ -1166,10 +1818,37 @@ cudaError_t configure_bwd() {
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(ssd_bwd_chunk_grad<T, NPF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bwd_bytes(round64(np)));
+                               (int)smem_bwd_bytes<T>(round64(np)));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_bwd_chunk_grad<T, NPF>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
     return e;
   }();
   return err;
+}
+
+// Blocks per SM of the backward's four kernels, in launch order, at the
+// shared memory a call with state width n gives them.
+template <typename T, int NPF>
+cudaError_t bwd_occupancy(int n, int* blocks) {
+  cudaError_t e = configure_bwd<T, NPF>();
+  const int np = round16(n);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[0], ssd_bwd_state_inc<T, NPF>, kThreads,
+        smem_state_bytes(np));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[1], ssd_bwd_state_scan, kThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[2], ssd_bwd_chunk_grad<T, NPF>, kThreads,
+        smem_bwd_bytes<T>(round64(np)));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[3], ssd_bwd_reduce<T>, kThreads, 0);
+  return e;
 }
 
 // Floats of f32 scratch the backward takes, in this order: the state's
@@ -1199,8 +1878,9 @@ cudaError_t launch_bwd(const void* x, const float* dt, const float* a,
   float* dcp = dbp + (size_t)nbh * s * n;
   float* dap = dcp + (size_t)nbh * s * n;
   float* ddp = dap + (size_t)nbh * nc;
-  const bool vec = n % 8 == 0 && p % 8 == 0 && aligned16(dy) &&
-                   aligned16(cm) && aligned16(dds);
+  const bool vec = n % 8 == 0 && p % 8 == 0 && aligned16(x) &&
+                   aligned16(dy) && aligned16(bm) && aligned16(cm) &&
+                   aligned16(states) && aligned16(dds);
   const T* dyt = static_cast<const T*>(dy);
   const T* ct = static_cast<const T*>(cm);
 
@@ -1216,10 +1896,10 @@ cudaError_t launch_bwd(const void* x, const float* dt, const float* a,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   ssd_bwd_chunk_grad<T, NPF>
-      <<<dim3(nc, nbh), kThreads, smem_bwd_bytes(round64(np)), stream>>>(
+      <<<dim3(nc, nbh), kThreads, smem_bwd_bytes<T>(round64(np)), stream>>>(
           static_cast<const T*>(x), dt, a, static_cast<const T*>(bm), ct, d,
           d_bf16, dyt, states, dds, static_cast<T*>(dx), ddt, dbp, dcp, dap,
-          ddp, s, h, p, n, nc);
+          ddp, s, h, p, n, nc, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t n4 = (size_t)batch * s * n + h;
@@ -1283,6 +1963,20 @@ int mamba2_ssd_fwd(const void* x, const void* dt, const void* a,
 
 size_t mamba2_ssd_bwd_scratch(int batch, int s, int h, int p, int n) {
   return bwd_scratch_floats(batch, s, h, p, n);
+}
+
+// blocks[0..3]: how many blocks of each of the backward's four kernels
+// (state increments, reverse scan, chunk gradients, reduction) one SM
+// holds at once, for x's dtype code and state width n.
+int mamba2_ssd_bwd_blocks_per_sm(int dtype, int n, int* blocks) {
+  if (n < 1 || n > kMaxState || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      dtype == 0 ? (n == 64 ? bwd_occupancy<float, 64>(n, blocks)
+                            : bwd_occupancy<float, 0>(n, blocks))
+                 : (n == 64 ? bwd_occupancy<bf16, 64>(n, blocks)
+                            : bwd_occupancy<bf16, 0>(n, blocks));
+  return (int)err;
 }
 
 // The gradient of mamba2_ssd_fwd: dx, db, dc in x's type, ddt, da and

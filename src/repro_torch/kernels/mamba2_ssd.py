@@ -46,6 +46,10 @@ CHUNK = 64                # kC in the CUDA source: steps per chunk
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = (torch.float32,)
 
+# the backward's four kernels, in launch order
+BWD_KERNELS = ("ssd_bwd_state_inc", "ssd_bwd_state_scan",
+               "ssd_bwd_chunk_grad", "ssd_bwd_reduce")
+
 launches = _build.Launches("mamba2_ssd", "mamba2_ssd_bwd")
 reset_launches = launches.reset
 
@@ -58,6 +62,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mamba2_ssd_bwd.restype = i
     lib.mamba2_ssd_bwd_scratch.argtypes = [i] * 5
     lib.mamba2_ssd_bwd_scratch.restype = ctypes.c_size_t
+    lib.mamba2_ssd_bwd_blocks_per_sm.argtypes = [i, i, p]
+    lib.mamba2_ssd_bwd_blocks_per_sm.restype = i
     for fn in (lib.mamba2_ssd_max_state, lib.mamba2_ssd_chunk):
         fn.argtypes = []
         fn.restype = i
@@ -160,6 +166,19 @@ def bwd_scratch(b: int, s: int, h: int, p: int, n: int) -> int:
     lays it out: the state's gradient per chunk, the chunks' total log
     decays, and the per-head partials of dB, dC, da and dD."""
     return load().mamba2_ssd_bwd_scratch(b, s, h, p, n)
+
+
+def bwd_blocks_per_sm(dtype: torch.dtype, n: int) -> dict:
+    """How many blocks of each of the backward's four kernels one SM of
+    the current card holds at once (CUDA's occupancy calculator, at the
+    shared memory a call with state width n gives each), by kernel name."""
+    if dtype not in DTYPES or not 1 <= n <= MAX_STATE:
+        raise ValueError(f"no backward instance for {dtype}, N = {n}")
+    blocks = (ctypes.c_int * len(BWD_KERNELS))()
+    _build.raise_on(load().mamba2_ssd_bwd_blocks_per_sm(DTYPES[dtype], n,
+                                                        blocks),
+                    "mamba2_ssd_bwd_blocks_per_sm")
+    return dict(zip(BWD_KERNELS, blocks))
 
 
 def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

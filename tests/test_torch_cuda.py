@@ -635,6 +635,39 @@ def test_mamba2_ssd_bwd_strong_decay_matches_sequential(cuda):
     _assert_ssd_grads_close(got, [w.float() for w in want])
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba2_ssd_bwd_bf16_train_shape_strong_decay(cuda, with_state):
+    """zamba2's training shape (B 2, S 1024, 80 heads of 64, N 64) in bf16
+    under a strong decay (a = -8): the bf16 route multiplies on the
+    tensor cores with its f32 operands split into bf16 pieces, and its
+    f32 outputs (ddt, da and, with a state, dstate) stay within 1e-4
+    max|g| of the plain version, the bf16 ones within one rounding more.
+    Without a state and a final state's gradient, as a training step
+    calls it; with both, for dstate."""
+    args, dy, dso, _ = _ssd_bwd_inputs((2, 1024, 80, 64, 64),
+                                       torch.bfloat16, cuda, with_state)
+    args = list(args)
+    args[2] = torch.full((80,), -8.0, device=cuda)
+    dso = dso if with_state else None
+    _, _, states = ssd_kernel.mamba2_ssd(*args, return_states=True)
+    got = ssd_kernel.mamba2_ssd_bwd(*args, dy, dso, states=states)
+    torch.cuda.synchronize()
+    _assert_ssd_grads_close(got, ref.mamba2_ssd_bwd(*args, dy, dso))
+
+
+@pytest.mark.parametrize("shape", [(1, 130, 3, 80, 64), (2, 100, 2, 136, 16),
+                                   (1, 70, 2, 200, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_bwd_p_over_several_tiles(cuda, shape, dtype):
+    """P wider than one 64-column tile: the chunk gradients walk P in
+    tiles twice (dy x^T, S^T dy and G^T x; then dxdt), reloading each
+    tile, against the plain version."""
+    args, dy, dso, states = _ssd_bwd_inputs(shape, dtype, cuda, True)
+    got = ssd_kernel.mamba2_ssd_bwd(*args, dy, dso, states=states)
+    torch.cuda.synchronize()
+    _assert_ssd_grads_close(got, ref.mamba2_ssd_bwd(*args, dy, dso))
+
+
 def test_mamba2_ssd_bwd_is_deterministic(cuda):
     """dB and dC sum the heads, da and dD the chunks, in a fixed order with
     no atomics: two calls on the same inputs agree bit for bit."""
