@@ -50,7 +50,16 @@ to the CPU:
                 of 64, N 64) in bf16 and f32 and at S 777 with a state,
                 against its plain version, with a bitwise repeat and each
                 kernel's blocks per SM (the bf16 chunk gradients must
-                hold two).
+                hold two); and in a training step's call under a strong
+                decay (a = -8, 8 heads, both routes), its ddt and da
+                also against autograd of the sequential recurrence in
+                float64.  The WKV backward (rwkv6_wkv_bwd, four kernels
+                per call, asserted) at rwkv6-3b's train shape (B 2, S
+                1024, 40 heads of 64) in bf16 and f32, at S 777 with a
+                state, and at log w = -1.5 against autograd of the
+                sequential recurrence in float64, with a bitwise repeat.
+                A bf16 gradient is held to the plain version run on the
+                same values in f32, so that it carries one rounding.
   4. main     — the paper's loop through the port's entry points: 256 GS2
                 solves on the Executor (8 persistent workers, GP runtime
                 predictor), one naive fresh-server pass, a GP fit, a
@@ -137,7 +146,14 @@ to the CPU:
                 remat is nested, as the reference's); the profiled step
                 gives the SSD backward's ms; and one f32 step one group
                 (6 layers) deep on the card against the CPU at
-                ZAMBA_GRAD_LIMITS.
+                ZAMBA_GRAD_LIMITS.  Then rwkv6-3b the same way at its
+                published widths and depth (32 layers, d_model 2560, 40
+                WKV heads of 64, bf16, remat), its WKV's gradient through
+                the backward kernel: the WKV counters must read exactly
+                2 x 32 x 6 forward and 32 x 6 backward launches; the
+                profiled step gives the WKV backward's ms; and one f32
+                step 2 layers deep on the card against the CPU at
+                RWKV_GRAD_LIMITS.
  11. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
@@ -156,6 +172,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -272,12 +289,33 @@ def _profile_window(fn, iters: int):
     return _kernel_events(prof)
 
 
+class DeviceEvents(NamedTuple):
+    """One kernel (or copy) name's events in a profiler window, as
+    `key_averages()` sums them: device us and launches."""
+    key: str
+    self_device_time_total: float
+    count: int
+
+
 def _kernel_events(prof):
-    """The device-side events (kernels, copies) of a profiler window.  A
-    CPU operator's self device time repeats its kernels' time, so a sum
-    over every event counts each launched kernel twice."""
+    """The device-side events (kernels, copies) of a profiler window,
+    summed by name, read once per window from the trace's own events.  A
+    CPU operator's self device time repeats its kernels' time, so only
+    the device's events are summed.  `key_averages()` gives the same sums
+    but first builds the tree of every CPU operator in the window: 47 s
+    for a warm 512 + 16 zamba2 request (416,000 events) on the card's
+    host, where the window itself took 3 s."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = getattr(prof, "device_events", None)
+    if events is None:
+        sums = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                us, n = sums.get(e.name(), (0.0, 0))
+                sums[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+        events = [DeviceEvents(k, us, n) for k, (us, n) in sums.items()]
+        prof.device_events = events
+    return events
 
 
 def _device_busy_ms(prof) -> float:
@@ -386,6 +424,16 @@ def bound_ms(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unrounded(*ts):
+    """The tensors with bf16 ones in f32, the same values: a plain version
+    run on them returns its f32 results unrounded, so a bf16 kernel output
+    held to them carries one rounding, not two that may fall either side
+    of a boundary (a full bf16 step apart)."""
+    import torch
+    return [t.float() if t is not None and t.dtype == torch.bfloat16 else t
+            for t in ts]
 
 
 def max_err(a, b) -> float:
@@ -670,6 +718,9 @@ SSD_PHASES = ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_output")
 SSD_BWD_PHASES = ("ssd_bwd_state_inc", "ssd_bwd_state_scan",
                   "ssd_bwd_chunk_grad", "ssd_bwd_reduce")
 WKV_PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
+# the four of one rwkv6_wkv_bwd call, in launch order
+WKV_BWD_PHASES = ("wkv_bwd_state_inc", "wkv_bwd_state_scan",
+                  "wkv_bwd_chunk_grad", "wkv_bwd_reduce")
 
 
 def _phases(by_kernel: dict, names, fn, label: str):
@@ -750,6 +801,26 @@ def _rwkv_bound(r, v, state):
                + 4 * r.numel()
                + 4 * b * h * kd * vd * (2 if state is not None else 1))
     return bound_ms(n_bytes, 5 * b * s * h * kd * vd)
+
+
+def _wkv_bwd_bound(r, v, state, dstate_out):
+    """The WKV's gradient.  Bytes: r, k, v, u and do in r's type and w in
+    f32 read once, the state and its gradient read once where given; dr,
+    dk, dv, du in r's type, dw and dstate in f32 written once.  Operations:
+    the least the gradient of the sequential recurrence needs, 11 f32
+    operations per (t, h, k, v), counted as the SSD backward's are: the
+    state's gradient dS_t = w_t o dS_{t+1} + r_t do_t^T (a multiply and a
+    multiply-add), and one multiply-add each for dr (S_{t-1} do_t), dk (dS_t
+    v_t), dv (dS_t^T k_t) and the decay's gradient (<dS_t, S_{t-1}>), not
+    counting the states it reads, at the f32 CUDA-core peak."""
+    b, s, h, kd = r.shape
+    vd = v.shape[3]
+    elem = r.element_size()
+    state_rw = (state is not None) + (dstate_out is not None)
+    n_bytes = (elem * (4 * r.numel() + 3 * v.numel() + 2 * h * kd)
+               + 2 * 4 * r.numel()
+               + 4 * b * h * kd * vd * (state_rw + (state is not None)))
+    return bound_ms(n_bytes, 11 * b * s * h * kd * vd)
 
 
 def _attn_bwd_bound(q, k, v):
@@ -920,12 +991,19 @@ def _ssd_bwd_rows(randn):
     once).  The bf16 route multiplies on the tensor cores with its f32
     operands split into two bf16 pieces each
     (tests/test_torch_ssd_bwd_tc.py holds an emulation of that arithmetic
-    to the same tolerance on the CPU).  Each call is four kernels,
+    to the same tolerance on the CPU).  The plain version runs on the
+    bf16 values in f32 (`unrounded`): its gradients are the f32 results
+    the kernel rounds once.  Each call is four kernels,
     asserted from a profiler window, and two calls on the same inputs
     agree bit for bit (fixed-order sums, no atomics); the scratch is read
     from the allocator and held to the library's layout (`bwd_scratch`).
     Each row carries each kernel's blocks per SM (CUDA's occupancy
-    calculator); the bf16 chunk gradients at N = 64 must hold two."""
+    calculator); the bf16 chunk gradients at N = 64 must hold two.  Two
+    more rows, in bf16 and f32, take a training step's call under a strong
+    decay (a = -8, no state, no final state's gradient) at 8 heads, where
+    the kernel's ddt and da are also held to autograd of the sequential
+    recurrence in float64 at 1e-4 max|g| (`rel_to_scan`): each in-chunk
+    decay is summed from the log decays of its own steps."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import mamba2_ssd as ssd
@@ -933,14 +1011,19 @@ def _ssd_bwd_rows(randn):
     bf16, f32 = torch.bfloat16, torch.float32
     names = ("dx", "ddt", "da", "db", "dc", "dd", "dstate")
     rows = []
-    h, p, n = 80, 64, 64
-    for label, b, s, dtype, with_state in (
-            ("zamba2 train bf16 B=2 S=1024", 2, 1024, bf16, False),
-            ("zamba2 train f32 B=2 S=1024", 2, 1024, f32, False),
-            ("zamba2 bf16 S=777 +state", 1, 777, bf16, True)):
+    p, n = 64, 64
+    for label, b, s, h, dtype, with_state, a_val in (
+            ("zamba2 train bf16 B=2 S=1024", 2, 1024, 80, bf16, False, None),
+            ("zamba2 train f32 B=2 S=1024", 2, 1024, 80, f32, False, None),
+            ("zamba2 bf16 S=777 +state", 1, 777, 80, bf16, True, None),
+            ("zamba2 width bf16 B=2 S=1024 H=8 a=-8", 2, 1024, 8, bf16,
+             False, -8.0),
+            ("zamba2 width f32 B=2 S=1024 H=8 a=-8", 2, 1024, 8, f32,
+             False, -8.0)):
         x = randn(b, s, h, p, dtype=dtype)
         dt = F.softplus(randn(b, s, h))
-        a = -torch.ones(h, device="cuda")     # zamba2's a_log init is 0
+        a = (-torch.ones(h, device="cuda") if a_val is None  # a_log init 0
+             else torch.full((h,), a_val, device="cuda"))
         b_in, c_in = randn(b, s, n, dtype=dtype), randn(b, s, n, dtype=dtype)
         d = torch.ones(h, device="cuda", dtype=dtype)
         st = 0.1 * randn(b, h, p, n) if with_state else None
@@ -951,7 +1034,7 @@ def _ssd_bwd_rows(randn):
         run = (lambda: ssd.mamba2_ssd_bwd(*args, dy, dso, states=states))
         got = run()
         torch.cuda.synchronize()
-        want = ref.mamba2_ssd_bwd(*args, dy, dso)
+        want = ref.mamba2_ssd_bwd(*unrounded(*args, dy), dso)
         err, rel_err, errs = 0.0, 0.0, {}
         for name, g_, w in zip(names, got, want):
             if w is None:
@@ -964,6 +1047,21 @@ def _ssd_bwd_rows(randn):
                 raise AssertionError(f"mamba2_ssd_bwd {label} {name}: {e} > "
                                      f"{rel} x {scale}")
             err, rel_err = max(err, e), max(rel_err, errs[name])
+        rel_to_scan = None
+        if a_val is not None:
+            leaves = [t.double().requires_grad_() for t in args[:6]]
+            y64, _ = ref.mamba2_ssd_scan(*leaves)
+            scan = torch.autograd.grad(y64, leaves, dy.double())
+            rel_to_scan = {}
+            for name in ("ddt", "da"):
+                i = names.index(name)
+                e = max_err(got[i].double(), scan[i])
+                rel_to_scan[name] = e / float(scan[i].abs().max())
+                if not rel_to_scan[name] <= 1e-4:
+                    raise AssertionError(
+                        f"mamba2_ssd_bwd {label} {name}: "
+                        f"{rel_to_scan[name]} max|g| from the f64 scan's")
+            del leaves, y64, scan
         if not all(torch.equal(u, v) for u, v in zip(got, run())
                    if u is not None):
             raise AssertionError(f"mamba2_ssd_bwd {label}: two calls "
@@ -993,10 +1091,110 @@ def _ssd_bwd_rows(randn):
                 run, f"mamba2_ssd_bwd {label}",
                 4 * ssd.bwd_scratch(b, s, h, p, n)),
             deterministic=True, blocks_per_sm=blocks,
+            **({} if rel_to_scan is None else {"rel_to_scan": rel_to_scan}),
             note="ms sums the device time of the call's four kernels (the "
                  "state gradient's increments, the reverse scan, the chunk "
                  "gradients, the reduction); bf16 on mma.sync with split "
                  "f32 operands, f32 on the CUDA cores"))
+    return rows
+
+
+def _wkv_bwd_rows(randn):
+    """rwkv6_wkv_bwd against its plain version (ref.rwkv6_wkv_bwd) on the
+    card, at the train path's shape (rwkv6-3b: B 2, S 1024, 40 heads of 64,
+    no state and no final-state gradient, as a training step gives it) in
+    bf16 and f32 (w f32 as the model makes it), at a ragged S with a state
+    and the final state's gradient, and under a strong decay (log w =
+    -1.5) against autograd of the sequential recurrence (ref.
+    rwkv6_wkv_scan) in float64.  Tolerance per gradient, against its
+    max|g|: 1e-4 (the same f32 sums in another order), plus 2^-8 for a
+    gradient in bf16 (the kernel rounds the f32 result once; the plain
+    version runs on the bf16 values in f32, `unrounded`); dw is compared
+    as w o dw, the log decay's gradient.  Each call is four kernels, asserted
+    from a profiler window, and two calls on the same inputs agree bit for
+    bit (a fixed-order reduction of du, no atomics); the scratch is read
+    from the allocator and held to the library's layout (`bwd_scratch`).
+    No single PyTorch call computes the function: library_ms is null."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    rows = []
+    h, kd = 40, 64
+    for label, b, s, dtype, with_state, log_w in (
+            ("rwkv6 train bf16 B=2 S=1024", 2, 1024, bf16, False, None),
+            ("rwkv6 train f32 B=2 S=1024", 2, 1024, f32, False, None),
+            ("rwkv6 bf16 S=777 +state", 1, 777, bf16, True, None),
+            ("rwkv6 bf16 S=512 +state log w=-1.5 vs f64 scan", 1, 512, bf16,
+             True, -1.5)):
+        r, k, v = (randn(b, s, h, kd, dtype=dtype) for _ in range(3))
+        if log_w is None:
+            w = torch.exp(-torch.exp(0.5 * randn(b, s, h, kd) - 1.0))
+        else:
+            w = torch.full((b, s, h, kd), math.exp(log_w), device="cuda")
+        u = randn(h, kd, dtype=dtype)
+        st = 0.1 * randn(b, h, kd, kd) if with_state else None
+        do = randn(b, s, h, kd, dtype=dtype)
+        dso = randn(b, h, kd, kd) if with_state else None
+        args = (r, k, v, w, u, st)
+        _, _, states = wkv.rwkv6_wkv(*args, return_states=True)
+        run = (lambda: wkv.rwkv6_wkv_bwd(*args, do, dso, states=states))
+        got = run()
+        torch.cuda.synchronize()
+        if log_w is None:
+            want = ref.rwkv6_wkv_bwd(*unrounded(*args, do), dso)
+        else:
+            leaves = [t.double().requires_grad_() for t in args]
+            out64, fin64 = ref.rwkv6_wkv_scan(*leaves)
+            want = torch.autograd.grad((out64, fin64), leaves,
+                                       (do.double(), dso.double()))
+            del leaves, out64, fin64
+        err, rel_err, errs = 0.0, 0.0, {}
+        for name, g_, x in zip(names, got, want):
+            if x is None:
+                continue
+            g_, x = g_.double(), x.double()
+            if name == "dw":
+                g_, x = g_ * w.double(), x * w.double()
+            scale = float(x.abs().max())
+            rel = 1e-4 + (2 ** -8 if dtype == bf16
+                          and name in ("dr", "dk", "dv", "du") else 0.0)
+            e = max_err(g_, x)
+            errs[name] = e / scale if scale > 0 else e
+            if not (torch.isfinite(g_).all() and e <= rel * scale):
+                raise AssertionError(f"rwkv6_wkv_bwd {label} {name}: {e} > "
+                                     f"{rel} x {scale}")
+            err, rel_err = max(err, e), max(rel_err, errs[name])
+        del want
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, run())
+                   if a_ is not None):
+            raise AssertionError(f"rwkv6_wkv_bwd {label}: two calls differ")
+        kernels = {}
+        ms = device_ms(run, 10, label=f"rwkv6_wkv_bwd {label}",
+                       by_kernel=kernels, expect=len(WKV_BWD_PHASES))
+        phase_ms, per_call = _phases(kernels, WKV_BWD_PHASES, run,
+                                     f"rwkv6_wkv_bwd {label}")
+        bnd, by = _wkv_bwd_bound(r, v, st, dso)
+        rows.append(dict(
+            name=f"rwkv6_wkv_bwd[{label}]", source=wkv.SOURCE,
+            grad_tol="1e-4 max|g| (+ 2^-8 max|g| for a bf16 gradient); dw "
+                     "as w o dw",
+            shape=f"r{tuple(r.shape)} v{tuple(v.shape)}", max_abs_err=err,
+            max_rel_err=rel_err, rel_err_by_grad=errs, ms=ms,
+            call_ms=call_ms(run, 10),
+            plain_ms=device_ms(lambda: ref.rwkv6_wkv_bwd(*args, do, dso), 2,
+                               warmup=1,
+                               label=f"plain rwkv6_wkv_bwd {label}"),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+            kernel_launches_per_call=per_call, phase_ms=phase_ms,
+            scratch_bytes=measured_scratch(
+                run, f"rwkv6_wkv_bwd {label}",
+                4 * wkv.bwd_scratch(b, s, h, kd, kd)),
+            deterministic=True,
+            note="ms sums the device time of the call's four kernels (the "
+                 "state gradient's increments, the reverse scan, the chunk "
+                 "gradients, the reduction of du); f32 on the CUDA cores"))
     return rows
 
 
@@ -1180,6 +1378,7 @@ def phase_lm_kernels():
                  "(chunk states, state scan, output); the launches per "
                  "call and phase_ms are counted in a profiler window"))
     rows += _ssd_bwd_rows(randn)
+    rows += _wkv_bwd_rows(randn)
     rows += _attention_bwd_rows(randn)
     for r in rows:
         r["source"] = str(Path(r["source"]).relative_to(ROOT))
@@ -2251,6 +2450,11 @@ TRAIN_ARCH = "starcoder2-3b"
 # group deep
 ZAMBA_TRAIN_ARCH = "zamba2-2.7b"
 ZAMBA_CPU_LAYERS = 6
+# rwkv6-3b trains after them at its published widths and depth (32 layers,
+# 40 WKV heads of 64), its WKV's gradient through the backward kernel; its
+# card-vs-CPU step is 2 layers deep
+RWKV_TRAIN_ARCH = "rwkv6-3b"
+RWKV_CPU_LAYERS = 2
 TRAIN_STEPS = 6
 TRAIN_BATCH = 2
 TRAIN_SEQ = 1024
@@ -2305,6 +2509,26 @@ ZAMBA_GRAD_LIMITS = (
 )
 
 
+# rwkv6's card-vs-CPU step (2 layers, f32): relative L2 gap per tensor,
+# the first pattern that matches the tensor's name, set as
+# TRAIN_GRAD_LIMITS are: about 3x the largest card-vs-CPU gap over three
+# seeds and below the smallest gap of the TF32 control
+# (train_grad_readings.py --arch rwkv6-3b on an NVIDIA H100 80GB HBM3 at
+# 700 W: the numbers beside each pattern).  No softmax saturates here; the
+# gap goes by whether the gradient comes back through layer 1's receptance
+# and key path (r, k, u, their mixes and norm) into layer 0.  The CPU's own
+# f32 gradient is as far from float64 as the card's on every tensor.
+RWKV_GRAD_LIMITS = (
+    # the head, both layers' decay and layer 1's value, gate, output and
+    # channel mix: <= 6.12e-6, TF32 >= 1.86e-3
+    (r"final_norm|lm_head|layers\.\d+\.decay_.*"
+     r"|layers\.1\.(w_[vgo]|cmix_.*|cw_.*|ln2_.*|gn_.*)", 2e-5),
+    # layer 1's r, k, u and their mixes and norm, layer 0 and the
+    # embedding: <= 4.20e-4, TF32 >= 6.34e-3
+    (r".*", 1.3e-3),
+)
+
+
 def _depth_cut(arch: str, layers: int) -> str:
     """Register `arch` cut to `layers` layers, its widths kept, under a new
     name that the port's `train()` takes (as examples/train_lm.py
@@ -2351,18 +2575,23 @@ def _train_step_profile(out, cfg, seed):
                    if any(k in e.key for k in names)) / 1e3
 
     # the attention backward's kernels (flash_attention_bwd_*), and the
-    # SSD's forward and backward kernels, each summed
+    # SSD's and the WKV's forward and backward kernels, each summed
     attn_bwd = kernel_ms("flash_attention_bwd")
     ssd_bwd = kernel_ms(*SSD_BWD_PHASES)
     ssd_fwd = kernel_ms(*SSD_PHASES)
+    wkv_bwd = kernel_ms(*WKV_BWD_PHASES)
+    wkv_fwd = kernel_ms(*WKV_PHASES)
+    seen = busy > 0.0
     return dict(wall_ms=wall * 1e3,
-                device_busy_ms=busy if busy > 0.0 else None,
+                device_busy_ms=busy if seen else None,
                 device_idle_share=idle,
-                attention_bwd_ms=attn_bwd if busy > 0.0 else None,
-                ssd_bwd_ms=ssd_bwd if busy > 0.0 else None,
-                ssd_fwd_ms=ssd_fwd if busy > 0.0 else None,
-                ssd_bwd_share_of_busy=(ssd_bwd / busy if busy > 0.0
-                                       else None),
+                attention_bwd_ms=attn_bwd if seen else None,
+                ssd_bwd_ms=ssd_bwd if seen else None,
+                ssd_fwd_ms=ssd_fwd if seen else None,
+                ssd_bwd_share_of_busy=ssd_bwd / busy if seen else None,
+                wkv_bwd_ms=wkv_bwd if seen else None,
+                wkv_fwd_ms=wkv_fwd if seen else None,
+                wkv_bwd_share_of_busy=wkv_bwd / busy if seen else None,
                 top_device_ops=_top_device_ops(prof, 8))
 
 
@@ -2376,11 +2605,17 @@ def _train_launches_want(cfg) -> dict:
     shared attention block is checkpointed, and inside the group's
     recompute each Mamba2 layer is checkpointed again.  So a Mamba2
     layer's forward runs three times a step (the forward, its group's
-    recompute, its own recompute) and the shared block's twice."""
+    recompute, its own recompute) and the shared block's twice.  rwkv6's
+    layers are checkpointed one by one: each WKV forward twice a step, its
+    backward once."""
     steps = TRAIN_STEPS
     want = {"flash_attention": 0, "flash_attention_bwd": 0,
-            "mamba2_ssd": 0, "mamba2_ssd_bwd": 0}
-    if cfg.shared_attn_every:
+            "mamba2_ssd": 0, "mamba2_ssd_bwd": 0,
+            "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0}
+    if cfg.block_kind == "rwkv6":
+        want.update(rwkv6_wkv=2 * cfg.n_layers * steps,
+                    rwkv6_wkv_bwd=cfg.n_layers * steps)
+    elif cfg.shared_attn_every:
         groups = cfg.n_layers // cfg.shared_attn_every
         want.update(mamba2_ssd=3 * cfg.n_layers * steps,
                     mamba2_ssd_bwd=cfg.n_layers * steps,
@@ -2395,13 +2630,14 @@ def _train_launches_want(cfg) -> dict:
 def _train_full_depth(arch: str):
     """`arch` at its published widths and depth (bf16, remat) through the
     port's `train()`: 6 AdamW steps at B 2, S 1024 on synthetic data.  The
-    attention and SSD launch counters are zeroed just before and read just
-    after; they must read `_train_launches_want` exactly."""
+    attention, SSD and WKV launch counters are zeroed just before and read
+    just after; they must read `_train_launches_want` exactly."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.launch.train import train
     from repro_torch.models import model
 
@@ -2413,6 +2649,7 @@ def _train_full_depth(arch: str):
     before = torch.cuda.memory_stats()
     fa.reset_launches()
     ssd.reset_launches()
+    wkv.reset_launches()
     t0 = time.perf_counter()
     out = train(arch, reduced=False, steps=TRAIN_STEPS,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1)
@@ -2425,7 +2662,7 @@ def _train_full_depth(arch: str):
     allocator = {k: after.get(k, 0) - before.get(k, 0)
                  for k in ("num_device_alloc", "num_device_free",
                            "num_alloc_retries")}
-    launches = {**fa.launches, **ssd.launches}
+    launches = {**fa.launches, **ssd.launches, **wkv.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = _train_launches_want(cfg)
     if launches != want:
@@ -2478,7 +2715,9 @@ def _train_full_depth(arch: str):
         if p["device_idle_share"] is not None else "not measured",
         attention_bwd_ms=p["attention_bwd_ms"] or "not measured",
         ssd_bwd_ms=p["ssd_bwd_ms"] or "not measured",
-        ssd_fwd_ms=p["ssd_fwd_ms"] or "not measured")
+        ssd_fwd_ms=p["ssd_fwd_ms"] or "not measured",
+        wkv_bwd_ms=p["wkv_bwd_ms"] or "not measured",
+        wkv_fwd_ms=p["wkv_fwd_ms"] or "not measured")
     for op, ms, calls in p["top_device_ops"]:
         log("train.op", arch=arch, op=repr(op), device_ms=f"{ms:.3f}",
             calls=calls)
@@ -2589,8 +2828,8 @@ def _train_checkpoint_resume():
 def _train_step_grads(seed: int = 7, tok_seed: int = 9,
                       repeat: bool = False, arch: str = TRAIN_ARCH,
                       layers: int = TRAIN_CPU_LAYERS) -> dict:
-    """One train step of `arch` (starcoder2-3b, or zamba2-2.7b) at full
-    width, `layers` deep, in f32, from the same parameters (drawn from `seed`) and batch
+    """One train step of `arch` (starcoder2-3b, zamba2-2.7b or rwkv6-3b)
+    at full width, `layers` deep, in f32, from the same parameters (drawn from `seed`) and batch
     (from `tok_seed`): the gradient of `loss_fn`, then `adamw_update` (the
     train step at one micro-batch), on the card and through the port on
     the CPU; the same gradient on the card with TF32 GEMMs (a control of
@@ -2679,7 +2918,8 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
     the CPU tests' tolerances (f32 sums in other orders; AdamW's first
     step turns a gradient near 0 into +-lr).  Each tensor's gradient is
     within its limit in `limits` (TRAIN_GRAD_LIMITS for starcoder2,
-    ZAMBA_GRAD_LIMITS for zamba2) of the CPU's, the TF32 control must
+    ZAMBA_GRAD_LIMITS for zamba2, RWKV_GRAD_LIMITS for rwkv6) of the
+    CPU's, the TF32 control must
     read more than that limit on every tensor, and the gradient norm is
     held to the bound those limits give it (|‖a‖ − ‖b‖| <= ‖a − b‖)."""
     import re
@@ -2725,8 +2965,11 @@ def phase_train():
     launch counts, the checkpoint round trip and resume at a depth cut,
     and one step on the card against the CPU; then zamba2-2.7b's
     full-depth run (its SSD's gradient through the backward kernel) and
-    its one-group step on the card against the CPU.  No checkpoint round
-    for zamba2: the format is the model's tree, which starcoder2 proves."""
+    its one-group step on the card against the CPU; then rwkv6-3b's
+    full-depth run (its WKV's gradient through the backward kernel) and
+    its 2-layer step on the card against the CPU.  No checkpoint round
+    for zamba2 or rwkv6: the format is the model's tree, which starcoder2
+    proves."""
     import torch
     # a trainer runs in a process of its own: the serve phases' cached
     # blocks are handed back first, so they do not shape its allocations
@@ -2749,14 +2992,26 @@ def phase_train():
         ZAMBA_TRAIN_ARCH, ZAMBA_CPU_LAYERS, ZAMBA_GRAD_LIMITS)
     zamba["card_vs_cpu_s"] = time.perf_counter() - t1
     out["zamba2"] = zamba
-    launches = {k: launches[k] + zamba_launches[k] for k in launches}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rwkv, rwkv_launches = _train_full_depth(RWKV_TRAIN_ARCH)
+    rwkv["full_depth_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rwkv["card_vs_cpu"] = _train_card_vs_cpu(
+        RWKV_TRAIN_ARCH, RWKV_CPU_LAYERS, RWKV_GRAD_LIMITS)
+    rwkv["card_vs_cpu_s"] = time.perf_counter() - t1
+    out["rwkv6"] = rwkv
+    launches = {k: launches[k] + zamba_launches[k] + rwkv_launches[k]
+                for k in launches}
     out["seconds"] = time.perf_counter() - t0
     log("train.total", seconds=f"{out['seconds']:.3f}",
         full_depth_s=f"{out['full_depth_s']:.3f}",
         checkpoint_s=f"{out['checkpoint_s']:.3f}",
         card_vs_cpu_s=f"{out['card_vs_cpu_s']:.3f}",
         zamba2_full_depth_s=f"{zamba['full_depth_s']:.3f}",
-        zamba2_card_vs_cpu_s=f"{zamba['card_vs_cpu_s']:.3f}", **launches)
+        zamba2_card_vs_cpu_s=f"{zamba['card_vs_cpu_s']:.3f}",
+        rwkv6_full_depth_s=f"{rwkv['full_depth_s']:.3f}",
+        rwkv6_card_vs_cpu_s=f"{rwkv['card_vs_cpu_s']:.3f}", **launches)
     return out, launches
 
 
@@ -2909,7 +3164,9 @@ def main() -> int:
                 "mamba2_ssd_bwd": "src/repro/kernels/ref.py:310 "
                                   "(XLA's autodiff of mamba2_ssd_chunked; "
                                   "no Pallas kernel)",
-                "rwkv6_wkv": "src/repro/kernels/rwkv6_scan.py:24"}
+                "rwkv6_wkv": "src/repro/kernels/rwkv6_scan.py:24",
+                "rwkv6_wkv_bwd": "src/repro/kernels/ops.py:55 (XLA's "
+                                 "autodiff of rwkv6_wkv; no Pallas kernel)"}
     kernels = []
     for r in rows:
         base = r["name"].split("[")[0]
@@ -2925,7 +3182,7 @@ def main() -> int:
                                  "phase_ms", "launch_floor_ms", "note",
                                  "grad_tol", "max_rel_err",
                                  "rel_err_by_grad", "blocks_per_sm",
-                                 "library_kernels")
+                                 "rel_to_scan", "library_kernels")
                if k in r}))
     script_s = time.perf_counter() - t_script
     log("total", seconds=f"{script_s:.1f}")

@@ -109,12 +109,17 @@
 //   4. ssd_bwd_reduce sums them in index order, so the same inputs give
 //      the same bits.
 // Every exponent taken is <= 0 (e^{cum_t - cum_j} with j <= t, and
-// e^{cum_L - cum_j}); steps past the end of S carry dt = 0 and zero
-// operands, and their gradients are not written.  What still holds it
-// back (zamba2 bf16 train shape, on an H100): step 3 takes about 61% of
-// the call, step 1 16%, step 4 12%, the scan 10%.  Step 3's phases are
-// serial behind block barriers (the 64-thread prefix sums and dla loops
-// among them), and where P spans more than one tile, x, dy and G are
+// e^{cum_L - cum_j}), and each in-chunk one is summed from the log decays
+// of its own steps (chunk_segments, seg_exp): as the difference of two
+// running sums near -500 (a = -8), its rounding put da 1.6e-4 max|g| from
+// the sequential scan's gradient.  Steps past the end of S carry dt = 0
+// and zero operands, and their gradients are not written.  What still
+// holds it back (zamba2 bf16 train shape, on an H100): step 3 takes about
+// 69% of the call, step 1 13%, step 4 10%, the scan 8%; within a diagonal
+// sub-block each exponent is a loop of up to 15 adds, taken twice (for Dm
+// and for M).  Step 3's phases are serial behind block barriers (the
+// 64-thread prefix sums and dla loops among them), and where P spans more
+// than one tile, x, dy and G are
 // read a second time for phase C.  The scan reads and writes the chunk
 // gradients (42 MB each way), and step 3 writes the per-head partials of
 // dB and dC that step 4 reads (84 MB).
@@ -694,8 +699,67 @@ __global__ void __launch_bounds__(
 // is left after it cancels is below its rounding.)
 
 constexpr int kMaxNH = kMaxState / 64;   // 64-column groups of N, at most
-constexpr int kBwdVecs = 8;              // per-step vectors (f32 route)
-constexpr int kTcVecs = 12;              // per-step vectors (bf16 route)
+constexpr int kSegVecs = 3;              // la, lc, rs (chunk_segments)
+constexpr int kBwdVecs = 7 + kSegVecs;   // per-step vectors (f32 route)
+constexpr int kTcVecs = 11 + kSegVecs;   // per-step vectors (bf16 route)
+constexpr int kSub = 16;                 // sub-block of the segment sums
+
+// Warp 0 only, given chunk_cumsum's dt (two steps per lane): the chunk's
+// log decays la = dt A_h and, per 16-step sub-block, each step's sum from
+// the start of its sub-block (lc, inclusive) and the sum of the rest of
+// its sub-block (rs, exclusive), into seg[0..63], seg[64..127] and
+// seg[128..191]; edec[i] = e^{cum_L - cum_j} for the lane's steps j, its
+// exponent rs_j plus the whole sub-blocks after j's.  Every one is a sum of
+// terms of one sign, so it holds to the precision of its own size.
+__device__ __forceinline__ void chunk_segments(const float (&d)[2],
+                                               float a_h, float* seg,
+                                               float (&edec)[2]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kW = kSub / 2;           // lanes per sub-block
+  const int lane = threadIdx.x, t = 2 * lane, in_sub = lane & (kW - 1);
+  const float la0 = d[0] * a_h, la1 = d[1] * a_h;
+  float pre = la0 + la1, suf = la0 + la1;
+#pragma unroll
+  for (int o = 1; o < kW; o <<= 1) {
+    const float u = __shfl_up_sync(kAll, pre, o, kW);
+    const float v = __shfl_down_sync(kAll, suf, o, kW);
+    if (in_sub >= o) pre += u;
+    if (in_sub + o < kW) suf += v;
+  }
+  const float prev = __shfl_up_sync(kAll, pre, 1, kW);
+  const float next = __shfl_down_sync(kAll, suf, 1, kW);
+  const float lc0 = (in_sub == 0 ? 0.0f : prev) + la0;
+  const float rs1 = in_sub == kW - 1 ? 0.0f : next;
+  seg[t] = la0;
+  seg[t + 1] = la1;
+  seg[kC + t] = lc0;
+  seg[kC + t + 1] = lc0 + la1;
+  seg[2 * kC + t] = rs1 + la1;
+  seg[2 * kC + t + 1] = rs1;
+  float after = 0.0f;                    // the sub-blocks after this one
+#pragma unroll
+  for (int m = kC / kSub - 1; m > 0; --m) {
+    const float tot = __shfl_sync(kAll, pre, kW * m + kW - 1);
+    if (m > lane / kW) after += tot;
+  }
+  edec[0] = expf((rs1 + la1) + after);
+  edec[1] = expf(rs1 + after);
+}
+
+// e^{cum_t - cum_j} for j <= t, from chunk_segments' sums: the exponent
+// sum_{j<k<=t} la_k term by term inside one sub-block, else lc_t, the
+// whole sub-blocks between and rs_j.  Never a difference of running sums.
+__device__ __forceinline__ float seg_exp(const float* seg, int t, int j) {
+  const int st = t / kSub, sj = j / kSub;
+  float x = 0.0f;
+  if (st == sj) {
+    for (int k = j + 1; k <= t; ++k) x += seg[k];
+  } else {
+    x = seg[kC + t] + seg[2 * kC + j];
+    for (int m = sj + 1; m < st; ++m) x += seg[kC + kSub * m + kSub - 1];
+  }
+  return expf(x);
+}
 constexpr int kPieces = 2;               // bf16 pieces of an f32 operand
 constexpr int kLdC = pad_ld<bf16>(kC);   // row stride of bf16 [64][64] tiles
 
@@ -867,8 +931,8 @@ __device__ __forceinline__ void chunk_grad_fma(
   float* s_b = s_c + kC * ldn;         // [kC][ldn]  B
   float* s_m = s_b + kC * ldn;         // [kC][kLdG] M[t][j]
   float* s_dm = s_m + kC * kLdG;       // [kC][kLdG] Dm[t][j]
-  float* s_cum = s_dm + kC * kLdG;     // [kC] cum_t
-  float* s_dt = s_cum + kC;            // [kC] dt_t
+  float* s_seg = s_dm + kC * kLdG;     // [kSegVecs][kC] chunk_segments'
+  float* s_dt = s_seg + kSegVecs * kC; // [kC] dt_t
   float* s_ecum = s_dt + kC;           // [kC] e^{cum_t}
   float* s_edec = s_ecum + kC;         // [kC] e^{cum_L - cum_j}
   float* s_r = s_edec + kC;            // [kC] r_t
@@ -910,13 +974,14 @@ __device__ __forceinline__ void chunk_grad_fma(
     float d2[2], cum[2];
     const float last = chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows,
                                     a_h, d2, cum);
+    float edec[2];
+    chunk_segments(d2, a_h, s_seg, edec);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int k = 2 * tid + i;
-      s_cum[k] = cum[i];
       s_dt[k] = d2[i];
       s_ecum[k] = expf(cum[i]);
-      s_edec[k] = expf(last - cum[i]);
+      s_edec[k] = edec[i];
       s_ddt[k] = 0.0f;
     }
     if (tid == 0) s_red[16] = last;
@@ -1018,7 +1083,7 @@ __device__ __forceinline__ void chunk_grad_fma(
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int t = tr + i, j = tx + 16 * jj;
-        const float e = j <= t ? expf(s_cum[t] - s_cum[j]) : 0.0f;
+        const float e = j <= t ? seg_exp(s_seg, t, j) : 0.0f;
         const float dxm = adx[i][jj] * s_dt[j];     // dy_t . xdt_j
         s_m[t * kLdG + j] = cb[i][jj] * e;
         s_dm[t * kLdG + j] = dxm * e;
@@ -1204,8 +1269,8 @@ __device__ __forceinline__ void chunk_grad_tc(
   float* s_w = reinterpret_cast<float*>(s_dy + kTileC);   // [kC][kLdG] W
   float* stage_s = reinterpret_cast<float*>(slot0);   // [kPB][ncol] S
   float* stage_g = reinterpret_cast<float*>(slot1);   // [kPB][ncol] G
-  float* s_cum = s_w + kC * kLdG;      // [kC] cum_t
-  float* s_dt = s_cum + kC;            // [kC] dt_t
+  float* s_seg = s_w + kC * kLdG;      // [kSegVecs][kC] chunk_segments'
+  float* s_dt = s_seg + kSegVecs * kC; // [kC] dt_t
   float* s_ecum = s_dt + kC;           // [kC] e^{cum_t}
   float* s_edec = s_ecum + kC;         // [kC] e^{cum_L - cum_j}
   float* s_dla = s_edec + kC;          // [kC] dla_i
@@ -1284,13 +1349,14 @@ __device__ __forceinline__ void chunk_grad_tc(
     float d2[2], cum[2];
     const float last = chunk_cumsum(dt + row0 * h + head, (size_t)h, nrows,
                                     a[head], d2, cum);
+    float edec[2];
+    chunk_segments(d2, a[head], s_seg, edec);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int k = 2 * tid + i;
-      s_cum[k] = cum[i];
       s_dt[k] = d2[i];
       s_ecum[k] = expf(cum[i]);
-      s_edec[k] = expf(last - cum[i]);
+      s_edec[k] = edec[i];
       s_ddt[k] = 0.0f;
     }
     if (tid == 0) s_red[16] = last;
@@ -1365,8 +1431,7 @@ __device__ __forceinline__ void chunk_grad_tc(
         float dm[2];
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
-          const float e =
-              j + k <= t ? expf(s_cum[t] - s_cum[j + k]) : 0.0f;
+          const float e = j + k <= t ? seg_exp(s_seg, t, j + k) : 0.0f;
           const float dxm = adx[nt][2 * r2 + k] * s_dt[j + k];
           dm[k] = dxm * e;
           if (j + k == t) dd_part += adx[nt][2 * r2 + k];
@@ -1410,8 +1475,7 @@ __device__ __forceinline__ void chunk_grad_tc(
         float m[2];
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
-          const float e =
-              j + k <= t ? expf(s_cum[t] - s_cum[j + k]) : 0.0f;
+          const float e = j + k <= t ? seg_exp(s_seg, t, j + k) : 0.0f;
           m[k] = cb[nt][2 * r2 + k] * e;
         }
         uint32_t pm[kPieces];

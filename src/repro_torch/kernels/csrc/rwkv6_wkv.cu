@@ -765,12 +765,731 @@ cudaError_t launch_any(const void* r, const void* k, const void* v,
                       batch, s, h, kd, vd, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The backward (rwkv6_wkv_bwd) replaces no Pallas kernel: the reference
+// differentiates the WKV with XLA (repro/kernels/ops.py rwkv6_wkv, through
+// repro/kernels/ref.py rwkv6_wkv_chunked or the Pallas kernel's plain
+// body).  Per (b, h) and chunk, with la = ln max(w, 1e-30), c_t its
+// in-chunk running sum (c_{-1} = 0, L the last step), S the state entering
+// the chunk and G the gradient of the state leaving it:
+//   G_{c-1} = e^{c_L} o G_c + sum_t (r_t o e^{c_{t-1}}) do_t^T
+//   dr_t = e^{c_{t-1}} o (S do_t) + sum_{j<t} (do_t.v_j) k_j o E_tj
+//          + (do_t.v_t) u o k_t
+//   dk_j = sum_{t>j} (do_t.v_j) r_t o E_tj + (do_j.v_j) u o r_j
+//          + e^{c_L-c_j} o (G v_j)
+//   dv_j = sum_{t>j} A_tj do_t + beta_j do_j + G^T (k_j o e^{c_L-c_j})
+//   du   = sum_{b,t} (do_t.v_t) r_t o k_t
+//   dla_i = sum_{t>i} x_t + sum_{j<i<t} y_tj + q + sum_{j<i} z_j
+// with E_tj = e^{c_{t-1}-c_j}, A_tj = sum_k r_t k_j E_tj, beta_j =
+// sum_k r_j u k_j, x_t = r_t o e^{c_{t-1}} o (S do_t), y_tj = (do_t.v_j)
+// r_t o k_j o E_tj, z_j = k_j o e^{c_L-c_j} o (G v_j) and q = e^{c_L} o
+// rowsum(S o G); dw = dla / w where w >= 1e-30, else 0.  dla is summed term
+// by term: as a reverse cumulative sum of the gradient of c, y_{t,t-1}
+// (decay e^0) would enter it with both signs.
+//
+// Every exponent is summed from the log decays of its own steps, never
+// the difference of two running sums (log w runs down to -69 a step).
+// The chunk is cut into four 16-step sub-blocks.  Per (step, channel) the
+// block holds e^{lcp_t} (lcp_t: the sum over the steps of t's sub-block
+// before t) and e^{rs_j} (rs_j: the sum over the steps of j's sub-block
+// after j), and per sub-block and channel e^{T_M} (its total).  Where t and
+// j lie in sub-blocks I > J, E_tj = e^{lcp_t} D_IJ e^{rs_j} with D_IJ the
+// product of e^{T_M} over the sub-blocks between; e^{c_{t-1}}, e^{c_L-c_j}
+// and e^{c_L} are products of the same factors.  Inside one sub-block the
+// exponent is summed step by step.  Every factor is <= 1, so a factor
+// underflows only where the term is smaller still.  The middle term of dla
+// splits by the sub-blocks of t and j against i's sub-block m:
+//   (a) t after m, j before m:  sum D_IJ Q_IJ, Q_IJ = sum_{t in I, j in J}
+//       (r_t e^{lcp_t}) (do_t.v_j) (k_j e^{rs_j})
+//   (b) t after m, j in m, j < i:  sum_j k_j e^{rs_j} X_j, X_j the sum over
+//       later sub-blocks that dk_j's off-diagonal part also takes
+//   (c) t in m, t > i, j before m:  sum_t r_t e^{lcp_t} Y_t, likewise dr's
+//   (d) t and j in m:  pivoted at i, e^{c_{t-1}-c_i} e^{c_i-c_j}.
+//
+// What bounds it on the H100: at rwkv6-3b's train shape (B 2, S 1024, H
+// 40, K = V = 64) the gradient of the sequential recurrence needs about
+// 11 f32 operations per (t, h, k, v) (as the SSD's), 3.7 GFLOP, ~55 us
+// at 67 TFLOP/s, against ~50 MB read and written, ~15 us: the f32 rate.
+// Design: four launches, no block walking more than one chunk, no
+// atomics.
+//   1. wkv_bwd_state_inc, grid (NC, B H): each chunk's
+//      sum_t (r_t o e^{c_{t-1}}) do_t^T and its total log decay c_L.
+//   2. wkv_bwd_state_scan, one thread per (b, h, k, v): the state's
+//      gradient from the last chunk to the first, written over the
+//      increments (dstate at the end).
+//   3. wkv_bwd_chunk_grad, grid (NC, B H): one block holds a chunk's r,
+//      k, v, do, la, S and G (K, V <= 64, 190 KiB of shared memory) and
+//      writes dr, dk, dv, dw and its (b, chunk) partial of du.  Every
+//      product is f32 on the CUDA cores in 4 x 4 register tiles (the
+//      port allows no TF32).
+//   4. wkv_bwd_reduce sums the partials of du in index order, so the same
+//      inputs give the same bits.
+// Steps past the end of S carry w = 1 and zero operands, and their
+// gradients are not written.  A simple kernel: one block of 256 threads
+// per SM, its phases serial behind block barriers, and the diagonal
+// sub-blocks' exponentials per (t, j, k).  What holds it back (rwkv6-3b's
+// train shape, bf16, on an H100; wkv_ablation.py --part bwd): the chunk
+// gradients are about 93% of the call; of them the loads, running sums,
+// barriers and stores alone about half, A's diagonal sub-blocks (an
+// exponential and a step-by-step sum per (t, j, k)) a quarter, the
+// pivoted dla term an eighth.
+
+constexpr int kBK = 64;          // widest K and V the backward takes
+constexpr int kLdB = kBK + 4;    // row stride of the [.][k] and [.][v] tiles
+constexpr int kLdP = kC + 1;     // row stride of the [t][j] tiles
+constexpr int kNSub = kC / kL;   // sub-blocks per chunk
+constexpr int kTileB = kC * kLdB;
+
+// product of e^{T_M} over sub-blocks m0 <= M < m1 for channel c
+__device__ __forceinline__ float sub_prod(const float* s_et, int m0, int m1,
+                                          int c) {
+  float x = 1.0f;
+  for (int m = m0; m < m1; ++m) x *= s_et[m * kBK + c];
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+                                          size_t rstride, int nrows,
+                                          int width) {
+  for (int e = threadIdx.x; e < kC * kBK; e += kThreads) {
+    const int t = e / kBK, c = e - t * kBK;
+    dst[t * kLdB + c] =
+        (t < nrows && c < width) ? to_f32(src[t * rstride + c]) : 0.0f;
+  }
+}
+
+// the log decays of a chunk, ln max(w, 1e-30); 0 past the ends (w = 1)
+__device__ __forceinline__ void load_log_decay(float* dst,
+                                               const float* __restrict__ src,
+                                               size_t rstride, int nrows,
+                                               int width) {
+  for (int e = threadIdx.x; e < kC * kBK; e += kThreads) {
+    const int t = e / kBK, c = e - t * kBK;
+    dst[t * kLdB + c] = (t < nrows && c < width)
+                            ? logf(fmaxf(src[t * rstride + c], 1e-30f))
+                            : 0.0f;
+  }
+}
+
+size_t smem_bwd_inc_bytes() { return sizeof(float) * 3 * kTileB; }
+
+// Backward phase 1: inc = sum_t (r_t o e^{c_{t-1}}) do_t^T for one chunk
+// and one (b, h), and clast = c_L (natural log).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wkv_bwd_state_inc(
+    const T* __restrict__ r, const float* __restrict__ w,
+    const T* __restrict__ dout, float* __restrict__ inc,
+    float* __restrict__ clast, int s, int h, int kd, int vd, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_r = smem;                 // r, then r o e^{c_{t-1}}
+  float* s_do = s_r + kTileB;
+  float* s_la = s_do + kTileB;
+  const int tid = threadIdx.x, chunk = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const size_t rk = (size_t)h * kd, rv = (size_t)h * vd;
+  load_rows(s_r, r + (row0 * h + head) * kd, rk, nrows, kd);
+  load_rows(s_do, dout + (row0 * h + head) * vd, rv, nrows, vd);
+  load_log_decay(s_la, w + (row0 * h + head) * kd, rk, nrows, kd);
+  __syncthreads();
+  const size_t cidx = (size_t)bh * nc + chunk;
+  if (tid < kBK) {
+    float run = 0.0f;                  // c_{t-1}, summed step by step
+    for (int t = 0; t < kC; ++t) {
+      s_r[t * kLdB + tid] *= expf(run);
+      run += s_la[t * kLdB + tid];
+    }
+    if (tid < kd) clast[cidx * kd + tid] = run;
+  }
+  __syncthreads();
+  const int tr = 4 * (tid >> 4), tx = tid & 15;
+  float acc[4][4] = {};
+  for (int t = 0; t < kC; ++t) {
+    float dv[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) dv[jj] = s_do[t * kLdB + tx + 16 * jj];
+    outer(acc, ld4(s_r + t * kLdB + tr), make_float4(dv[0], dv[1], dv[2],
+                                                     dv[3]));
+  }
+  float* out = inc + cidx * kd * vd;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tr + i, v = tx + 16 * jj;
+      if (c < kd && v < vd) out[(size_t)c * vd + v] = acc[i][jj];
+    }
+}
+
+// Backward phase 2: per (b, h, k, v), from the last chunk to the first:
+// the gradient of the state leaving chunk c is written over its
+// increment, then G_{c-1} = e^{clast_c} G_c + inc_c; dstate = G_{-1}
+// (where wanted).
+__global__ void __launch_bounds__(kThreads) wkv_bwd_state_scan(
+    const float* __restrict__ dstate_out, float* __restrict__ ds,
+    const float* __restrict__ clast, float* __restrict__ dstate, int nbh,
+    int kd, int vd, int nc) {
+  const size_t kv = (size_t)kd * vd;
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)nbh * kv) return;
+  const size_t bh = e / kv, rem = e - bh * kv;
+  const int kk = (int)(rem / vd);
+  float g = dstate_out != nullptr ? dstate_out[e] : 0.0f;
+  float* d = ds + bh * nc * kv + rem;
+  const float* cl = clast + bh * nc * kd + kk;
+  constexpr int kAhead = 8;          // chunks whose loads are in flight
+  for (int c0 = nc - 1; c0 >= 0; c0 -= kAhead) {
+    float inc[kAhead], dec[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (c0 - i >= 0) {
+        inc[i] = d[(size_t)(c0 - i) * kv];
+        dec[i] = cl[(size_t)(c0 - i) * kd];
+      }
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (c0 - i >= 0) {
+        d[(size_t)(c0 - i) * kv] = g;
+        g = fmaf(expf(dec[i]), g, inc[i]);
+      }
+  }
+  if (dstate != nullptr) dstate[e] = g;
+}
+
+size_t smem_bwd_grad_bytes() {
+  // nine [64][68] tiles, two [64][65]; e^{T}, D, Q, u, q and the (a)
+  // terms per channel
+  return sizeof(float) * (9 * kTileB + 2 * kC * kLdP + kNSub * kBK +
+                          kPairs * kBK + 3 * kBK + 4 * kBK);
+}
+
+// Backward phase 3: dr, dk, dv, dw and the (b, chunk) partial of du for
+// one chunk and one (b, h).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wkv_bwd_chunk_grad(
+    const T* __restrict__ r, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ w,
+    const T* __restrict__ u, const T* __restrict__ dout,
+    const float* __restrict__ states, const float* __restrict__ dstates,
+    T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ dw, float* __restrict__ dup, int s, int h, int kd,
+    int vd, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_r = smem;                   // [kC][kLdB] r
+  float* s_k = s_r + kTileB;           // [kC][kLdB] k
+  float* s_v = s_k + kTileB;           // [kC][kLdB] v, then z
+  float* s_do = s_v + kTileB;          // [kC][kLdB] do
+  float* s_la = s_do + kTileB;         // [kC][kLdB] la
+  float* s_elcp = s_la + kTileB;       // [kC][kLdB] e^{lcp_t}
+  float* s_ers = s_elcp + kTileB;      // [kC][kLdB] e^{rs_j}
+  float* s_s = s_ers + kTileB;         // [kBK][kLdB] S, then x
+  float* s_g = s_s + kTileB;           // [kBK][kLdB] G, then pc
+  float* s_dov = s_g + kTileB;         // [kC][kLdP] do_t . v_j
+  float* s_a = s_dov + kC * kLdP;      // [kC][kLdP] A (beta on the
+                                       // diagonal, 0 above), then pb
+  float* s_et = s_a + kC * kLdP;       // [kNSub][kBK] e^{T_M}
+  float* s_d = s_et + kNSub * kBK;     // [kPairs][kBK] D_IJ
+  float* s_q = s_d + kPairs * kBK;     // [3][kBK] Q_20, Q_30, Q_31
+  float* s_u = s_q + 3 * kBK;          // [kBK] u
+  float* s_sg = s_u + kBK;             // [kBK] q = e^{c_L} rowsum(S o G)
+  float* s_pa = s_sg + kBK;            // [kBK] the (a) term of sub-blocks
+                                       // 1 and 2 (0 and 3 have none): 32 each
+  const int tid = threadIdx.x, tr = 4 * (tid >> 4), tx = tid & 15;
+  const int chunk = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const size_t rk = (size_t)h * kd, rv = (size_t)h * vd;
+  const size_t cidx = (size_t)bh * nc + chunk;
+  const size_t kv = (size_t)kd * vd;
+
+  load_rows(s_r, r + (row0 * h + head) * kd, rk, nrows, kd);
+  load_rows(s_k, k + (row0 * h + head) * kd, rk, nrows, kd);
+  load_rows(s_v, v + (row0 * h + head) * vd, rv, nrows, vd);
+  load_rows(s_do, dout + (row0 * h + head) * vd, rv, nrows, vd);
+  load_log_decay(s_la, w + (row0 * h + head) * kd, rk, nrows, kd);
+  load_rows(s_s, states + cidx * kv, (size_t)vd, kd, vd);
+  load_rows(s_g, dstates + cidx * kv, (size_t)vd, kd, vd);
+  for (int e = tid; e < kC * kLdP; e += kThreads) s_a[e] = 0.0f;
+  if (tid < kBK) s_u[tid] = tid < kd ? to_f32(u[(size_t)head * kd + tid])
+                                     : 0.0f;
+  __syncthreads();
+
+  // e^{lcp}, e^{rs} and e^{T}: one thread per (sub-block, channel), each
+  // sum step by step
+  {
+    const int m = tid / kBK, c = tid - m * kBK;
+    float pre = 0.0f, suf = 0.0f;
+    for (int n = kL * m; n < kL * m + kL; ++n) {
+      s_elcp[n * kLdB + c] = expf(pre);
+      pre += s_la[n * kLdB + c];
+    }
+    for (int n = kL * m + kL - 1; n >= kL * m; --n) {
+      s_ers[n * kLdB + c] = expf(suf);
+      suf += s_la[n * kLdB + c];
+    }
+    s_et[m * kBK + c] = expf(pre);
+  }
+  __syncthreads();
+  for (int e = tid; e < kPairs * kBK; e += kThreads) {
+    const int p = e / kBK, c = e - p * kBK;
+    int bi, bj;
+    block_pair(p, bi, bj);
+    s_d[e] = sub_prod(s_et, bj + 1, bi, c);
+  }
+  if (tid < kBK) {
+    float x = 0.0f;
+    for (int vv = 0; vv < kBK; ++vv)
+      x = fmaf(s_s[tid * kLdB + vv], s_g[tid * kLdB + vv], x);
+    s_sg[tid] = sub_prod(s_et, 0, kNSub, tid) * x;
+  }
+  // do_t . v_j, all (t, j)
+  {
+    float acc[4][4] = {};
+    for (int c = 0; c < kBK; c += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ld4(s_do + (tr + i) * kLdB + c);
+        bb[i] = ld4(s_v + (tx + 16 * i) * kLdB + c);
+      }
+      rows_by_rows(acc, a, bb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        s_dov[(tr + i) * kLdP + tx + 16 * jj] = acc[i][jj];
+  }
+  __syncthreads();
+
+  // A: the six off-diagonal sub-block pairs, E = e^{lcp_t} D_IJ e^{rs_j};
+  // then the diagonal sub-blocks' strictly lower pairs, their exponent
+  // summed step by step, and beta on the diagonal
+  for (int e = tid; e < kPairs * kL * kL; e += kThreads) {
+    const int p = e / (kL * kL), q = e - p * kL * kL;
+    int bi, bj;
+    block_pair(p, bi, bj);
+    const int t = kL * bi + q / kL, j = kL * bj + q % kL;
+    const float* dp = s_d + p * kBK;
+    float acc = 0.0f;
+    for (int c = 0; c < kBK; c += 4) {
+      const float4 a =
+          mul4(ld4(s_r + t * kLdB + c), ld4(s_elcp + t * kLdB + c));
+      const float4 bb =
+          mul4(ld4(s_k + j * kLdB + c), ld4(s_ers + j * kLdB + c));
+      const float4 d = ld4(dp + c);
+      acc = fmaf(a.x * d.x, bb.x, acc);
+      acc = fmaf(a.y * d.y, bb.y, acc);
+      acc = fmaf(a.z * d.z, bb.z, acc);
+      acc = fmaf(a.w * d.w, bb.w, acc);
+    }
+    s_a[t * kLdP + j] = acc;
+  }
+  for (int e = tid; e < kDiagExp + kC; e += kThreads) {
+    float acc = 0.0f;
+    if (e < kDiagExp) {
+      int tp, jp;
+      tri_pair(e % kTri, tp, jp);
+      const int t = (e / kTri) * kL + tp, j = (e / kTri) * kL + jp;
+      for (int c = 0; c < kBK; ++c) {
+        float x = 0.0f;
+        for (int n = j + 1; n < t; ++n) x += s_la[n * kLdB + c];
+        acc = fmaf(s_r[t * kLdB + c] * s_k[j * kLdB + c], expf(x), acc);
+      }
+      s_a[t * kLdP + j] = acc;
+    } else {
+      const int t = e - kDiagExp;
+      for (int c = 0; c < kBK; ++c)
+        acc = fmaf(s_r[t * kLdB + c] * s_u[c], s_k[t * kLdB + c], acc);
+      s_a[t * kLdP + t] = acc;
+    }
+  }
+  // Q_IJ for the pairs two or more sub-blocks apart, one thread per
+  // (pair, channel)
+  if (tid < 3 * kBK) {
+    const int p = tid / kBK, c = tid - p * kBK;
+    const int bi = p == 0 ? 2 : 3, bj = p == 2 ? 1 : 0;
+    float acc = 0.0f;
+    for (int t = kL * bi; t < kL * bi + kL; ++t) {
+      float inner = 0.0f;
+      for (int j = kL * bj; j < kL * bj + kL; ++j)
+        inner = fmaf(s_dov[t * kLdP + j],
+                     s_k[j * kLdB + c] * s_ers[j * kLdB + c], inner);
+      acc = fmaf(s_r[t * kLdB + c] * s_elcp[t * kLdB + c], inner, acc);
+    }
+    s_q[p * kBK + c] = acc;
+  }
+  __syncthreads();
+
+  // dv rows j, columns v: sum_{t>=j} A_tj do_t + G^T (k_j o e^{c_L-c_j})
+  {
+    const int sj = tr / kL;
+    float acc[4][4] = {};
+    for (int t = tr; t < kC; ++t) {
+      const float* ar = s_a + t * kLdP + tr;
+      float dv4[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) dv4[jj] = s_do[t * kLdB + tx + 16 * jj];
+      outer(acc, make_float4(ar[0], ar[1], ar[2], ar[3]),
+            make_float4(dv4[0], dv4[1], dv4[2], dv4[3]));
+    }
+    for (int c = 0; c < kBK; ++c) {
+      const float after = sub_prod(s_et, sj + 1, kNSub, c);
+      float kd4[4], g4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        kd4[i] = s_k[(tr + i) * kLdB + c] *
+                 (s_ers[(tr + i) * kLdB + c] * after);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) g4[jj] = s_g[c * kLdB + tx + 16 * jj];
+      outer(acc, make_float4(kd4[0], kd4[1], kd4[2], kd4[3]),
+            make_float4(g4[0], g4[1], g4[2], g4[3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (tr + i >= nrows) break;
+      T* row = dv + ((row0 + tr + i) * h + head) * vd;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        if (tx + 16 * jj < vd) store1(row + tx + 16 * jj, acc[i][jj]);
+    }
+  }
+
+  // dk rows j, channels c; X (the sum over later sub-blocks), z and
+  // pb = k_j e^{rs_j} X_j kept for dla
+  float zr[4][4], pb[4][4];
+  {
+    const int sj = tr / kL;
+    float xo[4][4] = {}, dg[4][4] = {}, gv[4][4] = {};
+    for (int bi = sj + 1; bi < kNSub; ++bi) {
+      const float* dp = s_d + (bi * (bi - 1) / 2 + sj) * kBK;
+      float part[4][4] = {};
+      for (int t = kL * bi; t < kL * bi + kL; ++t) {
+        const float* dr_ = s_dov + t * kLdP + tr;
+        float rp[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = tx + 16 * jj;
+          rp[jj] = s_r[t * kLdB + c] * s_elcp[t * kLdB + c];
+        }
+        outer(part, make_float4(dr_[0], dr_[1], dr_[2], dr_[3]),
+              make_float4(rp[0], rp[1], rp[2], rp[3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          xo[i][jj] = fmaf(dp[tx + 16 * jj], part[i][jj], xo[i][jj]);
+    }
+    // inside j's sub-block: t > j, exponent summed from step j + 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = tr + i, c = tx + 16 * jj;
+        float x = 0.0f, acc = 0.0f;
+        for (int t = j + 1; t < kL * sj + kL; ++t) {
+          acc = fmaf(s_dov[t * kLdP + j] * s_r[t * kLdB + c], expf(x), acc);
+          x += s_la[t * kLdB + c];
+        }
+        dg[i][jj] = acc;
+      }
+    for (int vv = 0; vv < kBK; vv += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ld4(s_v + (tr + i) * kLdB + vv);
+        bb[i] = ld4(s_g + (tx + 16 * i) * kLdB + vv);
+      }
+      rows_by_rows(gv, a, bb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = tr + i;
+      T* row = dk + ((row0 + j) * h + head) * kd;
+      const float bonus = s_dov[j * kLdP + j];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const float ers = s_ers[j * kLdB + c];
+        const float edec = ers * sub_prod(s_et, sj + 1, kNSub, c);
+        const float val = ((ers * xo[i][jj] + dg[i][jj]) +
+                           bonus * s_u[c] * s_r[j * kLdB + c]) +
+                          edec * gv[i][jj];
+        zr[i][jj] = s_k[j * kLdB + c] * edec * gv[i][jj];
+        pb[i][jj] = s_k[j * kLdB + c] * ers * xo[i][jj];
+        if (j < nrows && c < kd) store1(row + c, val);
+      }
+    }
+  }
+
+  // dr rows t, channels c; Y (the sum over earlier sub-blocks), x and
+  // pc = r_t e^{lcp_t} Y_t kept for dla
+  float xr[4][4], pc[4][4];
+  {
+    const int st = tr / kL;
+    float yo[4][4] = {}, dg[4][4] = {}, sdo[4][4] = {};
+    for (int bj = 0; bj < st; ++bj) {
+      const float* dp = s_d + (st * (st - 1) / 2 + bj) * kBK;
+      float part[4][4] = {};
+      for (int j = kL * bj; j < kL * bj + kL; ++j) {
+        float kp[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = tx + 16 * jj;
+          kp[jj] = s_k[j * kLdB + c] * s_ers[j * kLdB + c];
+        }
+        outer(part,
+              make_float4(s_dov[tr * kLdP + j], s_dov[(tr + 1) * kLdP + j],
+                          s_dov[(tr + 2) * kLdP + j],
+                          s_dov[(tr + 3) * kLdP + j]),
+              make_float4(kp[0], kp[1], kp[2], kp[3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          yo[i][jj] = fmaf(dp[tx + 16 * jj], part[i][jj], yo[i][jj]);
+    }
+    // inside t's sub-block: j < t, exponent summed down from step t - 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int t = tr + i, c = tx + 16 * jj;
+        float x = 0.0f, acc = 0.0f;
+        for (int j = t - 1; j >= kL * st; --j) {
+          acc = fmaf(s_dov[t * kLdP + j] * s_k[j * kLdB + c], expf(x), acc);
+          x += s_la[j * kLdB + c];
+        }
+        dg[i][jj] = acc;
+      }
+    for (int vv = 0; vv < kBK; vv += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ld4(s_do + (tr + i) * kLdB + vv);
+        bb[i] = ld4(s_s + (tx + 16 * i) * kLdB + vv);
+      }
+      rows_by_rows(sdo, a, bb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = tr + i;
+      T* row = dr + ((row0 + t) * h + head) * kd;
+      const float bonus = s_dov[t * kLdP + t];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const float elcp = s_elcp[t * kLdB + c];
+        const float ecp = elcp * sub_prod(s_et, 0, st, c);
+        const float val = ((ecp * sdo[i][jj] + elcp * yo[i][jj]) +
+                           dg[i][jj]) +
+                          bonus * s_u[c] * s_k[t * kLdB + c];
+        xr[i][jj] = s_r[t * kLdB + c] * ecp * sdo[i][jj];
+        pc[i][jj] = s_r[t * kLdB + c] * elcp * yo[i][jj];
+        if (t < nrows && c < kd) store1(row + c, val);
+      }
+    }
+  }
+  // the (a) terms and the partial of du
+  if (tid < 2 * kBK) {
+    const int m = 1 + tid / kBK, c = tid % kBK;
+    // m = 1: D_20 Q_20 + D_30 Q_30; m = 2: D_30 Q_30 + D_31 Q_31
+    // (D_20, D_30, D_31 are pairs 1, 3 and 4 in block_pair's order)
+    s_pa[tid] = m == 1 ? fmaf(s_d[1 * kBK + c], s_q[c],
+                              s_d[3 * kBK + c] * s_q[kBK + c])
+                       : fmaf(s_d[3 * kBK + c], s_q[kBK + c],
+                              s_d[4 * kBK + c] * s_q[2 * kBK + c]);
+  } else if (tid < 3 * kBK) {
+    const int c = tid - 2 * kBK;
+    float acc = 0.0f;
+    for (int t = 0; t < kC; ++t)
+      acc = fmaf(s_dov[t * kLdP + t], s_r[t * kLdB + c] * s_k[t * kLdB + c],
+                 acc);
+    if (c < kd) dup[(((size_t)b * nc + chunk) * h + head) * kd + c] = acc;
+  }
+  __syncthreads();                     // A, v, S and G are read
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int row = tr + i, c = tx + 16 * jj;
+      s_v[row * kLdB + c] = zr[i][jj];
+      s_a[row * kLdP + c] = pb[i][jj];
+      s_s[row * kLdB + c] = xr[i][jj];
+      s_g[row * kLdB + c] = pc[i][jj];
+    }
+  __syncthreads();
+
+  // dla for the 16 steps of sub-block m and channel c, then dw
+  {
+    const int m = tid / kBK, c = tid - m * kBK;
+    const int i0 = kL * m;
+    float zpre = 0.0f, xsuf = 0.0f;
+    for (int j = 0; j < i0; ++j) zpre += s_v[j * kLdB + c];
+    for (int t = kC - 1; t >= i0 + kL; --t) xsuf += s_s[t * kLdB + c];
+    float xs[kL], pcs[kL];             // sums over t > i, i in the block
+    xs[kL - 1] = xsuf;
+    pcs[kL - 1] = 0.0f;
+#pragma unroll
+    for (int p = kL - 1; p > 0; --p) {
+      xs[p - 1] = xs[p] + s_s[(i0 + p) * kLdB + c];
+      pcs[p - 1] = pcs[p] + s_g[(i0 + p) * kLdB + c];
+    }
+    const float pa = (m == 1 || m == 2) ? s_pa[(m - 1) * kBK + c] : 0.0f;
+    float zrun = zpre, pbrun = 0.0f;
+    float* dwb = dw + (row0 * h + head) * kd + c;
+    const float* wb = w + (row0 * h + head) * kd + c;
+#pragma unroll 1
+    for (int p = 0; p < kL; ++p) {
+      const int i = i0 + p;
+      // (d): t and j in the sub-block, j < i < t, pivoted at i
+      float alpha[kL];
+      float ej = 0.0f;
+      for (int j = i - 1; j >= i0; --j) {
+        ej += s_la[(j + 1) * kLdB + c];
+        alpha[j - i0] = s_k[j * kLdB + c] * expf(ej);
+      }
+      float dd = 0.0f, et = 0.0f;
+      for (int t = i + 1; t < i0 + kL; ++t) {
+        float inner = 0.0f;
+        for (int j = i0; j < i; ++j)
+          inner = fmaf(s_dov[t * kLdP + j], alpha[j - i0], inner);
+        dd = fmaf(s_r[t * kLdB + c] * expf(et), inner, dd);
+        et += s_la[t * kLdB + c];
+      }
+      const float dla = (((((xs[p] + zrun) + s_sg[c]) + pa) + pbrun) +
+                         pcs[p]) + dd;
+      zrun += s_v[i * kLdB + c];
+      pbrun += s_a[i * kLdP + c];
+      if (i < nrows && c < kd) {
+        const float wv = wb[(size_t)i * h * kd];
+        dwb[(size_t)i * h * kd] = wv >= 1e-30f ? dla / wv : 0.0f;
+      }
+    }
+  }
+}
+
+// Backward phase 4: du summed over (b, chunk) in index order, one thread
+// per (h, k), rounded to u's type once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wkv_bwd_reduce(
+    const float* __restrict__ dup, T* __restrict__ du, int batch, int h,
+    int kd, int nc) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= h * kd) return;
+  float acc = 0.0f;
+  for (int bc = 0; bc < batch * nc; ++bc) acc += dup[(size_t)bc * h * kd + e];
+  store1(du + e, acc);
+}
+
+// Floats of f32 scratch the backward takes, in this order: the state's
+// gradient per chunk [B, H, NC, K, V], clast [B, H, NC, K], the partials
+// of du [B, NC, H, K].
+size_t bwd_scratch_floats(int batch, int s, int h, int kd, int vd) {
+  const size_t nc = (s + kC - 1) / kC;
+  return (size_t)batch * h * nc * ((size_t)kd * vd + 2 * kd);
+}
+
+template <typename T>
+cudaError_t configure_bwd() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        wkv_bwd_state_inc<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bwd_inc_bytes());
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(wkv_bwd_chunk_grad<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bwd_grad_bytes());
+    return e;
+  }();
+  return err;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* r, const void* k, const void* v,
+                       const float* w, const void* u, const void* dout,
+                       const float* states, const float* dstate_out,
+                       void* dr, void* dk, void* dv, float* dw, void* du,
+                       float* dstate, float* scratch, int batch, int s, int h,
+                       int kd, int vd, cudaStream_t stream) {
+  cudaError_t err = configure_bwd<T>();
+  if (err != cudaSuccess) return err;
+  const int nc = (s + kC - 1) / kC, nbh = batch * h;
+  float* dds = scratch;
+  float* clast = dds + (size_t)nbh * nc * kd * vd;
+  float* dup = clast + (size_t)nbh * nc * kd;
+  const dim3 grid(nc, nbh);
+  const T* rt = static_cast<const T*>(r);
+  const T* dot = static_cast<const T*>(dout);
+
+  wkv_bwd_state_inc<T><<<grid, kThreads, smem_bwd_inc_bytes(), stream>>>(
+      rt, w, dot, dds, clast, s, h, kd, vd, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t n2 = (size_t)nbh * kd * vd;
+  wkv_bwd_state_scan<<<(unsigned)((n2 + kThreads - 1) / kThreads), kThreads,
+                       0, stream>>>(dstate_out, dds, clast, dstate, nbh, kd,
+                                    vd, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  wkv_bwd_chunk_grad<T><<<grid, kThreads, smem_bwd_grad_bytes(), stream>>>(
+      rt, static_cast<const T*>(k), static_cast<const T*>(v), w,
+      static_cast<const T*>(u), dot, states, dds, static_cast<T*>(dr),
+      static_cast<T*>(dk), static_cast<T*>(dv), dw, dup, s, h, kd, vd, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  wkv_bwd_reduce<T><<<(h * kd + kThreads - 1) / kThreads, kThreads, 0,
+                      stream>>>(dup, static_cast<T*>(du), batch, h, kd, nc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int rwkv6_wkv_max_k() { return kMaxK; }
 int rwkv6_wkv_chunk() { return kC; }
+int rwkv6_wkv_bwd_max_kv() { return kBK; }
+
+size_t rwkv6_wkv_bwd_scratch(int batch, int s, int h, int kd, int vd) {
+  return bwd_scratch_floats(batch, s, h, kd, vd);
+}
+
+// The gradient of rwkv6_wkv_fwd: dr, dk, dv and du in r's type, dw and
+// dstate in f32.  states: the forward's ds after the call (each chunk's
+// starting state); dstate_out and dstate may be null (zeros; not
+// written).  K, V <= 64.  scratch: rwkv6_wkv_bwd_scratch(...) floats of
+// f32.
+int rwkv6_wkv_bwd(const void* r, const void* k, const void* v,
+                  const void* w, const void* u, const void* dout,
+                  const void* states, const void* dstate_out, void* dr,
+                  void* dk, void* dv, void* dw, void* du, void* dstate,
+                  void* scratch, int batch, int s, int h, int kd, int vd,
+                  int dtype, void* stream) {
+  if (kd < 1 || kd > kBK || vd < 1 || vd > kBK || h < 1 || batch < 1 ||
+      s < 1 || batch * h > 65535 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  const float* sf = static_cast<const float*>(states);
+  const float* dso = static_cast<const float*>(dstate_out);
+  float* dwf = static_cast<float*>(dw);
+  float* dsf = static_cast<float*>(dstate);
+  float* sc = static_cast<float*>(scratch);
+  const cudaError_t err =
+      dtype == 0
+          ? launch_bwd<float>(r, k, v, wf, u, dout, sf, dso, dr, dk, dv, dwf,
+                              du, dsf, sc, batch, s, h, kd, vd, st)
+          : launch_bwd<__nv_bfloat16>(r, k, v, wf, u, dout, sf, dso, dr, dk,
+                                      dv, dwf, du, dsf, sc, batch, s, h, kd,
+                                      vd, st);
+  return (int)err;
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, u and out alike).  ds
 // [B, H, NC, K, V] and clast [B, H, NC, K]: f32 scratch, NC = ceil(S / 64).

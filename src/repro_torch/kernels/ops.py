@@ -53,9 +53,14 @@ def mamba2_ssd(x, dt, a, b, c, d, state: Optional[torch.Tensor] = None, *,
 def rwkv6_wkv(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
               chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked RWKV6 WKV with the bonus u: (out [B,S,H,V] in r's dtype,
-    final state [B,H,K,V] f32)."""
+    final state [B,H,K,V] f32).  Differentiable: on the CPU through
+    autograd of the plain version, on a card through the backward kernel
+    (`rwkv6_wkv.RWKV6WKV`)."""
     if _on_cpu(r):
         return ref.rwkv6_wkv(r, k, v, w, u, state, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, state)):
+        return wkv_kernel.RWKV6WKV.apply(r, k, v, w, u, state)
     return wkv_kernel.rwkv6_wkv(r, k, v, w, u, state, chunk=chunk)
 
 

@@ -187,6 +187,38 @@ def mamba2_ssd(x, dt, a, b_in, c_in, d, state: Optional[torch.Tensor] = None,
 SSD_BWD_CHUNK = 64        # the backward kernel's chunk (kC in the source)
 
 
+def segment_sums(la: torch.Tensor) -> torch.Tensor:
+    """la [B, NC, L, *rest], a log decay per step of each chunk ->
+    [B, NC, L(t), L(j), *rest]: seg(t, j) = sum_{j<k<=t} la_k where j <= t
+    (0 on the diagonal), -inf above it.  Each is a sum of its own terms, so
+    it holds to the precision of its own size: the difference cum_t - cum_j
+    of two running sums carries their rounding, which under a strong decay
+    (sums near -500) is larger than the smaller gradients it feeds."""
+    ln = la.shape[2]
+    idx = torch.arange(ln, device=la.device)
+    shape = (ln, ln) + (1,) * (la.dim() - 3)
+    after = (idx[:, None] > idx[None, :]).view(shape)          # [k, j]: k > j
+    seg = torch.cumsum(la.unsqueeze(3) * after, dim=2)         # over k -> t
+    return seg.masked_fill(~(idx[:, None] >= idx[None, :]).view(shape),
+                           -math.inf)
+
+
+def _after(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum_{i>j} t_i along `dim` (exclusive), each a sum of its own terms."""
+    n = t.shape[dim]
+    rev = torch.flip(torch.cumsum(torch.flip(t, (dim,)), dim), (dim,))
+    return torch.cat([rev.narrow(dim, 1, n - 1),
+                      torch.zeros_like(rev.narrow(dim, 0, 1))], dim)
+
+
+def _before(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum_{i<j} t_i along `dim` (exclusive), each a sum of its own terms."""
+    n = t.shape[dim]
+    fwd = torch.cumsum(t, dim)
+    return torch.cat([torch.zeros_like(fwd.narrow(dim, 0, 1)),
+                      fwd.narrow(dim, 0, n - 1)], dim)
+
+
 def mamba2_ssd_bwd(x, dt, a, b_in, c_in, d,
                    state: Optional[torch.Tensor], dy: torch.Tensor,
                    dstate_out: Optional[torch.Tensor]):
@@ -207,9 +239,11 @@ def mamba2_ssd_bwd(x, dt, a, b_in, c_in, d,
       dC_t = e^{cum_t} S^T dy_t + sum_{j<=t} e^{cum_t-cum_j} (dy_t.xdt_j) B_j
       dB_j = sum_{t>=j} e^{cum_t-cum_j} (dy_t.xdt_j) C_t
              + e^{cum_L-cum_j} G^T xdt_j
-    and the gradient of cum (its exp(cum_L) terms from the state leaving
-    the chunk included), turned into that of the log decay dt a by a
-    reverse in-chunk cumulative sum.  Every exponent taken is <= 0."""
+    and the gradient of the log decay dt a, summed term by term (below).
+    Every exponent taken is <= 0, and each in-chunk one, e^{cum_t-cum_j}
+    and e^{cum_L-cum_j}, is taken from the segment sum of the log decay
+    over (j, t] (`segment_sums`), not from the difference of two running
+    sums."""
     acc = _acc(x)
     bb, s, h, p = x.shape
     n = b_in.shape[-1]
@@ -225,10 +259,12 @@ def mamba2_ssd_bwd(x, dt, a, b_in, c_in, d,
     dtf = chunks(dt, h)                                       # [B,NC,L,H]
     bf, cf = chunks(b_in, n), chunks(c_in, n)                 # [B,NC,L,N]
     af, df = a.to(acc), d.to(acc)
-    cum = torch.cumsum(dtf * af, dim=2)
+    la = dtf * af
+    cum = torch.cumsum(la, dim=2)
     clast = cum[:, :, -1]                                     # [B,NC,H]
     ecum = torch.exp(cum)                                     # e^{cum_t}
-    edec = torch.exp(clast[:, :, None] - cum)                 # e^{cum_L-cum_j}
+    dec = segment_sums(la).exp()                      # e^{cum_t-cum_j}, j <= t
+    edec = dec[:, :, -1]                                      # e^{cum_L-cum_j}
     xdt = dtf[..., None] * xf
 
     # the chunk states S_c (the kernel reads the forward's), then the
@@ -253,8 +289,6 @@ def mamba2_ssd_bwd(x, dt, a, b_in, c_in, d,
 
     # in-chunk: [t, j] pairs, the decay taken only where j <= t
     tri = torch.ones(ln, ln, dtype=torch.bool, device=x.device).tril()
-    ratio = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [B,NC,t,j,H]
-    dec = torch.where(tri[..., None], ratio, -math.inf).exp()
     cb = torch.einsum("bctn,bcjn->bctj", cf, bf)
     dxr = torch.einsum("bcthp,bcjhp->bctjh", dyf, xf)         # dy_t . x_j
     dd = torch.diagonal(dxr, dim1=2, dim2=3).sum((0, 1, 3))   # sum dy.x
@@ -278,13 +312,9 @@ def mamba2_ssd_bwd(x, dt, a, b_in, c_in, d,
     vj = edec * torch.einsum("bcjn,bcjhn->bcjh", bf, v)
     q = torch.exp(clast) * torch.einsum("bchpn,bchpn->bch", gc, sc)
 
-    def before(t, dim):            # exclusive prefix sum along `dim`
-        t = torch.cumsum(t, dim).narrow(dim, 0, ln - 1)
-        return torch.cat([torch.zeros_like(t.narrow(dim, 0, 1)), t], dim)
-
     dla = (torch.flip(torch.cumsum(torch.flip(r, (2,)), 2), (2,))
-           + q[:, :, None] + before(vj, 2)
-           + (before(w, 3) * tri[..., None]).sum(2))
+           + q[:, :, None] + _before(vj, 2)
+           + (_before(w, 3) * tri[..., None]).sum(2))
     dxdt = (torch.einsum("bctjh,bcthp->bcjhp", m, dyf)
             + edec[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bf, gc))
     dx = dtf[..., None] * dxdt + df[:, None] * dyf
@@ -367,6 +397,115 @@ def rwkv6_wkv(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
         st = (torch.exp(cum[:, -1])[..., None] * st
               + torch.einsum("bjhk,bjhv->bhkv", k_out, vc))
     return torch.cat(outs, 1)[:, :s].to(r.dtype), st
+
+
+WKV_BWD_CHUNK = 64        # the backward kernel's chunk (kC in the source)
+
+
+def rwkv6_wkv_bwd(r, k, v, w, u, state: Optional[torch.Tensor],
+                  do: torch.Tensor, dstate_out: Optional[torch.Tensor]):
+    """The plain version of the backward kernel: the gradient of
+    `rwkv6_wkv(r, k, v, w, u, state)` for the output gradients do
+    ([B,S,H,V]) and dstate_out ([B,H,K,V], or None for zeros).  Returns
+    (dr, dk, dv, dw, du, dstate), each in its operand's type (dstate None
+    when state is None), all summed in f32 (f64 for f64 operands).
+
+    The kernel's chunked algorithm, over 64-step chunks.  Per (b, h) and
+    chunk, with c_t the in-chunk running sum of la = log max(w, 1e-30)
+    (c_{-1} = 0, L the last step), S the state entering the chunk and G the
+    gradient of the state leaving it:
+      G_{c-1} = e^{c_L} o G_c + sum_t (r_t o e^{c_{t-1}}) do_t^T,
+      dstate = G_{-1};
+      dr_t = e^{c_{t-1}} o (S do_t) + sum_{j<t} (do_t.v_j) k_j o e^{c_{t-1}-c_j}
+             + (do_t.v_t) u o k_t
+      dk_j = sum_{t>j} (do_t.v_j) r_t o e^{c_{t-1}-c_j} + (do_j.v_j) u o r_j
+             + e^{c_L-c_j} o (G v_j)
+      dv_j = sum_{t>j} A_tj do_t + beta_j do_j + G^T (k_j o e^{c_L-c_j}),
+             A_tj = sum_k r_t k_j e^{c_{t-1}-c_j},  beta_j = sum_k r_j u k_j
+      du = sum_{b,t} (do_t.v_t) r_t o k_t
+      dla_i = sum_{t>i} x_t + sum_{j<i<t} y_tj + q + sum_{j<i} z_j,
+             x_t = r_t o e^{c_{t-1}} o (S do_t),
+             y_tj = (do_t.v_j) r_t o k_j o e^{c_{t-1}-c_j},
+             z_j = k_j o e^{c_L-c_j} o (G v_j),  q = e^{c_L} o rowsum(S o G)
+      dw = dla / w where w >= 1e-30, else 0.
+    dla, the gradient of the log decay, is summed term by term: as a
+    reverse cumulative sum of the gradient of c, y_{t,t-1} (decay e^0)
+    would enter it with both signs.  Every exponent taken is <= 0 and is
+    summed from the log decays of its own steps (`segment_sums`), never
+    the difference of two running sums: log w runs down to -69 a step."""
+    acc = _acc(r)
+    b, s, h, kd = r.shape
+    vd = v.shape[-1]
+    ln = WKV_BWD_CHUNK
+    pad = (-s) % ln
+    nc = (s + pad) // ln
+
+    def chunks(t, value=0.0):
+        t = F.pad(t.to(acc), (0, 0, 0, 0, 0, pad), value=value)
+        return t.reshape(b, nc, ln, h, t.shape[-1])
+
+    rf, kf, vf, dof = chunks(r), chunks(k), chunks(v), chunks(do)
+    wf = chunks(w, 1.0)
+    la = torch.log(torch.clamp_min(wf, 1e-30))                # [B,NC,L,H,K]
+    cprev = _before(la, 2)                                    # c_{t-1}
+    ecl = torch.exp(la.sum(2))                                # e^{c_L} [B,NC,H,K]
+    edec = torch.exp(_after(la, 2))                           # e^{c_L-c_j}
+    uf = u.to(acc)
+    tri = torch.ones(ln, ln, dtype=torch.bool, device=r.device).tril(-1)
+    after_t = tri.view(ln, ln, 1, 1)                          # [t, i]: t > i
+    st = (torch.zeros((b, h, kd, vd), dtype=acc, device=r.device)
+          if state is None else state.to(acc))
+    states = []                             # the chunk states (the kernel
+    for c in range(nc):                     # reads the forward's)
+        states.append(st)
+        st = (ecl[:, c][..., None] * st
+              + torch.einsum("bjhk,bjhv->bhkv", kf[:, c] * edec[:, c],
+                             vf[:, c]))
+    g = (torch.zeros((b, h, kd, vd), dtype=acc, device=r.device)
+         if dstate_out is None else dstate_out.to(acc))
+    dr, dk, dv, dla = (torch.empty_like(t) for t in (rf, kf, vf, la))
+    du = torch.zeros((h, kd), dtype=acc, device=r.device)
+    for c in reversed(range(nc)):
+        rc, kc, vc, doc = rf[:, c], kf[:, c], vf[:, c], dof[:, c]
+        sc, ecp = states[c], torch.exp(cprev[:, c])
+        # e^{c_{t-1} - c_j} for j < t: the segment sum over (j, t - 1]
+        seg = segment_sums(la[:, c:c + 1])[:, 0]              # [B,t,j,H,K]
+        dec = torch.cat([torch.zeros_like(seg[:, :1]), seg[:, :-1].exp()], 1)
+        dov = torch.einsum("bthv,bjhv->btjh", doc, vc)
+        bonus = torch.diagonal(dov, dim1=1, dim2=2).permute(0, 2, 1)  # [B,L,H]
+        sdo = torch.einsum("bhkv,bthv->bthk", sc, doc)        # S do_t
+        gv = torch.einsum("bhkv,bjhv->bjhk", g, vc)           # G v_j
+        y = dov[..., None] * rc[:, :, None] * kc[:, None] * dec
+        dr[:, c] = (ecp * sdo
+                    + torch.einsum("btjh,bjhk,btjhk->bthk", dov, kc, dec)
+                    + bonus[..., None] * uf * kc)
+        dk[:, c] = (torch.einsum("btjh,bthk,btjhk->bjhk", dov, rc, dec)
+                    + bonus[..., None] * uf * rc + edec[:, c] * gv)
+        a_mat = torch.einsum("bthk,bjhk,btjhk->btjh", rc, kc, dec)
+        beta = torch.einsum("bthk,hk,bthk->bth", rc, uf, kc)
+        dv[:, c] = (torch.einsum("btjh,bthv->bjhv", a_mat, doc)
+                    + beta[..., None] * doc
+                    + torch.einsum("bhkv,bjhk->bjhv", g, kc * edec[:, c]))
+        du += torch.einsum("bth,bthk->hk", bonus, rc * kc)
+        x = rc * ecp * sdo
+        z = kc * edec[:, c] * gv
+        q = ecl[:, c] * (sc * g).sum(-1)                      # [B,H,K]
+        # sum_{t>i} sum_{j<i} y_tj: each row's exclusive prefix over j at
+        # i, summed over the rows t > i
+        mid = (_before(y, 2) * after_t).sum(1)
+        dla[:, c] = _after(x, 1) + mid + q[:, None] + _before(z, 1)
+        g = (ecl[:, c][..., None] * g
+             + torch.einsum("bthk,bthv->bhkv", rc * ecp, doc))
+    wfl = wf.reshape(b, nc * ln, h, kd)[:, :s]
+
+    def unchunk(t):
+        return t.reshape(b, nc * ln, h, t.shape[-1])[:, :s]
+
+    dla = unchunk(dla)
+    dw = torch.where(wfl >= 1e-30, dla / wfl, torch.zeros_like(dla))
+    return (unchunk(dr).to(r.dtype), unchunk(dk).to(k.dtype),
+            unchunk(dv).to(v.dtype), dw.to(w.dtype), du.to(u.dtype),
+            None if state is None else g.to(state.dtype))
 
 
 # ==========================================================================

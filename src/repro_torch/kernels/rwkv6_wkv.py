@@ -12,9 +12,22 @@ scratch (each 64-step chunk's [K, V] state and its total log2 decay) with
 `torch.cuda.current_stream()` (chunk states, the scan over chunks, the
 output), and raises when a launch reports an error.  The kernel adds the
 bonus in f32 and rounds the output to r's type once, as the plain version
-does.  `launches` adds one per call (its three kernels count once).
-What bounds the kernel on the H100, and what its design does about it,
-is written beside the kernel in the CUDA source.
+does.  With `return_states` it also returns the chunk states, which the
+backward reads.
+
+The backward (`rwkv6_wkv_bwd`) replaces no Pallas kernel: the reference
+differentiates the WKV with XLA (`repro/kernels/ops.py` `rwkv6_wkv`).  It
+is four kernels per call: the increments of the state's gradient per
+chunk, a reverse scan over chunks, one block per (chunk, b, h) for dr,
+dk, dv, dw and a per-(b, chunk) partial of du, and a fixed-order
+reduction of those partials (no atomics: the same inputs give the same
+bits).  It takes K, V <= 64.  Its plain version is `ref.rwkv6_wkv_bwd`.
+`RWKV6WKV` is the `torch.autograd.Function` that joins the two, and the
+only route to a gradient: the raw `rwkv6_wkv` refuses one.  `launches`
+counts the forward's calls under `rwkv6_wkv` and the backward's under
+`rwkv6_wkv_bwd`, one per call (their kernels count once).  What bounds
+the kernels on the H100, and what their design does about it, is written
+beside them in the CUDA source.
 """
 from __future__ import annotations
 
@@ -28,11 +41,16 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 MAX_K = 128               # kMaxK in the CUDA source
+MAX_KV_BWD = 64           # kBK in the CUDA source: the backward's K, V limit
 CHUNK = 64                # kC in the CUDA source: steps per chunk
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = (torch.float32,)
 
-launches = _build.Launches("rwkv6_wkv")
+# the backward's four kernels, in launch order
+BWD_KERNELS = ("wkv_bwd_state_inc", "wkv_bwd_state_scan",
+               "wkv_bwd_chunk_grad", "wkv_bwd_reduce")
+
+launches = _build.Launches("rwkv6_wkv", "rwkv6_wkv_bwd")
 reset_launches = launches.reset
 
 
@@ -40,12 +58,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rwkv6_wkv_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.rwkv6_wkv_fwd.restype = i
-    for fn in (lib.rwkv6_wkv_max_k, lib.rwkv6_wkv_chunk):
+    lib.rwkv6_wkv_bwd.argtypes = [p] * 15 + [i] * 6 + [p]
+    lib.rwkv6_wkv_bwd.restype = i
+    lib.rwkv6_wkv_bwd_scratch.argtypes = [i] * 5
+    lib.rwkv6_wkv_bwd_scratch.restype = ctypes.c_size_t
+    for fn in (lib.rwkv6_wkv_max_k, lib.rwkv6_wkv_chunk,
+               lib.rwkv6_wkv_bwd_max_kv):
         fn.argtypes = []
         fn.restype = i
-    if (lib.rwkv6_wkv_max_k(), lib.rwkv6_wkv_chunk()) != (MAX_K, CHUNK):
-        raise RuntimeError("kernel's key-width limit or chunk length "
-                           "disagrees with the wrapper's")
+    if (lib.rwkv6_wkv_max_k(), lib.rwkv6_wkv_chunk(),
+            lib.rwkv6_wkv_bwd_max_kv()) != (MAX_K, CHUNK, MAX_KV_BWD):
+        raise RuntimeError("kernel's key-width limits or chunk length "
+                           "disagree with the wrapper's")
 
 
 _LIB = _build.Library(SOURCE, _declare)
@@ -63,23 +87,9 @@ def scratch(b: int, s: int, h: int, kd: int, vd: int, dev
             torch.empty((b, h, nc, kd), dtype=torch.float32, device=dev))
 
 
-def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor,
-              state: Optional[torch.Tensor] = None, *, chunk: int = 64
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k: [B,S,H,K]; v: [B,S,H,V] in r's dtype; w: [B,S,H,K] f32;
-    u: [H,K] in r's dtype; state: [B,H,K,V] f32 or None (zeros).  Returns
-    (out [B,S,H,V] in r's dtype, final state [B,H,K,V] f32).
-
-    `chunk` is the reference's chunk length; the kernel cuts the sequence
-    into chunks of its own (64 steps), and the result does not depend on
-    the length beyond rounding, so it only has to be positive."""
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    _build.refuse_grad(
-        "rwkv6_wkv", r, k, v, w, u, state,
-        reason="it has no backward kernel yet (ROADMAP.md Queue 1 item "
-               "22b); training through it runs on the CPU only")
+def _check(r, k, v, w, u, state) -> Tuple[int, ...]:
+    """Raise unless the forward's operands are ones the kernels take;
+    returns (B, S, H, K, V)."""
     _build.check_cuda("r", r, 4, tuple(DTYPES))
     for name, t in (("k", k), ("v", v)):
         _build.check_cuda(name, t, 4, (r.dtype,))
@@ -106,6 +116,29 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"empty operands: S = {s}, V = {vd}")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the grid's 65535")
+    return b, s, h, kd, vd
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state: Optional[torch.Tensor] = None, *, chunk: int = 64,
+              return_states: bool = False):
+    """r, k: [B,S,H,K]; v: [B,S,H,V] in r's dtype; w: [B,S,H,K] f32;
+    u: [H,K] in r's dtype; state: [B,H,K,V] f32 or None (zeros).  Returns
+    (out [B,S,H,V] in r's dtype, final state [B,H,K,V] f32), and with
+    `return_states` also each 64-step chunk's starting state
+    [B,H,NC,K,V] f32, which the backward takes.
+
+    `chunk` is the reference's chunk length; the kernel cuts the sequence
+    into chunks of its own (64 steps), and the result does not depend on
+    the length beyond rounding, so it only has to be positive."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    _build.refuse_grad(
+        "rwkv6_wkv", r, k, v, w, u, state,
+        reason="its output carries no grad_fn; a gradient goes through "
+               "`RWKV6WKV` (ops.rwkv6_wkv takes it under grad)")
+    b, s, h, kd, vd = _check(r, k, v, w, u, state)
     out = torch.empty(v.shape, dtype=r.dtype, device=r.device)
     final = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
     ds, clast = scratch(b, s, h, kd, vd, r.device)
@@ -119,4 +152,87 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             clast.data_ptr(), b, s, h, kd, vd, DTYPES[r.dtype], stream)
     _build.raise_on(err, "rwkv6_wkv")
     launches.count("rwkv6_wkv")
-    return out, final
+    # the scan leaves each chunk's starting state in ds
+    return (out, final, ds) if return_states else (out, final)
+
+
+def bwd_scratch(b: int, s: int, h: int, kd: int, vd: int) -> int:
+    """Floats of f32 scratch the backward allocates, as the CUDA source
+    lays it out: the state's gradient per chunk, the chunks' total log
+    decays, and the per-(b, chunk) partials of du."""
+    return load().rwkv6_wkv_bwd_scratch(b, s, h, kd, vd)
+
+
+def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state: Optional[torch.Tensor], do: torch.Tensor,
+                  dstate_out: Optional[torch.Tensor], *,
+                  states: torch.Tensor):
+    """The gradient (dr, dk, dv, dw, du, dstate) of `rwkv6_wkv(r, k, v, w,
+    u, state)` for the output gradients do ([B,S,H,V] in r's type) and
+    dstate_out ([B,H,K,V] f32, or None for zeros), given that call's chunk
+    states (`return_states=True`).  Each gradient comes in its operand's
+    type; dstate is None when state is.  K and V are at most 64."""
+    b, s, h, kd, vd = _check(r, k, v, w, u, state)
+    if kd > MAX_KV_BWD or vd > MAX_KV_BWD:
+        raise ValueError(f"the backward takes K, V <= {MAX_KV_BWD}, got "
+                         f"K = {kd}, V = {vd}")
+    _build.check_cuda("do", do, 4, (r.dtype,))
+    if do.shape != v.shape:
+        raise ValueError(f"do: expected {tuple(v.shape)}, got "
+                         f"{tuple(do.shape)}")
+    nc = -(-s // CHUNK)
+    _build.check_cuda("states", states, 5, _F32)
+    if tuple(states.shape) != (b, h, nc, kd, vd):
+        raise ValueError(f"states: expected {(b, h, nc, kd, vd)}, got "
+                         f"{tuple(states.shape)}")
+    tensors = [r, do, states]
+    if dstate_out is not None:
+        _build.check_cuda("dstate_out", dstate_out, 4, _F32)
+        if tuple(dstate_out.shape) != (b, h, kd, vd):
+            raise ValueError(f"dstate_out: expected {(b, h, kd, vd)}, got "
+                             f"{tuple(dstate_out.shape)}")
+        tensors.append(dstate_out)
+    _build.same_device(*tensors)
+    dr, dk, dv, dw, du = (torch.empty_like(t) for t in (r, k, v, w, u))
+    dstate = None if state is None else torch.empty_like(state)
+    work = torch.empty(bwd_scratch(b, s, h, kd, vd), dtype=torch.float32,
+                       device=r.device)
+    lib = load()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rwkv6_wkv_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), do.data_ptr(), states.data_ptr(),
+            None if dstate_out is None else dstate_out.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+            du.data_ptr(), None if dstate is None else dstate.data_ptr(),
+            work.data_ptr(), b, s, h, kd, vd, DTYPES[r.dtype], stream)
+    _build.raise_on(err, "rwkv6_wkv_bwd")
+    launches.count("rwkv6_wkv_bwd")
+    return dr, dk, dv, dw, du, dstate
+
+
+class RWKV6WKV(torch.autograd.Function):
+    """`rwkv6_wkv` with its gradient through `rwkv6_wkv_bwd`: the forward
+    asks for the chunk states and saves the operands with them.
+    `ops.rwkv6_wkv` takes this route only when a gradient is being
+    recorded, so a forward without one launches as before and saves
+    nothing.  Either output's gradient may be None (a loss that reads out
+    alone): out's is then zeros, the final state's is passed as None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        out, final, states = rwkv6_wkv(r, k, v, w, u, state,
+                                       return_states=True)
+        ctx.save_for_backward(r, k, v, w, u, state, states)
+        ctx.set_materialize_grads(False)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, dout, dfinal):
+        r, k, v, w, u, state, states = ctx.saved_tensors
+        dout = torch.zeros_like(v) if dout is None else dout.contiguous()
+        return rwkv6_wkv_bwd(
+            r, k, v, w, u, state, dout,
+            None if dfinal is None else dfinal.contiguous(), states=states)

@@ -30,7 +30,8 @@ backward, against its plain version (`ref.mamba2_ssd_bwd`, the same
 chunked algorithm): each gradient within 1e-4 of its max|g| (f32 sums in
 another order), plus 2^-8 max|g| for a gradient in bf16 (both round the
 f32 result once); under a strong decay against autograd of the
-sequential recurrence in f64 at the same limits.
+sequential recurrence in f64 at the same limits.  WKV backward, against
+`ref.rwkv6_wkv_bwd`, the same limits, dw compared as w o dw.
 WKV: 2e-4 in f32 (the reference's own tolerance, tests/test_kernels.py:
 the kernel's exponentials are exp2 of log2 sums, and its sums run in
 another order); in bf16 out within 2e-2 + 2e-2 |y| (both round an f32
@@ -863,6 +864,193 @@ def test_rwkv6_wkv_rejects_bad_operands(cuda):
         wkv_kernel.rwkv6_wkv(r, k, v, w, u, st, chunk=0)
 
 
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "dstate")
+
+
+def _wkv_bwd_inputs(shape, dtype, dev, with_state, log_w=None, seed=9):
+    """`_wkv_inputs`, then do in r's type and dstate_out f32, and the
+    forward's chunk states."""
+    args = _wkv_inputs(*shape, dtype, dev, with_state, log_w=log_w,
+                       seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    b, s, h, kd, vd = shape
+    do = torch.randn(b, s, h, vd, generator=g).to(dtype).to(dev)
+    dso = torch.randn(b, h, kd, vd, generator=g).to(dev)
+    _, _, states = wkv_kernel.rwkv6_wkv(*args, return_states=True)
+    return args, do, dso, states
+
+
+def _assert_wkv_grads_close(got, want, w, rel_bf16=2 ** -8):
+    """Each gradient within 1e-4 of its max|g| of the plain version's (f32
+    sums in another order); a bf16 one also within one rounding of the
+    result (2^-8 relative).  dw as w o dw, the log decay's gradient: dw
+    itself spans w's decades."""
+    for name, g, x in zip(WKV_GRADS, got, want):
+        if x is None:
+            assert g is None, name
+            continue
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        assert torch.isfinite(g).all(), name
+        g, x = g.double(), x.double()
+        if name == "dw":
+            g, x = g * w.double(), x * w.double()
+        scale = float(x.abs().max())
+        rel = 1e-4 + (rel_bf16 if got[0].dtype == torch.bfloat16
+                      and name in ("dr", "dk", "dv", "du") else 0.0)
+        err = float((g - x).abs().max())
+        assert err <= rel * scale, (name, err, scale)
+
+
+# (b, s, h, k, v)
+WKV_BWD_SHAPES = [
+    (2, 130, 3, 16, 16),
+    (1, 33, 1, 8, 8),          # one ragged chunk
+    (2, 100, 2, 32, 24),       # V not a multiple of 16
+    (2, 65, 2, 7, 10),         # padded K, V; one step into a second chunk
+    (1, 777, 40, 64, 64),      # rwkv6-3b's widths, ragged S
+    (2, 333, 5, 64, 64),       # B = 2: the (b, chunk) partials of du
+]
+
+
+@pytest.mark.parametrize("shape", WKV_BWD_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_wkv_bwd_matches_plain(cuda, shape, with_state, dtype):
+    args, do, dso, states = _wkv_bwd_inputs(shape, dtype, cuda, with_state)
+    dso = dso if with_state else None
+    before = wkv_kernel.launches["rwkv6_wkv_bwd"]
+    got = wkv_kernel.rwkv6_wkv_bwd(*args, do, dso, states=states)
+    torch.cuda.synchronize()
+    assert wkv_kernel.launches["rwkv6_wkv_bwd"] == before + 1
+    _assert_wkv_grads_close(got, ref.rwkv6_wkv_bwd(*args, do, dso), args[3])
+
+
+def test_rwkv6_wkv_bwd_train_shape(cuda):
+    """rwkv6-3b's training shape (B 2, S 1024, 40 heads of 64) in bf16,
+    with no state and no final state's gradient, as a training step calls
+    it."""
+    args, do, _, states = _wkv_bwd_inputs((2, 1024, 40, 64, 64),
+                                          torch.bfloat16, cuda, False)
+    got = wkv_kernel.rwkv6_wkv_bwd(*args, do, None, states=states)
+    torch.cuda.synchronize()
+    _assert_wkv_grads_close(got, ref.rwkv6_wkv_bwd(*args, do, None), args[3])
+
+
+@pytest.mark.parametrize("log_w", [-1.5, -3.0, -69.0])
+def test_rwkv6_wkv_bwd_strong_decay_matches_sequential(cuda, log_w):
+    """A chunk's log decays summing far below -88: the backward stays
+    finite and matches autograd of the sequential recurrence in f64."""
+    args, do, dso, states = _wkv_bwd_inputs((1, 200, 2, 64, 64),
+                                            torch.float32, cuda, True,
+                                            log_w=log_w)
+    got = wkv_kernel.rwkv6_wkv_bwd(*args, do, dso, states=states)
+    leaves = [t.double().requires_grad_() for t in args]
+    out, fin = ref.rwkv6_wkv_scan(*leaves)
+    want = torch.autograd.grad((out, fin), leaves,
+                               (do.double(), dso.double()))
+    _assert_wkv_grads_close(got, [x.float() for x in want], args[3])
+
+
+def test_rwkv6_wkv_bwd_is_deterministic(cuda):
+    """du sums the batch and the chunks in a fixed order with no atomics:
+    two calls on the same inputs agree bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args, do, dso, states = _wkv_bwd_inputs((2, 777, 40, 64, 64), dtype,
+                                                cuda, True)
+        first = wkv_kernel.rwkv6_wkv_bwd(*args, do, dso, states=states)
+        again = wkv_kernel.rwkv6_wkv_bwd(*args, do, dso, states=states)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_rwkv6_wkv_bwd_launches_four_kernels_per_call(cuda):
+    """One backward call is its four kernels and nothing else on the
+    device."""
+    args, do, dso, states = _wkv_bwd_inputs((1, 300, 8, 64, 64),
+                                            torch.bfloat16, cuda, True)
+    calls = 4
+    counts = _device_kernel_counts(
+        lambda: wkv_kernel.rwkv6_wkv_bwd(*args, do, dso, states=states),
+        calls, per_call=4)
+    assert len(counts) == 4 and sum(counts.values()) == 4 * calls, counts
+    for phase in wkv_kernel.BWD_KERNELS:
+        assert [c for k, c in counts.items() if phase in k] == [calls], counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_rwkv6_wkv_under_grad_goes_through_the_function(cuda, dtype):
+    """`ops.rwkv6_wkv` with a gradient recorded takes `RWKV6WKV`: one
+    forward and one backward launch, gradients equal to the plain
+    backward's (the final state's gradient None: a loss of out alone).
+    Without a gradient it launches the forward alone, with no graph; the
+    raw wrapper refuses a gradient and names the Function."""
+    from repro_torch.kernels import ops
+    args, do, _, _ = _wkv_bwd_inputs((2, 200, 4, 64, 64), dtype, cuda, True)
+    leaves = [t.requires_grad_() for t in args]
+    wkv_kernel.reset_launches()
+    out, _ = ops.rwkv6_wkv(*leaves)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    assert dict(wkv_kernel.launches) == {"rwkv6_wkv": 1, "rwkv6_wkv_bwd": 1}
+    plain = [t.detach() for t in leaves]
+    _assert_wkv_grads_close(got, ref.rwkv6_wkv_bwd(*plain, do, None),
+                            plain[3])
+    with torch.no_grad():
+        out, _ = ops.rwkv6_wkv(*leaves)
+    assert out.grad_fn is None
+    assert dict(wkv_kernel.launches) == {"rwkv6_wkv": 2, "rwkv6_wkv_bwd": 1}
+    with pytest.raises(NotImplementedError, match="RWKV6WKV"):
+        wkv_kernel.rwkv6_wkv(*leaves)
+
+
+def test_rwkv6_wkv_bwd_rejects_bad_operands(cuda):
+    args, do, dso, states = _wkv_bwd_inputs((1, 70, 2, 16, 16),
+                                            torch.bfloat16, cuda, True)
+
+    def call(**kw):
+        kw = {"do": do, "dstate_out": dso, "states": states, **kw}
+        return wkv_kernel.rwkv6_wkv_bwd(*args, kw["do"], kw["dstate_out"],
+                                        states=kw["states"])
+    with pytest.raises(ValueError, match="do"):
+        call(do=do.float())
+    with pytest.raises(ValueError, match="do"):
+        call(do=do[:, :10].contiguous())
+    with pytest.raises(ValueError, match="states"):
+        call(states=states[:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="dstate_out"):
+        call(dstate_out=dso.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        call(do=do.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(do=do.transpose(1, 2))
+    wide, do_w, _, st_w = _wkv_bwd_inputs((1, 20, 1, 96, 16),
+                                          torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="K, V <= 64"):
+        wkv_kernel.rwkv6_wkv_bwd(*wide, do_w, None, states=st_w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_ssd_bwd_da_from_a_zero_state_under_strong_decay(cuda,
+                                                                dtype):
+    """The training regime under a = -8 (no state, no final state's
+    gradient): each in-chunk decay is summed from the log decays of its
+    own steps, so da, small here against its terms, stays within 1e-4
+    max|g| of autograd of the sequential recurrence in f64, on both
+    routes (bf16 inputs held to the scan of the same rounded values)."""
+    args, dy, _, _ = _ssd_bwd_inputs((2, 77, 2, 64, 64), dtype, cuda, False)
+    args = list(args)
+    args[2] = torch.full((2,), -8.0, device=cuda)
+    _, _, states = ssd_kernel.mamba2_ssd(*args, return_states=True)
+    got = ssd_kernel.mamba2_ssd_bwd(*args, dy, None, states=states)
+    leaves = [t.double().requires_grad_() for t in args[:6]]
+    y, _ = ref.mamba2_ssd_scan(*leaves)
+    want = torch.autograd.grad(y, leaves, dy.double())
+    for name, g, w in zip(SSD_GRADS, got, want):
+        if name in ("ddt", "da") or dtype == torch.float32:
+            scale = float(w.abs().max())
+            err = float((g.double() - w).abs().max())
+            assert err <= 1e-4 * scale, (name, err, scale)
+
+
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "starcoder2-3b",
                                   "rwkv6-3b", "qwen3-14b", "yi-34b",
                                   "minicpm3-4b"])
@@ -1209,9 +1397,9 @@ def test_flash_attention_bwd_rejects_bad_operands(cuda):
 
 def test_ssd_and_wkv_refuse_a_gradient_on_card(cuda):
     """The raw wrappers return outputs with no grad_fn: under grad they
-    raise, the SSD's naming its autograd Function (`Mamba2SSD`, which
-    `ops.mamba2_ssd` takes), the WKV's the roadmap item of its backward.
-    So a reduced zamba2 differentiates on the card, and rwkv6 raises."""
+    raise, each naming its autograd Function (`Mamba2SSD`, `RWKV6WKV`),
+    which `ops` takes.  So reduced zamba2 and rwkv6 differentiate on the
+    card, through the backward kernels."""
     x, dt, a, bi, ci, d, _ = _ssd_inputs(1, 64, 2, 16, 16, torch.float32,
                                          cuda, False)
     with pytest.raises(NotImplementedError, match="Mamba2SSD"):
@@ -1220,7 +1408,7 @@ def test_ssd_and_wkv_refuse_a_gradient_on_card(cuda):
         ssd_kernel.mamba2_ssd(x, dt, a, bi, ci, d)
     r, k, v, w, u, _ = _wkv_inputs(1, 64, 2, 16, 16, torch.float32, cuda,
                                    False)
-    with pytest.raises(NotImplementedError, match="item 22b"):
+    with pytest.raises(NotImplementedError, match="RWKV6WKV"):
         wkv_kernel.rwkv6_wkv(r, k, v, w, u.requires_grad_())
     from repro_torch import configs
     from repro_torch.models import model
@@ -1228,13 +1416,14 @@ def test_ssd_and_wkv_refuse_a_gradient_on_card(cuda):
         cfg = configs.get_reduced(arch)
         m = model.init_params(cfg, 0, cuda).trainable()
         toks = torch.randint(0, cfg.vocab_size, (1, 16), device=cuda)
-        if arch == "rwkv6-3b":
-            with pytest.raises(NotImplementedError, match="item 22b"):
-                model.loss_fn(m, {"tokens": toks}, cfg)
-            continue
+        ssd_kernel.reset_launches()
+        wkv_kernel.reset_launches()
         loss, _ = model.loss_fn(m, {"tokens": toks}, cfg)
         grads = torch.autograd.grad(loss, list(m.parameters()))
         assert all(torch.isfinite(g).all() for g in grads)
+        bwd = (ssd_kernel.launches["mamba2_ssd_bwd"] if arch == "zamba2-2.7b"
+               else wkv_kernel.launches["rwkv6_wkv_bwd"])
+        assert bwd == cfg.n_layers, (arch, bwd)
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -284,10 +284,10 @@ def _wkv_args(requires_grad):
 def test_kernels_without_backward_refuse_a_gradient(fn, args):
     """The raw SSD and WKV wrappers return outputs with no grad_fn: asked
     to record a gradient they raise instead, naming where the gradient
-    goes (the SSD's autograd Function) or the roadmap item that brings
-    it (the WKV's backward).  Without a gradient they go on to their
-    usual operand checks (these CPU tensors are refused there)."""
-    route = "Mamba2SSD" if fn is ssd_kernel.mamba2_ssd else "item 22b"
+    goes (each one's autograd Function).  Without a gradient they go on
+    to their usual operand checks (these CPU tensors are refused
+    there)."""
+    route = "Mamba2SSD" if fn is ssd_kernel.mamba2_ssd else "RWKV6WKV"
     with pytest.raises(NotImplementedError, match=route):
         fn(*args(True))
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
@@ -372,6 +372,79 @@ def test_zamba2_step_through_the_ssd_function(monkeypatch, dtype, remat):
         gap = float((g.double() - w.double()).norm() / w.double().norm())
         assert gap <= rel, (name, gap)
     for leaf in ("a_log", "dt_bias", "d_skip"):
+        hits = [k for k in named if k.endswith(leaf)]
+        assert len(hits) == cfg.n_layers, leaf
+        for k in hits:
+            assert float(got[list(named).index(k)].abs().max()) > 0, k
+
+
+def _wkv_function_on_the_cpu(monkeypatch, calls):
+    """Route `ops.rwkv6_wkv` through `RWKV6WKV` on CPU tensors, its two
+    kernels replaced by their plain versions: the forward at the kernel's
+    64-step chunk (no chunk states: the plain backward recomputes them),
+    the backward `ref.rwkv6_wkv_bwd`.  `calls` counts each."""
+    def fwd(r, k, v, w, u, state=None, *, chunk=64, return_states=False):
+        assert return_states and not torch.is_grad_enabled()
+        calls["fwd"] += 1
+        assert w.dtype == torch.float32 and w.is_contiguous()
+        out, final = tref.rwkv6_wkv(r, k, v, w, u, state,
+                                    chunk=tref.WKV_BWD_CHUNK)
+        return out, final, torch.empty(0)
+
+    def bwd(r, k, v, w, u, state, do, dstate_out, *, states):
+        calls["bwd"] += 1
+        calls["dstate_out"].append(dstate_out)
+        return tref.rwkv6_wkv_bwd(r, k, v, w, u, state, do, dstate_out)
+
+    monkeypatch.setattr(wkv_kernel, "rwkv6_wkv", fwd)
+    monkeypatch.setattr(wkv_kernel, "rwkv6_wkv_bwd", bwd)
+    monkeypatch.setattr(
+        tops, "rwkv6_wkv",
+        lambda r, k, v, w, u, state=None, *, chunk=64:
+        wkv_kernel.RWKV6WKV.apply(r, k, v, w, u, state))
+
+
+@pytest.mark.parametrize("dtype,remat", [("float32", False),
+                                         ("float32", True),
+                                         ("bfloat16", True)])
+def test_rwkv6_step_through_the_wkv_function(monkeypatch, dtype, remat):
+    """A reduced rwkv6 step whose WKV goes through the autograd Function
+    the card uses (`RWKV6WKV`), with the kernels' plain versions in their
+    place, against autograd of the plain forward from the same weights:
+    w reaches the kernel in f32 and contiguous, the Function saves what
+    its backward takes (across remat's recompute), passes None for the
+    final state's unused gradient, returns each gradient in its operand's
+    type (u's in its own), and reaches the bonus u and the decay's
+    parameters.  Each tensor's gradient within 1e-4 of the other in
+    relative L2 in f32 (the plain backward against autograd of the
+    chunked forward: the same f32 terms, summed in other orders); in bf16
+    within 2e-2 (each path rounds its bf16 gradients in other places)."""
+    cfg = tconfigs.get_reduced("rwkv6-3b").replace(dtype=dtype, remat=remat)
+    model = tmodel.init_params(cfg, 3).trainable()
+    named = dict(model.named_parameters())
+    toks = torch.from_numpy(_tokens(cfg, 2, 90, seed=13)).long()
+
+    def grads():
+        loss, _ = tmodel.loss_fn(model, {"tokens": toks}, cfg)
+        return (float(loss.detach()),
+                torch.autograd.grad(loss, list(named.values())))
+
+    want_loss, want = grads()
+    calls = {"fwd": 0, "bwd": 0, "dstate_out": []}
+    _wkv_function_on_the_cpu(monkeypatch, calls)
+    got_loss, got = grads()
+    # under remat a layer's forward runs in the forward and again in its
+    # recompute
+    assert calls["fwd"] == cfg.n_layers * (2 if remat else 1)
+    assert calls["bwd"] == cfg.n_layers
+    assert calls["dstate_out"] == [None] * cfg.n_layers
+    rel = 1e-4 if dtype == "float32" else 2e-2
+    assert got_loss == pytest.approx(want_loss, rel=rel)
+    for name, g, w in zip(named, got, want):
+        assert g.dtype == w.dtype == named[name].dtype, name
+        gap = float((g.double() - w.double()).norm() / w.double().norm())
+        assert gap <= rel, (name, gap)
+    for leaf in ("bonus_u", "decay_base", "decay_w2"):
         hits = [k for k in named if k.endswith(leaf)]
         assert len(hits) == cfg.n_layers, leaf
         for k in hits:

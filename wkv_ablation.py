@@ -1,18 +1,21 @@
-"""Where the WKV kernel's time goes: its device time with one stage taken
-out at a time.  A profiling aid beside chip_smoke.py; the port never
-imports it.
+"""Where the WKV kernels' time goes: their device time with one stage
+taken out at a time, the forward's and the backward's.  A profiling aid
+beside chip_smoke.py; the port never imports it.
 
-    python3 wkv_ablation.py        # from the repo root, on a card
+    python3 wkv_ablation.py                # from the repo root, on a card
+    python3 wkv_ablation.py --part bwd     # the backward's stages alone
 
 Each variant is `src/repro_torch/kernels/csrc/rwkv6_wkv.cu` with the loop
 of one stage emptied (its results are wrong by design), built into
 `build/repro_torch/ablation/` with the kernels' own build, called through
 the library's C entry (the port's wrapper is not touched), and timed with
 torch.profiler at rwkv6-3b's prefill (S = 1024, 40 heads of 64, bf16,
-seed 1), every variant in one process on one card, in two rounds.  The
-drop in a kernel's time when a stage goes is that stage's share;
-`loads_only` keeps the loads, the running sums, the barriers and the
-stores.  A stage whose text is not found exactly once in the source stops
+seed 1) for the forward and at its train shape (B 2, S 1024, no state)
+for the backward (four kernels a call; its stages are those of the chunk
+gradients, and the state increments' product), every variant in one
+process on one card, in two rounds.  The drop in a kernel's time when a
+stage goes is that stage's share; `loads_only` keeps the loads, the
+running sums, the barriers and the stores.  A stage whose text is not found exactly once in the source stops
 the script: after an edit of the kernel, bring STAGES up to date.  Prints
 one JSON line per variant and round and writes them all to
 `chiprun_out/wkv_ablation.json`.
@@ -45,26 +48,58 @@ STAGES = {
                       "    for (int j = 0; j < 0; ++j)"),
 }
 PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
+# the backward's stages: the state increments' product (wkv_bwd_state_inc)
+# and the chunk gradients' (wkv_bwd_chunk_grad) products, exponential
+# loops and the decay's gradient
+BWD_STAGES = {
+    "inc_product": ("  for (int t = 0; t < kC; ++t) {\n    float dv[4];",
+                    "  for (int t = 0; t < 0; ++t) {\n    float dv[4];"),
+    "a_offdiag": ("  for (int e = tid; e < kPairs * kL * kL; e += kThreads) {",
+                  "  for (int e = tid; e < 0; e += kThreads) {"),
+    "a_diag": ("  for (int e = tid; e < kDiagExp + kC; e += kThreads) {",
+               "  for (int e = tid; e < 0; e += kThreads) {"),
+    "q_pairs": ("  if (tid < 3 * kBK) {\n    const int p = tid / kBK",
+                "  if (tid < 0) {\n    const int p = tid / kBK"),
+    "dv": ("    for (int t = tr; t < kC; ++t) {\n      const float* ar",
+           "    for (int t = tr; t < 0; ++t) {\n      const float* ar"),
+    "dk_offdiag": ("    for (int bi = sj + 1; bi < kNSub; ++bi) {",
+                   "    for (int bi = sj + 1; bi < 0; ++bi) {"),
+    "dk_diag": ("        for (int t = j + 1; t < kL * sj + kL; ++t) {",
+                "        for (int t = j + 1; t < 0; ++t) {"),
+    "dr_offdiag": ("    for (int bj = 0; bj < st; ++bj) {",
+                   "    for (int bj = 0; bj < 0; ++bj) {"),
+    "dr_diag": ("        for (int j = t - 1; j >= kL * st; --j) {",
+                "        for (int j = t - 1; j >= kC; --j) {"),
+    "dla_pivot": ("      for (int t = i + 1; t < i0 + kL; ++t) {\n"
+                  "        float inner",
+                  "      for (int t = i + 1; t < 0; ++t) {\n        float inner"),
+}
+BWD_PHASES = ("wkv_bwd_state_inc", "wkv_bwd_state_scan",
+              "wkv_bwd_chunk_grad", "wkv_bwd_reduce")
 
 
-def variants(src: str) -> dict:
-    def without(*stages):
+def variants(src: str, stages: dict, prefix: str = "") -> dict:
+    def without(*names):
         text = src
-        for st in stages:
-            old, new = STAGES[st]
+        for st in names:
+            old, new = stages[st]
             if text.count(old) != 1:
                 raise RuntimeError(f"stage {st!r} not found once in the "
                                    "kernel's source")
             text = text.replace(old, new)
         return text
 
-    out = {"full": src}
-    out.update({f"no_{st}": without(st) for st in STAGES})
-    out["loads_only"] = without(*STAGES)
+    out = {f"{prefix}full": src}
+    out.update({f"{prefix}no_{st}": without(st) for st in stages})
+    out[f"{prefix}loads_only"] = without(*stages)
     return out
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--part", choices=("fwd", "bwd", "both"), default="both")
+    part = ap.parse_args().part
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -81,8 +116,13 @@ def main() -> int:
     print(smi)
     src_dir = _build.BUILD_DIR / "ablation"
     src_dir.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for name, text in variants(wkv.SOURCE.read_text()).items():
+    libs, src = {}, wkv.SOURCE.read_text()
+    todo = {}
+    if part in ("fwd", "both"):
+        todo.update(variants(src, STAGES))
+    if part in ("bwd", "both"):
+        todo.update(variants(src, BWD_STAGES, "bwd_"))
+    for name, text in todo.items():
         path = src_dir / f"rwkv6_wkv_{name}.cu"
         path.write_text(text)
         libs[name] = _build.Library(path, wkv._declare)
@@ -110,20 +150,41 @@ def main() -> int:
             wkv.DTYPES[bf16], stream)
         _build.raise_on(err, "rwkv6_wkv")
 
+    # the backward at the train shape, from the unchanged forward's states
+    bb = 2
+    br, bk, bv, bdo = (torch.randn(bb, s, h, kd, generator=g, device="cuda")
+                       .to(bf16) for _ in range(4))
+    bw = torch.exp(-torch.exp(0.5 * torch.randn(bb, s, h, kd, generator=g,
+                                                device="cuda") - 1.0))
+    _, _, states = wkv.rwkv6_wkv(br, bk, bv, bw, u, None, return_states=True)
+    grads = [torch.empty_like(t) for t in (br, bk, bv, bw, u)]
+    work = torch.empty(wkv.bwd_scratch(bb, s, h, kd, kd),
+                       dtype=torch.float32, device="cuda")
+
+    def call_bwd(cdll):
+        err = cdll.rwkv6_wkv_bwd(
+            br.data_ptr(), bk.data_ptr(), bv.data_ptr(), bw.data_ptr(),
+            u.data_ptr(), bdo.data_ptr(), states.data_ptr(), None,
+            *(t.data_ptr() for t in grads), None, work.data_ptr(), bb, s, h,
+            kd, kd, wkv.DTYPES[bf16], stream)
+        _build.raise_on(err, "rwkv6_wkv_bwd")
+
     rows, iters = [], 20
     for rnd in range(2):
         for name, cdll in cdlls.items():
+            bwd = name.startswith("bwd_")
+            fn, phases = (call_bwd, BWD_PHASES) if bwd else (call, PHASES)
             for _ in range(3):
-                call(cdll)
+                fn(cdll)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
-                    call(cdll)
+                    fn(cdll)
                 torch.cuda.synchronize()
             ev = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
             ms = {p: sum(e.self_device_time_total for e in ev
-                         if p in e.key) / 1e3 / iters for p in PHASES}
+                         if p in e.key) / 1e3 / iters for p in phases}
             row = dict(variant=name, round=rnd, ms=ms,
                        total_ms=sum(ms.values()), device=smi)
             rows.append(row)
