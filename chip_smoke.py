@@ -56,8 +56,11 @@ to the CPU:
                 float64.  The WKV backward (rwkv6_wkv_bwd, four kernels
                 per call, asserted) at rwkv6-3b's train shape (B 2, S
                 1024, 40 heads of 64) in bf16 and f32, at S 777 with a
-                state, and at log w = -1.5 against autograd of the
-                sequential recurrence in float64, with a bitwise repeat.
+                state, and at log w = -1.5 with a state and at log w =
+                -1.5 and -69 from a zero state (as a training step
+                calls it) against autograd of the sequential recurrence
+                in float64, with a bitwise repeat and each kernel's
+                blocks per SM (the bf16 chunk gradients must hold two).
                 A bf16 gradient is held to the plain version run on the
                 same values in f32, so that it carries one rounding.
   4. main     — the paper's loop through the port's entry points: 256 GS2
@@ -1105,16 +1108,21 @@ def _wkv_bwd_rows(randn):
     no state and no final-state gradient, as a training step gives it) in
     bf16 and f32 (w f32 as the model makes it), at a ragged S with a state
     and the final state's gradient, and under a strong decay (log w =
-    -1.5) against autograd of the sequential recurrence (ref.
-    rwkv6_wkv_scan) in float64.  Tolerance per gradient, against its
+    -1.5 with a state; -1.5 and -69 from a zero state with no final
+    state's gradient, as a training step calls it) against autograd of the
+    sequential recurrence (ref.rwkv6_wkv_scan) in float64: every decay
+    in the kernel is a product of max(w, 1e-30) over its own steps.
+    Tolerance per gradient, against its
     max|g|: 1e-4 (the same f32 sums in another order), plus 2^-8 for a
     gradient in bf16 (the kernel rounds the f32 result once; the plain
     version runs on the bf16 values in f32, `unrounded`); dw is compared
-    as w o dw, the log decay's gradient.  Each call is four kernels, asserted
-    from a profiler window, and two calls on the same inputs agree bit for
-    bit (a fixed-order reduction of du, no atomics); the scratch is read
-    from the allocator and held to the library's layout (`bwd_scratch`).
-    No single PyTorch call computes the function: library_ms is null."""
+    as w o dw, the log decay's gradient.  Each call is four kernels,
+    asserted from a profiler window, and two calls on the same inputs agree
+    bit for bit (a fixed-order reduction of du, no atomics); the scratch is
+    read from the allocator and held to the library's layout
+    (`bwd_scratch`).  Each row carries each kernel's blocks per SM (CUDA's
+    occupancy calculator); the bf16 chunk gradients must hold two.  No single PyTorch call computes the function: library_ms is
+    null."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_wkv as wkv
@@ -1127,7 +1135,11 @@ def _wkv_bwd_rows(randn):
             ("rwkv6 train f32 B=2 S=1024", 2, 1024, f32, False, None),
             ("rwkv6 bf16 S=777 +state", 1, 777, bf16, True, None),
             ("rwkv6 bf16 S=512 +state log w=-1.5 vs f64 scan", 1, 512, bf16,
-             True, -1.5)):
+             True, -1.5),
+            ("rwkv6 bf16 S=512 log w=-1.5 vs f64 scan", 1, 512, bf16,
+             False, -1.5),
+            ("rwkv6 f32 S=512 log w=-69 vs f64 scan", 1, 512, f32, False,
+             -69.0)):
         r, k, v = (randn(b, s, h, kd, dtype=dtype) for _ in range(3))
         if log_w is None:
             w = torch.exp(-torch.exp(0.5 * randn(b, s, h, kd) - 1.0))
@@ -1145,10 +1157,16 @@ def _wkv_bwd_rows(randn):
         if log_w is None:
             want = ref.rwkv6_wkv_bwd(*unrounded(*args, do), dso)
         else:
-            leaves = [t.double().requires_grad_() for t in args]
+            leaves = [t.double().requires_grad_() for t in args
+                      if t is not None]
             out64, fin64 = ref.rwkv6_wkv_scan(*leaves)
-            want = torch.autograd.grad((out64, fin64), leaves,
-                                       (do.double(), dso.double()))
+            if dso is None:             # a loss of the output alone
+                want = list(torch.autograd.grad(out64, leaves, do.double()))
+            else:
+                want = list(torch.autograd.grad((out64, fin64), leaves,
+                                                (do.double(), dso.double())))
+            if st is None:
+                want.append(None)
             del leaves, out64, fin64
         err, rel_err, errs = 0.0, 0.0, {}
         for name, g_, x in zip(names, got, want):
@@ -1176,6 +1194,10 @@ def _wkv_bwd_rows(randn):
         phase_ms, per_call = _phases(kernels, WKV_BWD_PHASES, run,
                                      f"rwkv6_wkv_bwd {label}")
         bnd, by = _wkv_bwd_bound(r, v, st, dso)
+        blocks = wkv.bwd_blocks_per_sm(dtype, kd)
+        if dtype == bf16 and blocks["wkv_bwd_chunk_grad"] < 2:
+            raise AssertionError(f"rwkv6_wkv_bwd {label}: the chunk "
+                                 f"gradients hold {blocks} blocks per SM")
         rows.append(dict(
             name=f"rwkv6_wkv_bwd[{label}]", source=wkv.SOURCE,
             grad_tol="1e-4 max|g| (+ 2^-8 max|g| for a bf16 gradient); dw "
@@ -1191,10 +1213,14 @@ def _wkv_bwd_rows(randn):
             scratch_bytes=measured_scratch(
                 run, f"rwkv6_wkv_bwd {label}",
                 4 * wkv.bwd_scratch(b, s, h, kd, kd)),
-            deterministic=True,
+            deterministic=True, blocks_per_sm=blocks,
             note="ms sums the device time of the call's four kernels (the "
                  "state gradient's increments, the reverse scan, the chunk "
-                 "gradients, the reduction of du); f32 on the CUDA cores"))
+                 "gradients, the reduction of du); every decay a product "
+                 "of max(w, 1e-30), no exponential; bf16: the state terms' "
+                 "products and do.v on mma.sync (S, G and k o edec split "
+                 "into two bf16 pieces), the rest f32 on the CUDA cores; "
+                 "f32 on the CUDA cores"))
     return rows
 
 

@@ -769,42 +769,48 @@ cudaError_t launch_any(const void* r, const void* k, const void* v,
 // The backward (rwkv6_wkv_bwd) replaces no Pallas kernel: the reference
 // differentiates the WKV with XLA (repro/kernels/ops.py rwkv6_wkv, through
 // repro/kernels/ref.py rwkv6_wkv_chunked or the Pallas kernel's plain
-// body).  Per (b, h) and chunk, with la = ln max(w, 1e-30), c_t its
-// in-chunk running sum (c_{-1} = 0, L the last step), S the state entering
-// the chunk and G the gradient of the state leaving it:
-//   G_{c-1} = e^{c_L} o G_c + sum_t (r_t o e^{c_{t-1}}) do_t^T
-//   dr_t = e^{c_{t-1}} o (S do_t) + sum_{j<t} (do_t.v_j) k_j o E_tj
+// body).  Per (b, h) and chunk, with p = max(w, 1e-30) the clamped decay
+// of a step (1 past the ends), S the state entering the chunk and G the
+// gradient of the state leaving it, and E_tj = prod_{j<n<t} p_n:
+//   G_{c-1} = P_L o G_c + sum_t (r_t o ecp_t) do_t^T,  P_L = prod_t p_t
+//   dr_t = ecp_t o (S do_t) + sum_{j<t} (do_t.v_j) k_j o E_tj
 //          + (do_t.v_t) u o k_t
 //   dk_j = sum_{t>j} (do_t.v_j) r_t o E_tj + (do_j.v_j) u o r_j
-//          + e^{c_L-c_j} o (G v_j)
-//   dv_j = sum_{t>j} A_tj do_t + beta_j do_j + G^T (k_j o e^{c_L-c_j})
+//          + edec_j o (G v_j)
+//   dv_j = sum_{t>j} A_tj do_t + beta_j do_j + G^T (k_j o edec_j)
 //   du   = sum_{b,t} (do_t.v_t) r_t o k_t
 //   dla_i = sum_{t>i} x_t + sum_{j<i<t} y_tj + q + sum_{j<i} z_j
-// with E_tj = e^{c_{t-1}-c_j}, A_tj = sum_k r_t k_j E_tj, beta_j =
-// sum_k r_j u k_j, x_t = r_t o e^{c_{t-1}} o (S do_t), y_tj = (do_t.v_j)
-// r_t o k_j o E_tj, z_j = k_j o e^{c_L-c_j} o (G v_j) and q = e^{c_L} o
-// rowsum(S o G); dw = dla / w where w >= 1e-30, else 0.  dla is summed term
-// by term: as a reverse cumulative sum of the gradient of c, y_{t,t-1}
-// (decay e^0) would enter it with both signs.
+// with ecp_t = prod_{n<t} p_n, edec_j = prod_{n>j} p_n, A_tj = sum_k r_t
+// k_j E_tj, beta_j = sum_k r_j u k_j, x_t = r_t o (dr_t's S term), y_tj =
+// (do_t.v_j) r_t o k_j o E_tj, z_j = k_j o (dk_j's G term) and q = P_L o
+// rowsum(S o G); dla is the gradient of ln p, and dw = dla / w where w >=
+// 1e-30, else 0.  dla is summed term by term: as a reverse cumulative sum
+// of the gradient of the running log decay, y_{t,t-1} (decay 1) would
+// enter it with both signs.
 //
-// Every exponent is summed from the log decays of its own steps, never
-// the difference of two running sums (log w runs down to -69 a step).
-// The chunk is cut into four 16-step sub-blocks.  Per (step, channel) the
-// block holds e^{lcp_t} (lcp_t: the sum over the steps of t's sub-block
-// before t) and e^{rs_j} (rs_j: the sum over the steps of j's sub-block
-// after j), and per sub-block and channel e^{T_M} (its total).  Where t and
-// j lie in sub-blocks I > J, E_tj = e^{lcp_t} D_IJ e^{rs_j} with D_IJ the
-// product of e^{T_M} over the sub-blocks between; e^{c_{t-1}}, e^{c_L-c_j}
-// and e^{c_L} are products of the same factors.  Inside one sub-block the
-// exponent is summed step by step.  Every factor is <= 1, so a factor
-// underflows only where the term is smaller still.  The middle term of dla
-// splits by the sub-blocks of t and j against i's sub-block m:
+// No exponential and no logarithm: every decay is a product of p over its
+// own steps, multiplied in step by step (log w runs down to -69 a step, so
+// a ratio of two running products, or a difference of two running sums,
+// overflows or cancels).  Every factor is <= 1, so a factor underflows
+// only where the term is smaller still.  The chunk is cut into four
+// 16-step sub-blocks; per (step, channel) elcp_t is the product over the
+// steps of t's sub-block before t and ers_j over those of j's after j,
+// and et_M is sub-block M's product.  Where t and j lie in sub-blocks
+// I > J, E_tj = elcp_t D_IJ ers_j with D_IJ the product of et_M over the
+// sub-blocks between, so A, dr and dk there are products of the scaled
+// operands r o elcp and k o ers.  Inside one sub-block each (j, channel)
+// carries its product along t (one multiply and one FMA a step), and the
+// diagonal terms of dr and dk their own, whose last value is elcp or ers.
+// The middle term of dla splits by the sub-blocks of t and j against i's
+// sub-block m:
 //   (a) t after m, j before m:  sum D_IJ Q_IJ, Q_IJ = sum_{t in I, j in J}
-//       (r_t e^{lcp_t}) (do_t.v_j) (k_j e^{rs_j})
-//   (b) t after m, j in m, j < i:  sum_j k_j e^{rs_j} X_j, X_j the sum over
+//       (r o elcp)_t (do_t.v_j) (k o ers)_j
+//   (b) t after m, j in m, j < i:  sum_j (k o ers)_j X_j, X_j the sum over
 //       later sub-blocks that dk_j's off-diagonal part also takes
-//   (c) t in m, t > i, j before m:  sum_t r_t e^{lcp_t} Y_t, likewise dr's
-//   (d) t and j in m:  pivoted at i, e^{c_{t-1}-c_i} e^{c_i-c_j}.
+//   (c) t in m, t > i, j before m:  sum_t (r o elcp)_t Y_t, likewise dr's
+//   (d) t and j in m:  sum_{t>i} r_t B_it W_t(i), B_it = prod_{i<n<t} p_n,
+//       W_t(i) = sum_{j<i} (do_t.v_j) k_j prod_{j<n<=i} p_n, carried along
+//       i as W_t(i+1) = p_{i+1} (W_t(i) + (do_t.v_i) k_i).
 //
 // What bounds it on the H100: at rwkv6-3b's train shape (B 2, S 1024, H
 // 40, K = V = 64) the gradient of the sequential recurrence needs about
@@ -813,123 +819,303 @@ cudaError_t launch_any(const void* r, const void* k, const void* v,
 // Design: four launches, no block walking more than one chunk, no
 // atomics.
 //   1. wkv_bwd_state_inc, grid (NC, B H): each chunk's
-//      sum_t (r_t o e^{c_{t-1}}) do_t^T and its total log decay c_L.
+//      sum_t (r_t o ecp_t) do_t^T and its decay product P_L.
 //   2. wkv_bwd_state_scan, one thread per (b, h, k, v): the state's
 //      gradient from the last chunk to the first, written over the
 //      increments (dstate at the end).
-//   3. wkv_bwd_chunk_grad, grid (NC, B H): one block holds a chunk's r,
-//      k, v, do, la, S and G (K, V <= 64, 190 KiB of shared memory) and
-//      writes dr, dk, dv, dw and its (b, chunk) partial of du.  Every
-//      product is f32 on the CUDA cores in 4 x 4 register tiles (the
-//      port allows no TF32).
+//   3. wkv_bwd_chunk_grad, grid (NC, B H), in two parts with the shared
+//      memory reused: the terms that take S and G, ecp o (S do), edec o
+//      (G v), G^T (k o edec) and q, into f32 scratch; then the rest of dr,
+//      dk, dv and dw and a (b, chunk) partial of du, adding those terms
+//      back (they make their round trip through the L2 cache: the block
+//      that wrote them reads them).
 //   4. wkv_bwd_reduce sums the partials of du in index order, so the same
 //      inputs give the same bits.
-// Steps past the end of S carry w = 1 and zero operands, and their
-// gradients are not written.  A simple kernel: one block of 256 threads
-// per SM, its phases serial behind block barriers, and the diagonal
-// sub-blocks' exponentials per (t, j, k).  What holds it back (rwkv6-3b's
-// train shape, bf16, on an H100; wkv_ablation.py --part bwd): the chunk
-// gradients are about 93% of the call; of them the loads, running sums,
-// barriers and stores alone about half, A's diagonal sub-blocks (an
-// exponential and a step-by-step sum per (t, j, k)) a quarter, the
-// pivoted dla term an eighth.
+// The bf16 instance of phase 3 holds two blocks per SM (107 KiB of shared
+// memory, 128 registers): r, k, v and do stay bf16 in shared memory
+// (exact there), the decays are kept as w (clamped where read; no
+// log-decay tile), tiles are reused from part to part, and every tile
+// arrives by 16-byte cp.async copies issued before the first is waited
+// for (S and G while the step products run).  Its 64 x 64 products do S^T,
+// v G^T, (k o edec) G and do v^T run on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, f32 sums), each f32 operand (S, G, k o edec)
+// split into two bf16 pieces, hi = bf16(x) and lo = bf16(x - hi), which
+// hold it to about 2^-16 of itself.  The rest of the products (A and its
+// transpose times do, the off-diagonal sub-blocks of dr and dk, the
+// sub-blocks' running products and dla) are f32 on the CUDA cores in
+// register tiles, as is all of the f32 route (one block per SM; the port
+// allows no TF32).  Steps past the end of S carry w = 1 and zero
+// operands, and their gradients are not written.  wkv_ablation.py --part
+// bwd times the stages; PERF.md keeps what they showed.
 
 constexpr int kBK = 64;          // widest K and V the backward takes
-constexpr int kLdB = kBK + 4;    // row stride of the [.][k] and [.][v] tiles
-constexpr int kLdP = kC + 1;     // row stride of the [t][j] tiles
+constexpr int kLdB = kBK + 4;    // row stride of the f32 [.][k], [.][v] tiles
+constexpr int kLdP = kC + 1;     // row stride of the [t][j] tile
 constexpr int kNSub = kC / kL;   // sub-blocks per chunk
 constexpr int kTileB = kC * kLdB;
+constexpr int kTileP = kC * kLdP;
+constexpr int kTerms = 3 * kC * kBK;   // a chunk's S and G terms in scratch
+constexpr unsigned kAll = 0xffffffffu;
 
-// product of e^{T_M} over sub-blocks m0 <= M < m1 for channel c
-__device__ __forceinline__ float sub_prod(const float* s_et, int m0, int m1,
-                                          int c) {
-  float x = 1.0f;
-  for (int m = m0; m < m1; ++m) x *= s_et[m * kBK + c];
-  return x;
+// row stride of a [64][64] operand tile in its own type: 16-byte rows,
+// each four banks on from the one before
+template <typename T>
+__host__ __device__ constexpr int ld_op() {
+  return sizeof(T) == 4 ? kLdB : kBK + 8;
+}
+
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(x.x), bf16_hi(x.x), bf16_lo(x.y), bf16_hi(x.y));
+}
+
+// 16 consecutive elements from shared memory (16-byte aligned), as f32
+__device__ __forceinline__ void ld16(const float* p, float (&x)[16]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 a = ld4(p + 4 * q);
+    x[4 * q] = a.x;
+    x[4 * q + 1] = a.y;
+    x[4 * q + 2] = a.z;
+    x[4 * q + 3] = a.w;
+  }
+}
+__device__ __forceinline__ void ld16(const __nv_bfloat16* p,
+                                     float (&x)[16]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint4 a = reinterpret_cast<const uint4*>(p)[q];
+    const unsigned u[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[8 * q + 2 * i] = bf16_lo(u[i]);
+      x[8 * q + 2 * i + 1] = bf16_hi(u[i]);
+    }
+  }
+}
+
+// The bf16 route's tensor-core products (as in mamba2_ssd.cu): mma.sync
+// m16n8k16 with bf16 operands from ldmatrix and f32 sums; an f32 operand
+// is split into kPieces bf16 pieces, hi = bf16(x) and lo = bf16(x - hi),
+// each multiplied in turn.
+constexpr int kPieces = 2;             // bf16 pieces of an f32 operand
+constexpr int kLdH = kBK + 8;          // row stride of the bf16 [64][64]
+constexpr int kTileH = kC * kLdH;      // tiles (ld_op of bf16)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
+// matrix i, and register i receives its fragment
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// four 8 x 8 b16 matrices, each transposed on the way (as ldmatrix_x4)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (v0, v1) rounded to bf16, v0 in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float v0, float v1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// An f32 pair as kPieces bf16 pairs, largest first: each piece is the
+// bf16 rounding of what the earlier ones leave (each difference is exact
+// in f32).  Two pieces hold the pair to about 2^-16 of itself.
+__device__ __forceinline__ void split_pair(float v0, float v1,
+                                           uint32_t (&w)[kPieces]) {
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    w[i] = pack_bf16(v0, v1);
+    v0 -= bf16_lo(w[i]);
+    v1 -= bf16_hi(w[i]);
+  }
+}
+
+// A warp's lane terms (bytes) on a bf16 [64][kLdH] tile, for its 16 x 32
+// part (rows 16 wm, columns 32 wn) of a 64 x 64 product: an A operand
+// [m][k]; a B operand, two n-tiles, from [n][k] rows or (trans) [k][n]
+// rows.  The k-step ks and the n-tile pair jp add 32 (ks + jp kLdH) bytes
+// (rows) or 32 (ks kLdH + jp) bytes (trans).
+struct MmaLanes {
+  uint32_t a, b, bt;
+  __device__ __forceinline__ MmaLanes(int wm, int wn, int lane)
+      : a(2 * ((16 * wm + (lane & 15)) * kLdH + 8 * (lane >> 4))),
+        b(2 * ((32 * wn + (lane & 7) + 8 * (lane >> 4)) * kLdH +
+               8 * ((lane >> 3) & 1))),
+        bt(2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdH + 32 * wn +
+                8 * (lane >> 4))) {}
+};
+
+// acc[16 x 32] += a[16 x 64] b^T, a bf16 [m][k] at sh_a and b as npieces
+// bf16 pieces [n][k] at sh_b (one tile apart): the warp's part of a 64 x
+// 64 x 64 product
+__device__ __forceinline__ void mma_rows(float (&acc)[4][4], uint32_t sh_a,
+                                         uint32_t sh_b, int npieces,
+                                         const MmaLanes& ln) {
+#pragma unroll
+  for (int ks = 0; ks < kBK / 16; ++ks) {
+    uint32_t fa[4];
+    ldmatrix_x4(fa, sh_a + ln.a + 32 * ks);
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      if (i >= npieces) break;
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t f[4];
+        ldmatrix_x4(f, sh_b + i * 2 * kTileH + ln.b + 32 * (jp * kLdH + ks));
+        mma_bf16(acc[2 * jp], fa, f[0], f[1]);
+        mma_bf16(acc[2 * jp + 1], fa, f[2], f[3]);
+      }
+    }
+  }
+}
+
+// A [64][64] tile of one chunk in its own type: dst[t][c] = src[t *
+// rstride + c] for t < nrows and c < width, 0 elsewhere.  vec: 16-byte
+// cp.async copies (width a multiple of 16 / sizeof(T), src 16-byte
+// aligned), committed by the caller; else element by element.
+template <typename T>
+__device__ __forceinline__ void tile_bwd(T* dst, int ld,
+                                         const T* __restrict__ src,
+                                         size_t rstride, int nrows,
+                                         int width, bool vec) {
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);
+    constexpr int kNg = kBK / kPer;      // copies per row
+    for (int e = threadIdx.x; e < kC * kNg; e += kThreads) {
+      const int t = e / kNg, c = kPer * (e - t * kNg);
+      const bool ok = t < nrows && c < width;
+      cp_async16(reinterpret_cast<float*>(dst + t * ld + c),
+                 ok ? static_cast<const void*>(src + t * rstride + c)
+                    : static_cast<const void*>(src),
+                 ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kC * kBK; e += kThreads) {
+      const int t = e / kBK, c = e - t * kBK;
+      dst[t * ld + c] = (t < nrows && c < width) ? src[t * rstride + c]
+                                                 : T(0.0f);
+    }
+  }
+}
+
+// Thread (m, c) of a block, m = tid / 64: the clamped decays p of channel
+// c over the 16 steps of sub-block m (1 past the ends), and their product
+// returned.  s_w: the chunk's w tile.
+__device__ __forceinline__ float step_products(const float* s_w, int m, int c,
+                                               int nrows, int kd,
+                                               float (&p)[kL]) {
+  float et = 1.0f;
+#pragma unroll
+  for (int n = 0; n < kL; ++n) {
+    const int t = kL * m + n;
+    p[n] = (t < nrows && c < kd) ? fmaxf(s_w[t * kLdB + c], 1e-30f) : 1.0f;
+    et *= p[n];
+  }
+  return et;
 }
 
 template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
-                                          size_t rstride, int nrows,
-                                          int width) {
-  for (int e = threadIdx.x; e < kC * kBK; e += kThreads) {
-    const int t = e / kBK, c = e - t * kBK;
-    dst[t * kLdB + c] =
-        (t < nrows && c < width) ? to_f32(src[t * rstride + c]) : 0.0f;
-  }
+size_t smem_bwd_inc_bytes() {
+  return sizeof(float) * (2 * kTileB + kNSub * kBK) +
+         sizeof(T) * 2 * kC * ld_op<T>();
 }
 
-// the log decays of a chunk, ln max(w, 1e-30); 0 past the ends (w = 1)
-__device__ __forceinline__ void load_log_decay(float* dst,
-                                               const float* __restrict__ src,
-                                               size_t rstride, int nrows,
-                                               int width) {
-  for (int e = threadIdx.x; e < kC * kBK; e += kThreads) {
-    const int t = e / kBK, c = e - t * kBK;
-    dst[t * kLdB + c] = (t < nrows && c < width)
-                            ? logf(fmaxf(src[t * rstride + c], 1e-30f))
-                            : 0.0f;
-  }
-}
-
-size_t smem_bwd_inc_bytes() { return sizeof(float) * 3 * kTileB; }
-
-// Backward phase 1: inc = sum_t (r_t o e^{c_{t-1}}) do_t^T for one chunk
-// and one (b, h), and clast = c_L (natural log).
+// Backward phase 1: inc = sum_t (r_t o ecp_t) do_t^T for one chunk and one
+// (b, h), and plast = P_L, the chunk's decay product.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) wkv_bwd_state_inc(
     const T* __restrict__ r, const float* __restrict__ w,
     const T* __restrict__ dout, float* __restrict__ inc,
-    float* __restrict__ clast, int s, int h, int kd, int vd, int nc) {
+    float* __restrict__ plast, int s, int h, int kd, int vd, int nc,
+    bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* s_r = smem;                 // r, then r o e^{c_{t-1}}
-  float* s_do = s_r + kTileB;
-  float* s_la = s_do + kTileB;
+  constexpr int ldo = ld_op<T>();
+  float* s_re = smem;                  // [kC][kLdB] r o ecp
+  float* s_w = s_re + kTileB;          // [kC][kLdB] w
+  float* s_et = s_w + kTileB;          // [kNSub][kBK] sub-block products
+  T* s_r = reinterpret_cast<T*>(s_et + kNSub * kBK);   // [kC][ldo]
+  T* s_do = s_r + kC * ldo;                            // [kC][ldo]
   const int tid = threadIdx.x, chunk = blockIdx.x, bh = blockIdx.y;
   const int b = bh / h, head = bh - b * h;
   const int t0 = chunk * kC, nrows = min(kC, s - t0);
   const size_t row0 = (size_t)b * s + t0;
   const size_t rk = (size_t)h * kd, rv = (size_t)h * vd;
-  load_rows(s_r, r + (row0 * h + head) * kd, rk, nrows, kd);
-  load_rows(s_do, dout + (row0 * h + head) * vd, rv, nrows, vd);
-  load_log_decay(s_la, w + (row0 * h + head) * kd, rk, nrows, kd);
-  __syncthreads();
   const size_t cidx = (size_t)bh * nc + chunk;
-  if (tid < kBK) {
-    float run = 0.0f;                  // c_{t-1}, summed step by step
-    for (int t = 0; t < kC; ++t) {
-      s_r[t * kLdB + tid] *= expf(run);
-      run += s_la[t * kLdB + tid];
-    }
-    if (tid < kd) clast[cidx * kd + tid] = run;
-  }
+  tile_bwd(s_w, kLdB, w + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  tile_bwd(s_r, ldo, r + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  cp_async_commit();
+  tile_bwd(s_do, ldo, dout + (row0 * h + head) * vd, rv, nrows, vd, vec);
+  cp_async_commit();
+  cp_async_wait<1>();                  // w and r; do later
   __syncthreads();
-  const int tr = 4 * (tid >> 4), tx = tid & 15;
-  float acc[4][4] = {};
-  for (int t = 0; t < kC; ++t) {
-    float dv[4];
+  {
+    const int m = tid / kBK, c = tid - m * kBK;
+    float p[kL];
+    const float et = step_products(s_w, m, c, nrows, kd, p);
+    s_et[m * kBK + c] = et;
+    __syncthreads();
+    float e = 1.0f;                    // the sub-blocks before, in order
+    for (int q = 0; q < m; ++q) e *= s_et[q * kBK + c];
+    if (m == kNSub - 1 && c < kd) plast[cidx * kd + c] = e * et;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) dv[jj] = s_do[t * kLdB + tx + 16 * jj];
-    outer(acc, ld4(s_r + t * kLdB + tr), make_float4(dv[0], dv[1], dv[2],
-                                                     dv[3]));
+    for (int n = 0; n < kL; ++n) {
+      const int t = kL * m + n;
+      s_re[t * kLdB + c] = to_f32(s_r[t * ldo + c]) * e;
+      e *= p[n];
+    }
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  // rows tr .. tr + 3 (channels), columns vc .. vc + 3
+  const int tr = 4 * (tid >> 4), vc = 4 * (tid & 15);
+  float acc[4][4] = {};
+#pragma unroll 4
+  for (int t = 0; t < kC; ++t)
+    outer(acc, ld4(s_re + t * kLdB + tr), ld4(s_do + t * ldo + vc));
   float* out = inc + cidx * kd * vd;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    if (tr + i >= kd) break;
+    float* row = out + (size_t)(tr + i) * vd + vc;
+    if ((vd & 3) == 0 && vc + 3 < vd) {
+      store4(row, acc[i]);
+    } else {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = tr + i, v = tx + 16 * jj;
-      if (c < kd && v < vd) out[(size_t)c * vd + v] = acc[i][jj];
+      for (int jj = 0; jj < 4; ++jj)
+        if (vc + jj < vd) row[jj] = acc[i][jj];
     }
+  }
 }
 
 // Backward phase 2: per (b, h, k, v), from the last chunk to the first:
 // the gradient of the state leaving chunk c is written over its
-// increment, then G_{c-1} = e^{clast_c} G_c + inc_c; dstate = G_{-1}
-// (where wanted).
+// increment, then G_{c-1} = plast_c G_c + inc_c; dstate = G_{-1} (where
+// wanted).
 __global__ void __launch_bounds__(kThreads) wkv_bwd_state_scan(
     const float* __restrict__ dstate_out, float* __restrict__ ds,
-    const float* __restrict__ clast, float* __restrict__ dstate, int nbh,
+    const float* __restrict__ plast, float* __restrict__ dstate, int nbh,
     int kd, int vd, int nc) {
   const size_t kv = (size_t)kd * vd;
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
@@ -938,7 +1124,7 @@ __global__ void __launch_bounds__(kThreads) wkv_bwd_state_scan(
   const int kk = (int)(rem / vd);
   float g = dstate_out != nullptr ? dstate_out[e] : 0.0f;
   float* d = ds + bh * nc * kv + rem;
-  const float* cl = clast + bh * nc * kd + kk;
+  const float* pl = plast + bh * nc * kd + kk;
   constexpr int kAhead = 8;          // chunks whose loads are in flight
   for (int c0 = nc - 1; c0 >= 0; c0 -= kAhead) {
     float inc[kAhead], dec[kAhead];
@@ -946,56 +1132,379 @@ __global__ void __launch_bounds__(kThreads) wkv_bwd_state_scan(
     for (int i = 0; i < kAhead; ++i)
       if (c0 - i >= 0) {
         inc[i] = d[(size_t)(c0 - i) * kv];
-        dec[i] = cl[(size_t)(c0 - i) * kd];
+        dec[i] = pl[(size_t)(c0 - i) * kd];
       }
 #pragma unroll
     for (int i = 0; i < kAhead; ++i)
       if (c0 - i >= 0) {
         d[(size_t)(c0 - i) * kv] = g;
-        g = fmaf(expf(dec[i]), g, inc[i]);
+        g = fmaf(dec[i], g, inc[i]);
       }
   }
   if (dstate != nullptr) dstate[e] = g;
 }
 
-size_t smem_bwd_grad_bytes() {
-  // nine [64][68] tiles, two [64][65]; e^{T}, D, Q, u, q and the (a)
-  // terms per channel
-  return sizeof(float) * (9 * kTileB + 2 * kC * kLdP + kNSub * kBK +
-                          kPairs * kBK + 3 * kBK + 4 * kBK);
+// shared memory of phase 3's first part (the S and G terms): the f32
+// route's tiles, or the bf16 route's (S's, G's and k o edec's pieces, v,
+// do, ecp and edec)
+template <typename T>
+size_t smem_bwd_state_bytes() {
+  if constexpr (sizeof(T) == 2)
+    return sizeof(float) * (2 * kTileB + kNSub * kBK) +
+           sizeof(T) * (3 * kPieces + 2) * kTileH;
+  else
+    return sizeof(float) * (4 * kTileB + kNSub * kBK) +
+           sizeof(T) * 3 * kC * ld_op<T>();
 }
 
-// Backward phase 3: dr, dk, dv, dw and the (b, chunk) partial of du for
-// one chunk and one (b, h).
+// Phase 3's first part on the f32 route: the S and G terms, every product
+// f32 FMA on the CUDA cores in 4 x 4 register tiles.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) wkv_bwd_chunk_grad(
-    const T* __restrict__ r, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ w,
-    const T* __restrict__ u, const T* __restrict__ dout,
+__device__ __forceinline__ void state_grad_fma(
+    const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ w, const T* __restrict__ dout,
     const float* __restrict__ states, const float* __restrict__ dstates,
-    T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
-    float* __restrict__ dw, float* __restrict__ dup, int s, int h, int kd,
-    int vd, int nc) {
+    float* __restrict__ terms, float* __restrict__ qout, int s, int h,
+    int kd, int vd, int nc, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* s_r = smem;                   // [kC][kLdB] r
-  float* s_k = s_r + kTileB;           // [kC][kLdB] k
-  float* s_v = s_k + kTileB;           // [kC][kLdB] v, then z
-  float* s_do = s_v + kTileB;          // [kC][kLdB] do
-  float* s_la = s_do + kTileB;         // [kC][kLdB] la
-  float* s_elcp = s_la + kTileB;       // [kC][kLdB] e^{lcp_t}
-  float* s_ers = s_elcp + kTileB;      // [kC][kLdB] e^{rs_j}
-  float* s_s = s_ers + kTileB;         // [kBK][kLdB] S, then x
-  float* s_g = s_s + kTileB;           // [kBK][kLdB] G, then pc
-  float* s_dov = s_g + kTileB;         // [kC][kLdP] do_t . v_j
-  float* s_a = s_dov + kC * kLdP;      // [kC][kLdP] A (beta on the
-                                       // diagonal, 0 above), then pb
-  float* s_et = s_a + kC * kLdP;       // [kNSub][kBK] e^{T_M}
-  float* s_d = s_et + kNSub * kBK;     // [kPairs][kBK] D_IJ
-  float* s_q = s_d + kPairs * kBK;     // [3][kBK] Q_20, Q_30, Q_31
-  float* s_u = s_q + 3 * kBK;          // [kBK] u
-  float* s_sg = s_u + kBK;             // [kBK] q = e^{c_L} rowsum(S o G)
-  float* s_pa = s_sg + kBK;            // [kBK] the (a) term of sub-blocks
-                                       // 1 and 2 (0 and 3 have none): 32 each
+  constexpr int ldo = ld_op<T>();
+  float* s_s = smem;                   // [kBK][kLdB] S (rows k)
+  float* s_g = s_s + kTileB;           // [kBK][kLdB] G (rows k)
+  float* s_ecp = s_g + kTileB;         // [kC][kLdB] w, then ecp
+  float* s_edec = s_ecp + kTileB;      // [kC][kLdB] edec
+  float* s_et = s_edec + kTileB;       // [kNSub][kBK] sub-block products
+  T* s_k = reinterpret_cast<T*>(s_et + kNSub * kBK);   // [kC][ldo]
+  T* s_v = s_k + kC * ldo;                             // [kC][ldo]
+  T* s_do = s_v + kC * ldo;                            // [kC][ldo]
+  const int tid = threadIdx.x, chunk = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const size_t rk = (size_t)h * kd, rv = (size_t)h * vd;
+  const size_t cidx = (size_t)bh * nc + chunk;
+  const size_t kv = (size_t)kd * vd;
+  tile_bwd(s_ecp, kLdB, w + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  tile_bwd(s_k, ldo, k + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  cp_async_commit();
+  tile_bwd(s_v, ldo, v + (row0 * h + head) * vd, rv, nrows, vd, vec);
+  tile_bwd(s_do, ldo, dout + (row0 * h + head) * vd, rv, nrows, vd, vec);
+  cp_async_commit();
+  tile_bwd(s_s, kLdB, states + cidx * kv, (size_t)vd, kd, vd, vec);
+  tile_bwd(s_g, kLdB, dstates + cidx * kv, (size_t)vd, kd, vd, vec);
+  cp_async_commit();
+  cp_async_wait<2>();                  // w and k; the rest in flight
+  __syncthreads();
+  {
+    const int m = tid / kBK, c = tid - m * kBK;
+    float p[kL];
+    const float et = step_products(s_ecp, m, c, nrows, kd, p);
+    s_et[m * kBK + c] = et;
+    __syncthreads();
+    float e = 1.0f;                    // ecp: the sub-blocks before, then
+    for (int q = 0; q < m; ++q)        // step by step
+      e *= s_et[q * kBK + c];
+#pragma unroll
+    for (int n = 0; n < kL; ++n) {
+      s_ecp[(kL * m + n) * kLdB + c] = e;
+      e *= p[n];
+    }
+    e = 1.0f;                          // edec: the sub-blocks after, then
+    for (int q = kNSub - 1; q > m; --q)   // step by step
+      e *= s_et[q * kBK + c];
+#pragma unroll
+    for (int n = kL - 1; n >= 0; --n) {
+      s_edec[(kL * m + n) * kLdB + c] = e;
+      e *= p[n];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const int tr = 4 * (tid >> 4), tx = tid & 15;
+  float* tb = terms + cidx * kTerms;
+  // dr_s rows t, columns c = tx + 16 jj
+  {
+    float acc[4][4] = {};
+#pragma unroll 4
+    for (int vv = 0; vv < kBK; vv += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ld4(s_do + (tr + i) * ldo + vv);
+        bb[i] = ld4(s_s + (tx + 16 * i) * kLdB + vv);
+      }
+      rows_by_rows(acc, a, bb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int t = tr + i, c = tx + 16 * jj;
+        tb[t * kBK + c] = s_ecp[t * kLdB + c] * acc[i][jj];
+      }
+  }
+  // dk_s rows j, columns c
+  {
+    float acc[4][4] = {};
+#pragma unroll 4
+    for (int vv = 0; vv < kBK; vv += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ld4(s_v + (tr + i) * ldo + vv);
+        bb[i] = ld4(s_g + (tx + 16 * i) * kLdB + vv);
+      }
+      rows_by_rows(acc, a, bb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = tr + i, c = tx + 16 * jj;
+        tb[kC * kBK + j * kBK + c] = s_edec[j * kLdB + c] * acc[i][jj];
+      }
+  }
+  // dv_s rows j, columns vc .. vc + 3
+  {
+    const int vc = 4 * tx;
+    float acc[4][4] = {};
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = mul4(ld4(s_k + (tr + i) * ldo + c),
+                    ld4(s_edec + (tr + i) * kLdB + c));
+        bb[i] = ld4(s_g + (c + i) * kLdB + vc);
+      }
+      rows_by_tile(acc, a, bb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      store4(tb + 2 * kC * kBK + (tr + i) * kBK + vc, acc[i]);
+  }
+  if (tid < kBK) {
+    float x = 0.0f;
+#pragma unroll 4
+    for (int vv = 0; vv < kBK; vv += 4) {
+      const float4 a = ld4(s_s + tid * kLdB + vv);
+      const float4 g = ld4(s_g + tid * kLdB + vv);
+      x = fmaf(a.x, g.x, x);
+      x = fmaf(a.y, g.y, x);
+      x = fmaf(a.z, g.z, x);
+      x = fmaf(a.w, g.w, x);
+    }
+    const float pl = ((s_et[tid] * s_et[kBK + tid]) * s_et[2 * kBK + tid]) *
+                     s_et[3 * kBK + tid];
+    qout[cidx * kBK + tid] = pl * x;
+  }
+}
+
+// Phase 3's first part on the bf16 route: the three products on mma.sync,
+// S, G and k o edec each split into two bf16 pieces (do and v are exact in
+// bf16).  S and G arrive as f32 while the step products run, give q, and
+// are rewritten in place as their pieces.
+__device__ __forceinline__ void state_grad_tc(
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ w, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ states, const float* __restrict__ dstates,
+    float* __restrict__ terms, float* __restrict__ qout, int s, int h,
+    int kd, int vd, int nc, bool vec) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) float smem[];
+  bf16* s_sp = reinterpret_cast<bf16*>(smem);   // [kPieces][kC][kLdH] S's
+  bf16* s_gp = s_sp + kPieces * kTileH;          // pieces, G's pieces,
+  bf16* s_kp = s_gp + kPieces * kTileH;          // k then k o edec's
+  bf16* s_v = s_kp + kPieces * kTileH;           // [kC][kLdH] v
+  bf16* s_do = s_v + kTileH;                     // [kC][kLdH] do
+  float* s_ecp = reinterpret_cast<float*>(s_do + kTileH);   // [kC][kLdB]
+                                                            // w, then ecp
+  float* s_edec = s_ecp + kTileB;      // [kC][kLdB] edec
+  float* s_et = s_edec + kTileB;       // [kNSub][kBK] sub-block products
+  float* stage_s = reinterpret_cast<float*>(s_sp);   // [kBK][kLdB] S, G
+  float* stage_g = reinterpret_cast<float*>(s_gp);   // as they arrive
+  const int tid = threadIdx.x, chunk = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / h, head = bh - b * h;
+  const int t0 = chunk * kC, nrows = min(kC, s - t0);
+  const size_t row0 = (size_t)b * s + t0;
+  const size_t rk = (size_t)h * kd, rv = (size_t)h * vd;
+  const size_t cidx = (size_t)bh * nc + chunk;
+  const size_t kv = (size_t)kd * vd;
+  tile_bwd(s_ecp, kLdB, w + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  tile_bwd(s_kp, kLdH, k + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  cp_async_commit();
+  tile_bwd(s_v, kLdH, v + (row0 * h + head) * vd, rv, nrows, vd, vec);
+  tile_bwd(s_do, kLdH, dout + (row0 * h + head) * vd, rv, nrows, vd, vec);
+  cp_async_commit();
+  tile_bwd(stage_s, kLdB, states + cidx * kv, (size_t)vd, kd, vd, vec);
+  tile_bwd(stage_g, kLdB, dstates + cidx * kv, (size_t)vd, kd, vd, vec);
+  cp_async_commit();
+  cp_async_wait<2>();                  // w and k; the rest in flight
+  __syncthreads();
+  {
+    const int m = tid / kBK, c = tid - m * kBK;
+    float p[kL];
+    const float et = step_products(s_ecp, m, c, nrows, kd, p);
+    s_et[m * kBK + c] = et;
+    __syncthreads();
+    float e = 1.0f;
+    for (int q = 0; q < m; ++q) e *= s_et[q * kBK + c];
+#pragma unroll
+    for (int n = 0; n < kL; ++n) {
+      s_ecp[(kL * m + n) * kLdB + c] = e;
+      e *= p[n];
+    }
+    e = 1.0f;
+    for (int q = kNSub - 1; q > m; --q) e *= s_et[q * kBK + c];
+#pragma unroll
+    for (int n = kL - 1; n >= 0; --n) {
+      const int t = kL * m + n;
+      s_edec[t * kLdB + c] = e;
+      // k o edec over k, in its pieces (this thread's own elements)
+      const float x = __bfloat162float(s_kp[t * kLdH + c]) * e;
+      const bf16 hi = __float2bfloat16(x);
+      s_kp[t * kLdH + c] = hi;
+      s_kp[kTileH + t * kLdH + c] = __float2bfloat16(x - __bfloat162float(hi));
+      e *= p[n];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tid < kBK) {                     // q, from the f32 S and G
+    float x = 0.0f;
+#pragma unroll 4
+    for (int vv = 0; vv < kBK; vv += 4) {
+      const float4 a = ld4(stage_s + tid * kLdB + vv);
+      const float4 g = ld4(stage_g + tid * kLdB + vv);
+      x = fmaf(a.x, g.x, x);
+      x = fmaf(a.y, g.y, x);
+      x = fmaf(a.z, g.z, x);
+      x = fmaf(a.w, g.w, x);
+    }
+    const float pl = ((s_et[tid] * s_et[kBK + tid]) * s_et[2 * kBK + tid]) *
+                     s_et[3 * kBK + tid];
+    qout[cidx * kBK + tid] = pl * x;
+  }
+  {                                    // S and G into their pieces, in place
+    const int r0 = tid >> 5, c = 2 * (tid & 31);
+    float2 xs[kC / 8], xg[kC / 8];
+#pragma unroll
+    for (int i = 0; i < kC / 8; ++i) {
+      xs[i] = *reinterpret_cast<const float2*>(stage_s + (r0 + 8 * i) * kLdB + c);
+      xg[i] = *reinterpret_cast<const float2*>(stage_g + (r0 + 8 * i) * kLdB + c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kC / 8; ++i) {
+      uint32_t ps[kPieces], pg[kPieces];
+      split_pair(xs[i].x, xs[i].y, ps);
+      split_pair(xg[i].x, xg[i].y, pg);
+#pragma unroll
+      for (int j = 0; j < kPieces; ++j) {
+        const int at = j * kTileH + (r0 + 8 * i) * kLdH + c;
+        *reinterpret_cast<uint32_t*>(s_sp + at) = ps[j];
+        *reinterpret_cast<uint32_t*>(s_gp + at) = pg[j];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1, g8 = lane >> 2, q4 = lane & 3;
+  const MmaLanes ln(wm, wn, lane);
+  const uint32_t sh_sp = smem_addr(s_sp), sh_gp = smem_addr(s_gp);
+  const uint32_t sh_kp = smem_addr(s_kp), sh_v = smem_addr(s_v);
+  const uint32_t sh_do = smem_addr(s_do);
+  float* tb = terms + cidx * kTerms;
+  // each thread's outputs: rows 16 wm + g8 (+ 8), columns 32 wn + 8 nt +
+  // 2 q4 (+ 1) of a [64][64] tile, the row scaled by scale (or not)
+  auto put = [&](float* out, const float (&acc)[4][4], const float* scale) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int row = 16 * wm + g8 + 8 * r2, col = 32 * wn + 8 * nt + 2 * q4;
+        float2 x = make_float2(acc[nt][2 * r2], acc[nt][2 * r2 + 1]);
+        if (scale != nullptr) {
+          const float2 e = *reinterpret_cast<const float2*>(
+              scale + row * kLdB + col);
+          x.x *= e.x;
+          x.y *= e.y;
+        }
+        *reinterpret_cast<float2*>(out + row * kBK + col) = x;
+      }
+  };
+  {                                    // dr_s = ecp o (do S^T)
+    float acc[4][4] = {};
+    mma_rows(acc, sh_do, sh_sp, kPieces, ln);
+    put(tb, acc, s_ecp);
+  }
+  {                                    // dk_s = edec o (v G^T)
+    float acc[4][4] = {};
+    mma_rows(acc, sh_v, sh_gp, kPieces, ln);
+    put(tb + kC * kBK, acc, s_edec);
+  }
+  {                                    // dv_s = (k o edec) G: the pieces'
+    float acc[4][4] = {};              // products hi hi, hi lo, lo hi
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks)
+#pragma unroll
+      for (int ia = 0; ia < kPieces; ++ia) {
+        uint32_t fa[4];
+        ldmatrix_x4(fa, sh_kp + ia * 2 * kTileH + ln.a + 32 * ks);
+#pragma unroll
+        for (int ib = 0; ib + ia < kPieces; ++ib)
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t f[4];
+            ldmatrix_x4_trans(f, sh_gp + ib * 2 * kTileH + ln.bt +
+                                     32 * (ks * kLdH + jp));
+            mma_bf16(acc[2 * jp], fa, f[0], f[1]);
+            mma_bf16(acc[2 * jp + 1], fa, f[2], f[3]);
+          }
+      }
+    put(tb + 2 * kC * kBK, acc, nullptr);
+  }
+}
+
+// shared memory of backward phase 3: its first part's or its second's,
+// whichever is more
+template <typename T>
+size_t smem_bwd_grad_bytes() {
+  const size_t rest = sizeof(float) * (3 * kTileB + kTileP + kBK +
+                                       kNSub * kBK + kC + 4 * kBK) +
+                      sizeof(T) * 4 * kC * ld_op<T>();
+  const size_t terms = smem_bwd_state_bytes<T>();
+  return rest > terms ? rest : terms;
+}
+
+// Phase 3's second part, given the chunk's S and G terms and q: dr, dk,
+// dv, dw and the (b, chunk) partial of du for one chunk and one (b, h).
+template <typename T>
+__device__ __forceinline__ void chunk_grad(
+    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ w, const T* __restrict__ u,
+    const T* __restrict__ dout, const float* __restrict__ terms,
+    const float* __restrict__ qin, T* __restrict__ dr, T* __restrict__ dk,
+    T* __restrict__ dv, float* __restrict__ dw, float* __restrict__ dup,
+    int s, int h, int kd, int vd, int nc, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int ldo = ld_op<T>();
+  float* s_p = smem;                   // [kC][kLdB] w (1 past the ends)
+  float* s_rt = s_p + kTileB;          // [kC][kLdB] r o elcp, then x + pc
+  float* s_kt = s_rt + kTileB;         // [kC][kLdB] k o ers, then z + pb
+  float* s_m = s_kt + kTileB;          // [kC][kLdP] do_t.v_j at [t][j] for
+                                       // t >= j, A_tj at [j][t] for t > j
+  float* s_u = s_m + kTileP;           // [kBK] u
+  float* s_et = s_u + kBK;             // [kNSub][kBK] sub-block products
+  float* s_beta = s_et + kNSub * kBK;  // [kC] beta_t
+  float* s_q = s_beta + kC;            // [3][kBK] Q_20, Q_30, Q_31
+  float* s_qs = s_q + 3 * kBK;         // [kBK] q
+  T* s_r = reinterpret_cast<T*>(s_qs + kBK);   // [kC][ldo] r
+  T* s_k = s_r + kC * ldo;                     // [kC][ldo] k
+  T* s_v = s_k + kC * ldo;                     // [kC][ldo] v, then (with
+  T* s_do = s_v + kC * ldo;                    // do's) x and z per 4 rows
+  float* s_xq = reinterpret_cast<float*>(s_v);   // [16][kBK]
+  float* s_zq = s_xq + 16 * kBK;                 // [16][kBK]
   const int tid = threadIdx.x, tr = 4 * (tid >> 4), tx = tid & 15;
   const int chunk = blockIdx.x, bh = blockIdx.y;
   const int b = bh / h, head = bh - b * h;
@@ -1003,57 +1512,76 @@ __global__ void __launch_bounds__(kThreads) wkv_bwd_chunk_grad(
   const size_t row0 = (size_t)b * s + t0;
   const size_t rk = (size_t)h * kd, rv = (size_t)h * vd;
   const size_t cidx = (size_t)bh * nc + chunk;
-  const size_t kv = (size_t)kd * vd;
+  const float* tb = terms + cidx * kTerms;
 
-  load_rows(s_r, r + (row0 * h + head) * kd, rk, nrows, kd);
-  load_rows(s_k, k + (row0 * h + head) * kd, rk, nrows, kd);
-  load_rows(s_v, v + (row0 * h + head) * vd, rv, nrows, vd);
-  load_rows(s_do, dout + (row0 * h + head) * vd, rv, nrows, vd);
-  load_log_decay(s_la, w + (row0 * h + head) * kd, rk, nrows, kd);
-  load_rows(s_s, states + cidx * kv, (size_t)vd, kd, vd);
-  load_rows(s_g, dstates + cidx * kv, (size_t)vd, kd, vd);
-  for (int e = tid; e < kC * kLdP; e += kThreads) s_a[e] = 0.0f;
-  if (tid < kBK) s_u[tid] = tid < kd ? to_f32(u[(size_t)head * kd + tid])
-                                     : 0.0f;
+  tile_bwd(s_p, kLdB, w + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  tile_bwd(s_r, ldo, r + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  tile_bwd(s_k, ldo, k + (row0 * h + head) * kd, rk, nrows, kd, vec);
+  cp_async_commit();
+  tile_bwd(s_v, ldo, v + (row0 * h + head) * vd, rv, nrows, vd, vec);
+  tile_bwd(s_do, ldo, dout + (row0 * h + head) * vd, rv, nrows, vd, vec);
+  cp_async_commit();
+  if (tid < kBK) {
+    s_u[tid] = tid < kd ? to_f32(u[(size_t)head * kd + tid]) : 0.0f;
+    s_qs[tid] = qin[cidx * kBK + tid];
+  }
+  cp_async_wait<1>();                  // w, r and k; v and do later
   __syncthreads();
 
-  // e^{lcp}, e^{rs} and e^{T}: one thread per (sub-block, channel), each
-  // sum step by step
+  // One thread per (sub-block m, channel c): p over its 16 steps, r o elcp
+  // forward and k o ers backward, step by step, and et_m.  The tile keeps
+  // w (dw reads it), set to 1 past the ends; a reader clamps it.
   {
     const int m = tid / kBK, c = tid - m * kBK;
-    float pre = 0.0f, suf = 0.0f;
-    for (int n = kL * m; n < kL * m + kL; ++n) {
-      s_elcp[n * kLdB + c] = expf(pre);
-      pre += s_la[n * kLdB + c];
+    float p[kL];
+    s_et[m * kBK + c] = step_products(s_p, m, c, nrows, kd, p);
+    float e = 1.0f;
+#pragma unroll
+    for (int n = 0; n < kL; ++n) {
+      const int t = kL * m + n;
+      if (t >= nrows || c >= kd) s_p[t * kLdB + c] = 1.0f;
+      s_rt[t * kLdB + c] = to_f32(s_r[t * ldo + c]) * e;
+      e *= p[n];
     }
-    for (int n = kL * m + kL - 1; n >= kL * m; --n) {
-      s_ers[n * kLdB + c] = expf(suf);
-      suf += s_la[n * kLdB + c];
+    e = 1.0f;
+#pragma unroll
+    for (int n = kL - 1; n >= 0; --n) {
+      const int t = kL * m + n;
+      s_kt[t * kLdB + c] = to_f32(s_k[t * ldo + c]) * e;
+      e *= p[n];
     }
-    s_et[m * kBK + c] = expf(pre);
   }
+  cp_async_wait<0>();
   __syncthreads();
-  for (int e = tid; e < kPairs * kBK; e += kThreads) {
-    const int p = e / kBK, c = e - p * kBK;
-    int bi, bj;
-    block_pair(p, bi, bj);
-    s_d[e] = sub_prod(s_et, bj + 1, bi, c);
-  }
-  if (tid < kBK) {
-    float x = 0.0f;
-    for (int vv = 0; vv < kBK; ++vv)
-      x = fmaf(s_s[tid * kLdB + vv], s_g[tid * kLdB + vv], x);
-    s_sg[tid] = sub_prod(s_et, 0, kNSub, tid) * x;
-  }
-  // do_t . v_j, all (t, j)
-  {
+
+  // do_t . v_j where t >= j: the bf16 route on mma.sync (both exact in
+  // bf16; the warps whose 16 x 32 part lies above the diagonal skip it),
+  // the f32 route in rows t and columns j = tx + 16 jj
+  if constexpr (sizeof(T) == 2) {
+    const int warp = tid >> 5, lane = tid & 31;
+    const int wm = warp >> 1, wn = warp & 1;
+    if (32 * wn <= 16 * wm + 15) {
+      float acc[4][4] = {};
+      mma_rows(acc, smem_addr(s_do), smem_addr(s_v), 1,
+               MmaLanes(wm, wn, lane));
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 16 * wm + (lane >> 2) + 8 * (e >> 1);
+          const int j = 32 * wn + 8 * nt + 2 * (lane & 3) + (e & 1);
+          if (j <= t) s_m[t * kLdP + j] = acc[nt][e];
+        }
+    }
+  } else {
     float acc[4][4] = {};
-    for (int c = 0; c < kBK; c += 4) {
+#pragma unroll 4
+    for (int vv = 0; vv < kBK; vv += 4) {
       float4 a[4], bb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        a[i] = ld4(s_do + (tr + i) * kLdB + c);
-        bb[i] = ld4(s_v + (tx + 16 * i) * kLdB + c);
+        a[i] = ld4(s_do + (tr + i) * ldo + vv);
+        bb[i] = ld4(s_v + (tx + 16 * i) * ldo + vv);
       }
       rows_by_rows(acc, a, bb);
     }
@@ -1061,317 +1589,394 @@ __global__ void __launch_bounds__(kThreads) wkv_bwd_chunk_grad(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        s_dov[(tr + i) * kLdP + tx + 16 * jj] = acc[i][jj];
+        if (tx + 16 * jj <= tr + i)
+          s_m[(tr + i) * kLdP + tx + 16 * jj] = acc[i][jj];
+  }
+  // A inside the diagonal sub-blocks, one thread per (sub-block m, column
+  // j, 16 channels): each channel carries E_tj along t, one multiply a
+  // step; the four channel groups are summed by two butterflies (the same
+  // sum in every lane).  beta_j likewise.
+  {
+    const int m = tid >> 6, jl = (tid >> 2) & 15, c0 = 16 * (tid & 3);
+    const int j = kL * m + jl;
+    float kj[16], e[16], x[16];
+    ld16(s_k + j * ldo + c0, kj);
+    ld16(s_r + j * ldo + c0, x);
+    float bsum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      e[q] = 1.0f;
+      bsum = fmaf(x[q] * s_u[c0 + q], kj[q], bsum);
+    }
+    bsum += __shfl_xor_sync(kAll, bsum, 1);
+    bsum += __shfl_xor_sync(kAll, bsum, 2);
+    if ((tid & 3) == 0) s_beta[j] = bsum;
+#pragma unroll 1
+    for (int tl = 1; tl < kL; ++tl) {
+      const int t = kL * m + tl;
+      float a = 0.0f;
+      if (tl > jl) {
+        float pt[16];
+        ld16(s_r + t * ldo + c0, x);
+        ld16(s_p + t * kLdB + c0, pt);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          a = fmaf(x[q] * e[q], kj[q], a);
+          e[q] *= fmaxf(pt[q], 1e-30f);
+        }
+      }
+      a += __shfl_xor_sync(kAll, a, 1);
+      a += __shfl_xor_sync(kAll, a, 2);
+      if ((tid & 3) == 0 && tl > jl) s_m[j * kLdP + t] = a;
+    }
+  }
+  // A on the six sub-block pairs I > J: sum_k (r o elcp)_t D_IJ (k o
+  // ers)_j.  Thread (tl, jl) takes row tl of sub-blocks 1..3 and column jl
+  // of 0..2, all six pairs: D_20 = et_1 on k's side, D_31 = et_2 on k's,
+  // D_30 = et_1 et_2 on both.
+  {
+    const int tl = tid >> 4, jl = tid & 15;
+    float acc[kPairs] = {};
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      const float4 e1 = ld4(s_et + kBK + c), e2 = ld4(s_et + 2 * kBK + c);
+      const float4 r1 = ld4(s_rt + (kL + tl) * kLdB + c);
+      const float4 r2 = ld4(s_rt + (2 * kL + tl) * kLdB + c);
+      const float4 r3 = ld4(s_rt + (3 * kL + tl) * kLdB + c);
+      const float4 k0 = ld4(s_kt + jl * kLdB + c);
+      const float4 k1 = ld4(s_kt + (kL + jl) * kLdB + c);
+      const float4 k2 = ld4(s_kt + (2 * kL + jl) * kLdB + c);
+      const float4 k0e = mul4(k0, e1), k1e = mul4(k1, e2);
+      const float4 r3e = mul4(r3, e2);
+      // pairs in block_pair's order: (1,0) (2,0) (2,1) (3,0) (3,1) (3,2)
+      const float4 as[kPairs] = {r1, r2, r2, r3e, r3, r3};
+      const float4 bs[kPairs] = {k0, k0e, k1, k0e, k1e, k2};
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        acc[q] = fmaf(as[q].x, bs[q].x, acc[q]);
+        acc[q] = fmaf(as[q].y, bs[q].y, acc[q]);
+        acc[q] = fmaf(as[q].z, bs[q].z, acc[q]);
+        acc[q] = fmaf(as[q].w, bs[q].w, acc[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      int bi, bj;
+      block_pair(q, bi, bj);
+      s_m[(kL * bj + jl) * kLdP + kL * bi + tl] = acc[q];
+    }
   }
   __syncthreads();
 
-  // A: the six off-diagonal sub-block pairs, E = e^{lcp_t} D_IJ e^{rs_j};
-  // then the diagonal sub-blocks' strictly lower pairs, their exponent
-  // summed step by step, and beta on the diagonal
-  for (int e = tid; e < kPairs * kL * kL; e += kThreads) {
-    const int p = e / (kL * kL), q = e - p * kL * kL;
-    int bi, bj;
-    block_pair(p, bi, bj);
-    const int t = kL * bi + q / kL, j = kL * bj + q % kL;
-    const float* dp = s_d + p * kBK;
-    float acc = 0.0f;
-    for (int c = 0; c < kBK; c += 4) {
-      const float4 a =
-          mul4(ld4(s_r + t * kLdB + c), ld4(s_elcp + t * kLdB + c));
-      const float4 bb =
-          mul4(ld4(s_k + j * kLdB + c), ld4(s_ers + j * kLdB + c));
-      const float4 d = ld4(dp + c);
-      acc = fmaf(a.x * d.x, bb.x, acc);
-      acc = fmaf(a.y * d.y, bb.y, acc);
-      acc = fmaf(a.z * d.z, bb.z, acc);
-      acc = fmaf(a.w * d.w, bb.w, acc);
-    }
-    s_a[t * kLdP + j] = acc;
-  }
-  for (int e = tid; e < kDiagExp + kC; e += kThreads) {
-    float acc = 0.0f;
-    if (e < kDiagExp) {
-      int tp, jp;
-      tri_pair(e % kTri, tp, jp);
-      const int t = (e / kTri) * kL + tp, j = (e / kTri) * kL + jp;
-      for (int c = 0; c < kBK; ++c) {
-        float x = 0.0f;
-        for (int n = j + 1; n < t; ++n) x += s_la[n * kLdB + c];
-        acc = fmaf(s_r[t * kLdB + c] * s_k[j * kLdB + c], expf(x), acc);
-      }
-      s_a[t * kLdP + j] = acc;
-    } else {
-      const int t = e - kDiagExp;
-      for (int c = 0; c < kBK; ++c)
-        acc = fmaf(s_r[t * kLdB + c] * s_u[c], s_k[t * kLdB + c], acc);
-      s_a[t * kLdP + t] = acc;
-    }
-  }
-  // Q_IJ for the pairs two or more sub-blocks apart, one thread per
-  // (pair, channel)
+  // Q_IJ for the pairs two or more sub-blocks apart, one thread per (pair,
+  // channel)
   if (tid < 3 * kBK) {
-    const int p = tid / kBK, c = tid - p * kBK;
-    const int bi = p == 0 ? 2 : 3, bj = p == 2 ? 1 : 0;
+    const int pq = tid / kBK, c = tid - pq * kBK;
+    const int bi = pq == 0 ? 2 : 3, bj = pq == 2 ? 1 : 0;
+    float kc[kL];
+#pragma unroll
+    for (int n = 0; n < kL; ++n) kc[n] = s_kt[(kL * bj + n) * kLdB + c];
     float acc = 0.0f;
+#pragma unroll 1
     for (int t = kL * bi; t < kL * bi + kL; ++t) {
       float inner = 0.0f;
-      for (int j = kL * bj; j < kL * bj + kL; ++j)
-        inner = fmaf(s_dov[t * kLdP + j],
-                     s_k[j * kLdB + c] * s_ers[j * kLdB + c], inner);
-      acc = fmaf(s_r[t * kLdB + c] * s_elcp[t * kLdB + c], inner, acc);
+#pragma unroll
+      for (int n = 0; n < kL; ++n)
+        inner = fmaf(s_m[t * kLdP + kL * bj + n], kc[n], inner);
+      acc = fmaf(s_rt[t * kLdB + c], inner, acc);
     }
-    s_q[p * kBK + c] = acc;
+    s_q[pq * kBK + c] = acc;
   }
-  __syncthreads();
 
-  // dv rows j, columns v: sum_{t>=j} A_tj do_t + G^T (k_j o e^{c_L-c_j})
+  const int sb = tr / kL, bend = kL * sb + kL;   // the rows' sub-block
+  // dv rows j, columns vc .. vc + 3: dv_s + beta_j do_j + sum_{t>j}
+  // A_tj do_t
   {
-    const int sj = tr / kL;
-    float acc[4][4] = {};
-    for (int t = tr; t < kC; ++t) {
-      const float* ar = s_a + t * kLdP + tr;
-      float dv4[4];
+    const int vc = 4 * tx;
+    float acc[4][4];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) dv4[jj] = s_do[t * kLdB + tx + 16 * jj];
-      outer(acc, make_float4(ar[0], ar[1], ar[2], ar[3]),
-            make_float4(dv4[0], dv4[1], dv4[2], dv4[3]));
+    for (int i = 0; i < 4; ++i) {
+      const float4 x = ld4(tb + 2 * kC * kBK + (tr + i) * kBK + vc);
+      acc[i][0] = x.x;
+      acc[i][1] = x.y;
+      acc[i][2] = x.z;
+      acc[i][3] = x.w;
     }
-    for (int c = 0; c < kBK; ++c) {
-      const float after = sub_prod(s_et, sj + 1, kNSub, c);
-      float kd4[4], g4[4];
+#pragma unroll 2
+    for (int t = tr; t < kC; ++t) {
+      float a[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        kd4[i] = s_k[(tr + i) * kLdB + c] *
-                 (s_ers[(tr + i) * kLdB + c] * after);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) g4[jj] = s_g[c * kLdB + tx + 16 * jj];
-      outer(acc, make_float4(kd4[0], kd4[1], kd4[2], kd4[3]),
-            make_float4(g4[0], g4[1], g4[2], g4[3]));
+      for (int i = 0; i < 4; ++i) {
+        const int j = tr + i;
+        a[i] = t > j ? s_m[j * kLdP + t] : (t == j ? s_beta[j] : 0.0f);
+      }
+      outer(acc, make_float4(a[0], a[1], a[2], a[3]),
+            ld4(s_do + t * ldo + vc));
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (tr + i >= nrows) break;
       T* row = dv + ((row0 + tr + i) * h + head) * vd;
+      if ((vd & 3) == 0 && vc + 3 < vd) {
+        store4(row + vc, acc[i]);
+      } else {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        if (tx + 16 * jj < vd) store1(row + tx + 16 * jj, acc[i][jj]);
+        for (int jj = 0; jj < 4; ++jj)
+          if (vc + jj < vd) store1(row + vc + jj, acc[i][jj]);
+      }
     }
   }
 
-  // dk rows j, channels c; X (the sum over later sub-blocks), z and
-  // pb = k_j e^{rs_j} X_j kept for dla
-  float zr[4][4], pb[4][4];
+  // dk rows j, channels c = tx + 16 jj; z + pb and the rows' sum of z are
+  // kept for dla
+  float colc[4][4], zq[4] = {};
   {
-    const int sj = tr / kL;
-    float xo[4][4] = {}, dg[4][4] = {}, gv[4][4] = {};
-    for (int bi = sj + 1; bi < kNSub; ++bi) {
-      const float* dp = s_d + (bi * (bi - 1) / 2 + sj) * kBK;
-      float part[4][4] = {};
+    // X_j = sum_{I>J} D_IJ sum_{t in I} (do_t.v_j) (r o elcp)_t, by Horner
+    // from the last sub-block: X <- et_I o X + (sub-block I's sum)
+    float xo[4][4] = {};
+    for (int bi = kNSub - 1; bi > sb; --bi) {
+      if (bi < kNSub - 1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            xo[i][jj] *= s_et[bi * kBK + tx + 16 * jj];
+#pragma unroll 2
       for (int t = kL * bi; t < kL * bi + kL; ++t) {
-        const float* dr_ = s_dov + t * kLdP + tr;
+        const float* mr = s_m + t * kLdP + tr;
         float rp[4];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int c = tx + 16 * jj;
-          rp[jj] = s_r[t * kLdB + c] * s_elcp[t * kLdB + c];
-        }
-        outer(part, make_float4(dr_[0], dr_[1], dr_[2], dr_[3]),
+        for (int jj = 0; jj < 4; ++jj) rp[jj] = s_rt[t * kLdB + tx + 16 * jj];
+        outer(xo, make_float4(mr[0], mr[1], mr[2], mr[3]),
               make_float4(rp[0], rp[1], rp[2], rp[3]));
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          xo[i][jj] = fmaf(dp[tx + 16 * jj], part[i][jj], xo[i][jj]);
     }
-    // inside j's sub-block: t > j, exponent summed from step j + 1
+    // inside j's sub-block: t > j, E_tj carried along t; its last value
+    // is ers_j
+    float dg[4][4] = {}, ers[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = tr + i, c = tx + 16 * jj;
-        float x = 0.0f, acc = 0.0f;
-        for (int t = j + 1; t < kL * sj + kL; ++t) {
-          acc = fmaf(s_dov[t * kLdP + j] * s_r[t * kLdB + c], expf(x), acc);
-          x += s_la[t * kLdB + c];
-        }
-        dg[i][jj] = acc;
-      }
-    for (int vv = 0; vv < kBK; vv += 4) {
-      float4 a[4], bb[4];
+      for (int jj = 0; jj < 4; ++jj) ers[i][jj] = 1.0f;
+#pragma unroll 1
+    for (int t = tr + 1; t < bend; ++t) {
+      float pt[4], rr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ld4(s_v + (tr + i) * kLdB + vv);
-        bb[i] = ld4(s_g + (tx + 16 * i) * kLdB + vv);
+      for (int jj = 0; jj < 4; ++jj) {
+        pt[jj] = fmaxf(s_p[t * kLdB + tx + 16 * jj], 1e-30f);
+        rr[jj] = to_f32(s_r[t * ldo + tx + 16 * jj]);
       }
-      rows_by_rows(gv, a, bb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (t > tr + i) {
+          const float d = s_m[t * kLdP + tr + i];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            dg[i][jj] = fmaf(d * rr[jj], ers[i][jj], dg[i][jj]);
+            ers[i][jj] *= pt[jj];
+          }
+        }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int j = tr + i;
       T* row = dk + ((row0 + j) * h + head) * kd;
-      const float bonus = s_dov[j * kLdP + j];
+      const float bonus = s_m[j * kLdP + j];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int c = tx + 16 * jj;
-        const float ers = s_ers[j * kLdB + c];
-        const float edec = ers * sub_prod(s_et, sj + 1, kNSub, c);
-        const float val = ((ers * xo[i][jj] + dg[i][jj]) +
-                           bonus * s_u[c] * s_r[j * kLdB + c]) +
-                          edec * gv[i][jj];
-        zr[i][jj] = s_k[j * kLdB + c] * edec * gv[i][jj];
-        pb[i][jj] = s_k[j * kLdB + c] * ers * xo[i][jj];
+        const float st = tb[kC * kBK + j * kBK + c];
+        const float val = ((ers[i][jj] * xo[i][jj] + dg[i][jj]) +
+                           bonus * s_u[c] * to_f32(s_r[j * ldo + c])) +
+                          st;
+        const float z = to_f32(s_k[j * ldo + c]) * st;
+        colc[i][jj] = z + s_kt[j * kLdB + c] * xo[i][jj];
+        zq[jj] += z;
         if (j < nrows && c < kd) store1(row + c, val);
       }
     }
   }
 
-  // dr rows t, channels c; Y (the sum over earlier sub-blocks), x and
-  // pc = r_t e^{lcp_t} Y_t kept for dla
-  float xr[4][4], pc[4][4];
+  // dr rows t, channels c; x + pc and the rows' sum of x are kept for dla
+  float rowc[4][4], xq[4] = {};
   {
-    const int st = tr / kL;
-    float yo[4][4] = {}, dg[4][4] = {}, sdo[4][4] = {};
-    for (int bj = 0; bj < st; ++bj) {
-      const float* dp = s_d + (st * (st - 1) / 2 + bj) * kBK;
-      float part[4][4] = {};
+    // Y_t = sum_{J<I} D_IJ sum_{j in J} (do_t.v_j) (k o ers)_j, by Horner
+    // from sub-block 0: Y <- et_J o Y + (sub-block J's sum)
+    float yo[4][4] = {};
+    for (int bj = 0; bj < sb; ++bj) {
+      if (bj > 0)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            yo[i][jj] *= s_et[bj * kBK + tx + 16 * jj];
+#pragma unroll 2
       for (int j = kL * bj; j < kL * bj + kL; ++j) {
         float kp[4];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int c = tx + 16 * jj;
-          kp[jj] = s_k[j * kLdB + c] * s_ers[j * kLdB + c];
-        }
-        outer(part,
-              make_float4(s_dov[tr * kLdP + j], s_dov[(tr + 1) * kLdP + j],
-                          s_dov[(tr + 2) * kLdP + j],
-                          s_dov[(tr + 3) * kLdP + j]),
+        for (int jj = 0; jj < 4; ++jj) kp[jj] = s_kt[j * kLdB + tx + 16 * jj];
+        outer(yo,
+              make_float4(s_m[tr * kLdP + j], s_m[(tr + 1) * kLdP + j],
+                          s_m[(tr + 2) * kLdP + j], s_m[(tr + 3) * kLdP + j]),
               make_float4(kp[0], kp[1], kp[2], kp[3]));
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          yo[i][jj] = fmaf(dp[tx + 16 * jj], part[i][jj], yo[i][jj]);
     }
-    // inside t's sub-block: j < t, exponent summed down from step t - 1
+    // inside t's sub-block: j < t, E_tj carried down from j = t - 1; its
+    // last value is elcp_t
+    float dg[4][4] = {}, elcp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int t = tr + i, c = tx + 16 * jj;
-        float x = 0.0f, acc = 0.0f;
-        for (int j = t - 1; j >= kL * st; --j) {
-          acc = fmaf(s_dov[t * kLdP + j] * s_k[j * kLdB + c], expf(x), acc);
-          x += s_la[j * kLdB + c];
-        }
-        dg[i][jj] = acc;
-      }
-    for (int vv = 0; vv < kBK; vv += 4) {
-      float4 a[4], bb[4];
+      for (int jj = 0; jj < 4; ++jj) elcp[i][jj] = 1.0f;
+#pragma unroll 1
+    for (int j = tr + 2; j >= kL * sb; --j) {
+      float pj[4], kk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ld4(s_do + (tr + i) * kLdB + vv);
-        bb[i] = ld4(s_s + (tx + 16 * i) * kLdB + vv);
+      for (int jj = 0; jj < 4; ++jj) {
+        pj[jj] = fmaxf(s_p[j * kLdB + tx + 16 * jj], 1e-30f);
+        kk[jj] = to_f32(s_k[j * ldo + tx + 16 * jj]);
       }
-      rows_by_rows(sdo, a, bb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (j < tr + i) {
+          const float d = s_m[(tr + i) * kLdP + j];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            dg[i][jj] = fmaf(d * kk[jj], elcp[i][jj], dg[i][jj]);
+            elcp[i][jj] *= pj[jj];
+          }
+        }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int t = tr + i;
       T* row = dr + ((row0 + t) * h + head) * kd;
-      const float bonus = s_dov[t * kLdP + t];
+      const float bonus = s_m[t * kLdP + t];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int c = tx + 16 * jj;
-        const float elcp = s_elcp[t * kLdB + c];
-        const float ecp = elcp * sub_prod(s_et, 0, st, c);
-        const float val = ((ecp * sdo[i][jj] + elcp * yo[i][jj]) +
-                           dg[i][jj]) +
-                          bonus * s_u[c] * s_k[t * kLdB + c];
-        xr[i][jj] = s_r[t * kLdB + c] * ecp * sdo[i][jj];
-        pc[i][jj] = s_r[t * kLdB + c] * elcp * yo[i][jj];
+        const float st = tb[t * kBK + c];
+        const float val = ((elcp[i][jj] * yo[i][jj] + dg[i][jj]) +
+                           bonus * s_u[c] * to_f32(s_k[t * ldo + c])) +
+                          st;
+        const float x = to_f32(s_r[t * ldo + c]) * st;
+        rowc[i][jj] = x + s_rt[t * kLdB + c] * yo[i][jj];
+        xq[jj] += x;
         if (t < nrows && c < kd) store1(row + c, val);
       }
     }
   }
-  // the (a) terms and the partial of du
-  if (tid < 2 * kBK) {
-    const int m = 1 + tid / kBK, c = tid % kBK;
-    // m = 1: D_20 Q_20 + D_30 Q_30; m = 2: D_30 Q_30 + D_31 Q_31
-    // (D_20, D_30, D_31 are pairs 1, 3 and 4 in block_pair's order)
-    s_pa[tid] = m == 1 ? fmaf(s_d[1 * kBK + c], s_q[c],
-                              s_d[3 * kBK + c] * s_q[kBK + c])
-                       : fmaf(s_d[3 * kBK + c], s_q[kBK + c],
-                              s_d[4 * kBK + c] * s_q[2 * kBK + c]);
-  } else if (tid < 3 * kBK) {
-    const int c = tid - 2 * kBK;
-    float acc = 0.0f;
-    for (int t = 0; t < kC; ++t)
-      acc = fmaf(s_dov[t * kLdP + t], s_r[t * kLdB + c] * s_k[t * kLdB + c],
-                 acc);
-    if (c < kd) dup[(((size_t)b * nc + chunk) * h + head) * kd + c] = acc;
-  }
-  __syncthreads();                     // A, v, S and G are read
+  __syncthreads();                     // r o elcp, k o ers, v and do read
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      const int row = tr + i, c = tx + 16 * jj;
-      s_v[row * kLdB + c] = zr[i][jj];
-      s_a[row * kLdP + c] = pb[i][jj];
-      s_s[row * kLdB + c] = xr[i][jj];
-      s_g[row * kLdB + c] = pc[i][jj];
+      const int c = tx + 16 * jj;
+      s_rt[(tr + i) * kLdB + c] = rowc[i][jj];
+      s_kt[(tr + i) * kLdB + c] = colc[i][jj];
     }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    s_xq[(tr / 4) * kBK + tx + 16 * jj] = xq[jj];
+    s_zq[(tr / 4) * kBK + tx + 16 * jj] = zq[jj];
+  }
   __syncthreads();
 
   // dla for the 16 steps of sub-block m and channel c, then dw
   {
-    const int m = tid / kBK, c = tid - m * kBK;
-    const int i0 = kL * m;
-    float zpre = 0.0f, xsuf = 0.0f;
-    for (int j = 0; j < i0; ++j) zpre += s_v[j * kLdB + c];
-    for (int t = kC - 1; t >= i0 + kL; --t) xsuf += s_s[t * kLdB + c];
-    float xs[kL], pcs[kL];             // sums over t > i, i in the block
-    xs[kL - 1] = xsuf;
-    pcs[kL - 1] = 0.0f;
+    const int m = tid / kBK, c = tid - m * kBK, i0 = kL * m;
+    float pv[kL], rv[kL], kv[kL], rs[kL], wt[kL];
 #pragma unroll
-    for (int p = kL - 1; p > 0; --p) {
-      xs[p - 1] = xs[p] + s_s[(i0 + p) * kLdB + c];
-      pcs[p - 1] = pcs[p] + s_g[(i0 + p) * kLdB + c];
+    for (int n = 0; n < kL; ++n) {
+      pv[n] = fmaxf(s_p[(i0 + n) * kLdB + c], 1e-30f);
+      rv[n] = to_f32(s_r[(i0 + n) * ldo + c]);
+      kv[n] = to_f32(s_k[(i0 + n) * ldo + c]);
+      wt[n] = 0.0f;
     }
-    const float pa = (m == 1 || m == 2) ? s_pa[(m - 1) * kBK + c] : 0.0f;
-    float zrun = zpre, pbrun = 0.0f;
+    // (sum of x over the later sub-blocks) + sum_{t in m, t > i} (x + pc)
+    float xl = 0.0f, ze = 0.0f;
+    for (int q = 4 * (m + 1); q < kC / 4; ++q) xl += s_xq[q * kBK + c];
+    for (int q = 0; q < 4 * m; ++q) ze += s_zq[q * kBK + c];
+    rs[kL - 1] = xl;
+#pragma unroll
+    for (int n = kL - 1; n > 0; --n)
+      rs[n - 1] = rs[n] + s_rt[(i0 + n) * kLdB + c];
+    // (a): D_IJ Q_IJ over I > m > J (D_20 = et_1, D_30 = et_1 et_2, D_31
+    // = et_2)
+    const float e1 = s_et[kBK + c], e2 = s_et[2 * kBK + c];
+    float pa = 0.0f;
+    if (m == 1) pa = fmaf(e1, s_q[c], (e1 * e2) * s_q[kBK + c]);
+    if (m == 2) pa = fmaf(e1 * e2, s_q[kBK + c], e2 * s_q[2 * kBK + c]);
+    const float base = s_qs[c] + pa;
     float* dwb = dw + (row0 * h + head) * kd + c;
-    const float* wb = w + (row0 * h + head) * kd + c;
-#pragma unroll 1
-    for (int p = 0; p < kL; ++p) {
-      const int i = i0 + p;
-      // (d): t and j in the sub-block, j < i < t, pivoted at i
-      float alpha[kL];
-      float ej = 0.0f;
-      for (int j = i - 1; j >= i0; --j) {
-        ej += s_la[(j + 1) * kLdB + c];
-        alpha[j - i0] = s_k[j * kLdB + c] * expf(ej);
+    float cpre = ze;                   // (sum of z over the earlier
+                                       // sub-blocks) + sum_{j in m, j < i}
+                                       // (z + pb)
+#pragma unroll
+    for (int n = 0; n < kL; ++n) {
+      // (d): sum_{t>i} r_t B_it W_t(i), B carried along t
+      float dd = 0.0f, bt = 1.0f;
+#pragma unroll
+      for (int t = n + 1; t < kL; ++t) {
+        dd = fmaf(rv[t] * bt, wt[t], dd);
+        bt *= pv[t];
       }
-      float dd = 0.0f, et = 0.0f;
-      for (int t = i + 1; t < i0 + kL; ++t) {
-        float inner = 0.0f;
-        for (int j = i0; j < i; ++j)
-          inner = fmaf(s_dov[t * kLdP + j], alpha[j - i0], inner);
-        dd = fmaf(s_r[t * kLdB + c] * expf(et), inner, dd);
-        et += s_la[t * kLdB + c];
-      }
-      const float dla = (((((xs[p] + zrun) + s_sg[c]) + pa) + pbrun) +
-                         pcs[p]) + dd;
-      zrun += s_v[i * kLdB + c];
-      pbrun += s_a[i * kLdP + c];
+      const float dla = ((rs[n] + cpre) + base) + dd;
+      cpre += s_kt[(i0 + n) * kLdB + c];
+#pragma unroll
+      for (int t = n + 2; t < kL; ++t)
+        wt[t] = (wt[t] + s_m[(i0 + t) * kLdP + i0 + n] * kv[n]) * pv[n + 1];
+      const int i = i0 + n;
       if (i < nrows && c < kd) {
-        const float wv = wb[(size_t)i * h * kd];
+        const float wv = s_p[i * kLdB + c];
         dwb[(size_t)i * h * kd] = wv >= 1e-30f ? dla / wv : 0.0f;
       }
     }
+    // the sub-block's part of du's partial, sum_t (do_t.v_t) r_t k_t, over
+    // the x sums (read above; the barrier before the writes)
+    float du = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kL; ++n)
+      du = fmaf(s_m[(i0 + n) * kLdP + i0 + n], rv[n] * kv[n], du);
+    __syncthreads();
+    s_xq[m * kBK + c] = du;
   }
+  // the partial of du: the four sub-blocks' sums in order
+  __syncthreads();
+  if (tid < kBK && tid < kd)
+    dup[(((size_t)b * nc + chunk) * h + head) * kd + tid] =
+        ((s_xq[tid] + s_xq[kBK + tid]) + s_xq[2 * kBK + tid]) +
+        s_xq[3 * kBK + tid];
+}
+
+// Backward phase 3: one chunk and one (b, h).  First the terms that take
+// S and G, into terms[cidx] (three [64][64] f32 tiles: dr_s = ecp o (S do)
+// at [t][k], dk_s = edec o (G v) at [j][k], dv_s = G^T (k o edec) at
+// [j][v]) and qs[cidx] (q, [64]); then, with the shared memory reused, the
+// rest of dr, dk, dv, dw and the (b, chunk) partial of du.  The terms make
+// a round trip through the L2 cache: the block that wrote them reads them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+    wkv_bwd_chunk_grad(const T* __restrict__ r, const T* __restrict__ k,
+                       const T* __restrict__ v, const float* __restrict__ w,
+                       const T* __restrict__ u, const T* __restrict__ dout,
+                       const float* __restrict__ states,
+                       const float* __restrict__ dstates,
+                       float* __restrict__ terms, float* __restrict__ qs,
+                       T* __restrict__ dr, T* __restrict__ dk,
+                       T* __restrict__ dv, float* __restrict__ dw,
+                       float* __restrict__ dup, int s, int h, int kd, int vd,
+                       int nc, bool vec) {
+  if constexpr (sizeof(T) == 2)
+    state_grad_tc(k, v, w, dout, states, dstates, terms, qs, s, h, kd, vd,
+                  nc, vec);
+  else
+    state_grad_fma(k, v, w, dout, states, dstates, terms, qs, s, h, kd, vd,
+                   nc, vec);
+  __syncthreads();                     // the terms are written (and visible
+                                       // to the block); shared memory free
+  chunk_grad(r, k, v, w, u, dout, terms, qs, dr, dk, dv, dw, dup, s, h, kd,
+             vd, nc, vec);
 }
 
 // Backward phase 4: du summed over (b, chunk) in index order, one thread
@@ -1387,12 +1992,14 @@ __global__ void __launch_bounds__(kThreads) wkv_bwd_reduce(
   store1(du + e, acc);
 }
 
-// Floats of f32 scratch the backward takes, in this order: the state's
-// gradient per chunk [B, H, NC, K, V], clast [B, H, NC, K], the partials
-// of du [B, NC, H, K].
+// Floats of f32 scratch the backward takes, in this order: phase 3's terms
+// [B, H, NC, 3, 64, 64] and q [B, H, NC, 64], the state's gradient per
+// chunk [B, H, NC, K, V], the chunks' decay products [B, H, NC, K], the
+// partials of du [B, NC, H, K].
 size_t bwd_scratch_floats(int batch, int s, int h, int kd, int vd) {
   const size_t nc = (s + kC - 1) / kC;
-  return (size_t)batch * h * nc * ((size_t)kd * vd + 2 * kd);
+  return (size_t)batch * h * nc *
+         ((size_t)kTerms + kBK + (size_t)kd * vd + 2 * kd);
 }
 
 template <typename T>
@@ -1400,14 +2007,39 @@ cudaError_t configure_bwd() {
   static const cudaError_t err = [] {
     cudaError_t e = cudaFuncSetAttribute(
         wkv_bwd_state_inc<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bwd_inc_bytes());
+        (int)smem_bwd_inc_bytes<T>());
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(wkv_bwd_chunk_grad<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bwd_grad_bytes());
+                               (int)smem_bwd_grad_bytes<T>());
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(wkv_bwd_chunk_grad<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
     return e;
   }();
   return err;
+}
+
+// Blocks per SM of the backward's four kernels, in launch order, at the
+// shared memory each is launched with.
+template <typename T>
+cudaError_t bwd_occupancy(int* blocks) {
+  cudaError_t e = configure_bwd<T>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[0], wkv_bwd_state_inc<T>, kThreads, smem_bwd_inc_bytes<T>());
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[1], wkv_bwd_state_scan, kThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[2], wkv_bwd_chunk_grad<T>, kThreads,
+        smem_bwd_grad_bytes<T>());
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[3], wkv_bwd_reduce<T>, kThreads, 0);
+  return e;
 }
 
 template <typename T>
@@ -1420,27 +2052,34 @@ cudaError_t launch_bwd(const void* r, const void* k, const void* v,
   cudaError_t err = configure_bwd<T>();
   if (err != cudaSuccess) return err;
   const int nc = (s + kC - 1) / kC, nbh = batch * h;
-  float* dds = scratch;
-  float* clast = dds + (size_t)nbh * nc * kd * vd;
-  float* dup = clast + (size_t)nbh * nc * kd;
+  float* terms = scratch;
+  float* qs = terms + (size_t)nbh * nc * kTerms;
+  float* dds = qs + (size_t)nbh * nc * kBK;
+  float* plast = dds + (size_t)nbh * nc * kd * vd;
+  float* dup = plast + (size_t)nbh * nc * kd;
+  const bool vec = kd % 8 == 0 && vd % 8 == 0 && aligned16(r) &&
+                   aligned16(k) && aligned16(v) && aligned16(w) &&
+                   aligned16(dout) && aligned16(states) && aligned16(scratch);
   const dim3 grid(nc, nbh);
   const T* rt = static_cast<const T*>(r);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
 
-  wkv_bwd_state_inc<T><<<grid, kThreads, smem_bwd_inc_bytes(), stream>>>(
-      rt, w, dot, dds, clast, s, h, kd, vd, nc);
+  wkv_bwd_state_inc<T><<<grid, kThreads, smem_bwd_inc_bytes<T>(), stream>>>(
+      rt, w, dot, dds, plast, s, h, kd, vd, nc, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t n2 = (size_t)nbh * kd * vd;
   wkv_bwd_state_scan<<<(unsigned)((n2 + kThreads - 1) / kThreads), kThreads,
-                       0, stream>>>(dstate_out, dds, clast, dstate, nbh, kd,
+                       0, stream>>>(dstate_out, dds, plast, dstate, nbh, kd,
                                     vd, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  wkv_bwd_chunk_grad<T><<<grid, kThreads, smem_bwd_grad_bytes(), stream>>>(
-      rt, static_cast<const T*>(k), static_cast<const T*>(v), w,
-      static_cast<const T*>(u), dot, states, dds, static_cast<T*>(dr),
-      static_cast<T*>(dk), static_cast<T*>(dv), dw, dup, s, h, kd, vd, nc);
+  wkv_bwd_chunk_grad<T><<<grid, kThreads, smem_bwd_grad_bytes<T>(), stream>>>(
+      rt, kt, vt, w, static_cast<const T*>(u), dot, states, dds, terms, qs,
+      static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv), dw, dup,
+      s, h, kd, vd, nc, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   wkv_bwd_reduce<T><<<(h * kd + kThreads - 1) / kThreads, kThreads, 0,
@@ -1458,6 +2097,17 @@ int rwkv6_wkv_bwd_max_kv() { return kBK; }
 
 size_t rwkv6_wkv_bwd_scratch(int batch, int s, int h, int kd, int vd) {
   return bwd_scratch_floats(batch, s, h, kd, vd);
+}
+
+// blocks[0..3]: how many blocks of each of the backward's four kernels
+// (state increments, reverse scan, chunk gradients, reduction) one SM
+// holds at once, for r's dtype code and key width kd.
+int rwkv6_wkv_bwd_blocks_per_sm(int dtype, int kd, int* blocks) {
+  if (kd < 1 || kd > kBK || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = dtype == 0 ? bwd_occupancy<float>(blocks)
+                                     : bwd_occupancy<__nv_bfloat16>(blocks);
+  return (int)err;
 }
 
 // The gradient of rwkv6_wkv_fwd: dr, dk, dv and du in r's type, dw and

@@ -18,10 +18,14 @@ backward reads.
 The backward (`rwkv6_wkv_bwd`) replaces no Pallas kernel: the reference
 differentiates the WKV with XLA (`repro/kernels/ops.py` `rwkv6_wkv`).  It
 is four kernels per call: the increments of the state's gradient per
-chunk, a reverse scan over chunks, one block per (chunk, b, h) for dr,
-dk, dv, dw and a per-(b, chunk) partial of du, and a fixed-order
+chunk, a reverse scan over chunks, one block per (chunk, b, h) for the
+terms that take the chunk's state and its gradient and then the rest of
+dr, dk, dv and dw and a per-(b, chunk) partial of du, and a fixed-order
 reduction of those partials (no atomics: the same inputs give the same
-bits).  It takes K, V <= 64.  Its plain version is `ref.rwkv6_wkv_bwd`.
+bits).  Every decay in it is a product of max(w, 1e-30)
+over its own steps: it takes no exponential or logarithm.  It takes K,
+V <= 64.  Its plain version is `ref.rwkv6_wkv_bwd`;
+`bwd_blocks_per_sm` reads how many blocks of each kernel an SM holds.
 `RWKV6WKV` is the `torch.autograd.Function` that joins the two, and the
 only route to a gradient: the raw `rwkv6_wkv` refuses one.  `launches`
 counts the forward's calls under `rwkv6_wkv` and the backward's under
@@ -62,6 +66,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rwkv6_wkv_bwd.restype = i
     lib.rwkv6_wkv_bwd_scratch.argtypes = [i] * 5
     lib.rwkv6_wkv_bwd_scratch.restype = ctypes.c_size_t
+    lib.rwkv6_wkv_bwd_blocks_per_sm.argtypes = [i, i, p]
+    lib.rwkv6_wkv_bwd_blocks_per_sm.restype = i
     for fn in (lib.rwkv6_wkv_max_k, lib.rwkv6_wkv_chunk,
                lib.rwkv6_wkv_bwd_max_kv):
         fn.argtypes = []
@@ -158,9 +164,25 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def bwd_scratch(b: int, s: int, h: int, kd: int, vd: int) -> int:
     """Floats of f32 scratch the backward allocates, as the CUDA source
-    lays it out: the state's gradient per chunk, the chunks' total log
-    decays, and the per-(b, chunk) partials of du."""
+    lays it out: the terms that take each chunk's state and its gradient
+    (three [64, 64] tiles and a [64] vector per chunk), the state's
+    gradient per chunk, the chunks' decay products, and the per-(b, chunk)
+    partials of du."""
     return load().rwkv6_wkv_bwd_scratch(b, s, h, kd, vd)
+
+
+def bwd_blocks_per_sm(dtype: torch.dtype, k: int) -> dict:
+    """How many blocks of each of the backward's four kernels one SM of
+    the current card holds at once (CUDA's occupancy calculator, at the
+    shared memory each is launched with), by kernel name, for operands of
+    `dtype` and key width k."""
+    if dtype not in DTYPES or not 1 <= k <= MAX_KV_BWD:
+        raise ValueError(f"no backward instance for {dtype}, K = {k}")
+    blocks = (ctypes.c_int * len(BWD_KERNELS))()
+    _build.raise_on(load().rwkv6_wkv_bwd_blocks_per_sm(DTYPES[dtype], k,
+                                                       blocks),
+                    "rwkv6_wkv_bwd_blocks_per_sm")
+    return dict(zip(BWD_KERNELS, blocks))
 
 
 def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -951,6 +951,57 @@ def test_rwkv6_wkv_bwd_strong_decay_matches_sequential(cuda, log_w):
     _assert_wkv_grads_close(got, [x.float() for x in want], args[3])
 
 
+@pytest.mark.parametrize("log_w", [-1.5, -69.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_wkv_bwd_zero_state_strong_decay_matches_sequential(
+        cuda, dtype, log_w):
+    """As a training step calls it: no state and no final state's
+    gradient, under a strong decay.  Every decay in the kernel is a product
+    of max(w, 1e-30) over its own steps, so the gradient, dw included,
+    matches autograd of the sequential recurrence in f64 (on the same
+    bf16 values where the operands are bf16)."""
+    args, do, _, states = _wkv_bwd_inputs((1, 200, 2, 64, 64), dtype, cuda,
+                                          False, log_w=log_w)
+    got = wkv_kernel.rwkv6_wkv_bwd(*args, do, None, states=states)
+    leaves = [t.double().requires_grad_() for t in args[:5]]
+    out, _ = ref.rwkv6_wkv_scan(*leaves)
+    want = torch.autograd.grad(out, leaves, do.double())
+    _assert_wkv_grads_close(
+        got, [x.to(g.dtype) for x, g in zip(want, got)] + [None], args[3])
+
+
+def test_rwkv6_wkv_bwd_clamps_w_at_1e30(cuda):
+    """w on both sides of the clamp at 1e-30, some of it 0: the kernel
+    decays by max(w, 1e-30) and gives dw = 0 below it, as the plain
+    version does, every other gradient equal to the plain version's."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args, do, dso, _ = _wkv_bwd_inputs((2, 150, 3, 64, 64), dtype, cuda,
+                                           True)
+        g = torch.Generator().manual_seed(12)
+        pick = torch.rand(args[3].shape, generator=g).to(cuda)
+        near = 10.0 ** (-31.0 + 2.0 * torch.rand(args[3].shape,
+                                                 generator=g)).to(cuda)
+        args[3] = torch.where(pick < 0.3, near, args[3])
+        args[3] = torch.where(pick > 0.97, torch.zeros_like(near), args[3])
+        _, _, states = wkv_kernel.rwkv6_wkv(*args, return_states=True)
+        got = wkv_kernel.rwkv6_wkv_bwd(*args, do, dso, states=states)
+        below = args[3] < 1e-30
+        assert bool(below.any()) and (got[3][below] == 0).all()
+        _assert_wkv_grads_close(got, ref.rwkv6_wkv_bwd(*args, do, dso),
+                                args[3].clamp_min(1e-30))
+
+
+def test_rwkv6_wkv_bwd_chunk_grad_holds_two_blocks_per_sm(cuda):
+    """The bf16 chunk gradients at rwkv6-3b's head width (K = V = 64) fit
+    two blocks on an SM (shared memory and registers, CUDA's occupancy
+    calculator); the f32 ones at least one."""
+    bf = wkv_kernel.bwd_blocks_per_sm(torch.bfloat16, 64)
+    f32 = wkv_kernel.bwd_blocks_per_sm(torch.float32, 64)
+    assert tuple(bf) == wkv_kernel.BWD_KERNELS
+    assert bf["wkv_bwd_chunk_grad"] >= 2, bf
+    assert min(f32.values()) >= 1, f32
+
+
 def test_rwkv6_wkv_bwd_is_deterministic(cuda):
     """du sums the batch and the chunks in a fixed order with no atomics:
     two calls on the same inputs agree bit for bit."""

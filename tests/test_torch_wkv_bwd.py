@@ -21,9 +21,14 @@ decades.
 
 `_emulate_kernel` is the CUDA kernel's arithmetic (`rwkv6_wkv_bwd` in
 `src/repro_torch/kernels/csrc/rwkv6_wkv.cu`) in plain f32: each chunk cut
-into four 16-step sub-blocks, every decay a product of exponentials of
-sums over the steps it spans, and the middle term of dla split by the
-sub-blocks of its pairs.  It is held to the plain backward.
+into four 16-step sub-blocks, every decay a product of max(w, 1e-30) over
+the steps it spans, multiplied in step by step (no exponential), the terms
+that take the state and its gradient apart, and the middle term of dla
+split by the sub-blocks of its pairs.  It is held to the plain backward
+and to `jax.vjp` of the scan, down to log w = -69 from a zero state, near
+w = 1 and around the clamp.  With `pieces` it is the bf16 route's: the
+state terms' products on the tensor cores take S, G and k o edec each in
+two bf16 pieces (`_pieces` / `_mixed`); one piece misses the tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -203,16 +208,50 @@ def test_plain_backward_bf16_operands():
     assert max(excess.values()) <= 1.0, excess
 
 
-def _emulate_kernel(r, k, v, w, u, state, do, dso):
-    """The CUDA backward's arithmetic in plain f32, over 64-step chunks cut
-    into four 16-step sub-blocks (shapes and returns as
-    `ref.rwkv6_wkv_bwd`).  Per (step, channel): e^{lcp} (the sum over the
-    steps of its sub-block before it) and e^{rs} (after it); per
-    sub-block: e^{T} (its total); off-diagonal pairs t in I > j in J take
-    e^{lcp_t} D_IJ e^{rs_j}, D_IJ the product of e^{T} between; pairs in
-    one sub-block sum their exponent step by step.  The middle term of dla
-    splits into (a) t after and j before i's sub-block, (b) t after and j
-    in it, (c) t in it and j before, (d) both in it, pivoted at i."""
+def _pieces(x, k):
+    """f32 x as k bf16 values (carried in f32), largest first: each is the
+    bf16 rounding of what the earlier ones leave (`kPieces` in the
+    source)."""
+    out = []
+    for _ in range(k):
+        hi = x.to(torch.bfloat16).float()
+        out.append(hi)
+        x = x - hi
+    return out
+
+
+def _mixed(eq, first, second, pieces, split):
+    """einsum(eq, first, second) as the bf16 route's mma.sync takes it:
+    operand `split` (0, 1, or None for both; f32) cut into bf16 pieces,
+    the other bf16-valued; each pair of pieces whose indices sum below
+    `pieces` multiplied in f32 sums, then the products added."""
+    a = _pieces(first, pieces) if split in (0, None) else [first]
+    b = _pieces(second, pieces) if split in (1, None) else [second]
+    total = None
+    for i, x in enumerate(a):
+        for j, y in enumerate(b):
+            if i + j < pieces:
+                term = torch.einsum(eq, x, y)
+                total = term if total is None else total + term
+    return total
+
+
+def _emulate_kernel(r, k, v, w, u, state, do, dso, pieces=None):
+    """The CUDA backward's arithmetic in plain f32 (shapes and returns as
+    `ref.rwkv6_wkv_bwd`), over 64-step chunks cut into four 16-step
+    sub-blocks; with `pieces`, the bf16 route's, whose state terms'
+    products take S, G and k o edec in that many bf16 pieces each.  No exponential: every decay is a product of p = max(w,
+    1e-30) over its own steps, multiplied in step by step.  Per (step,
+    channel): elcp (the product over the steps of its sub-block before
+    it) and ers (after it); per sub-block: et (its product).  Off-diagonal
+    pairs t in I > j in J take elcp_t D_IJ ers_j, D_IJ the product of et
+    between; inside one sub-block each (j, channel) carries its product
+    along t (A and dk), each (t, channel) along j downwards (dr).  The
+    terms that take the state S and its gradient G come apart, as phase 3
+    computes them; the middle term of dla splits into (a) t after and j
+    before i's sub-block, (b) t after and j in it, (c) t in it and j
+    before, (d) both in it, carried along i as W_t(i+1) = p_{i+1} (W_t(i)
+    + (do_t.v_i) k_i)."""
     b, s, h, kd = r.shape
     vd = v.shape[-1]
     pad = (-s) % CHUNK
@@ -224,13 +263,18 @@ def _emulate_kernel(r, k, v, w, u, state, do, dso):
         return t.reshape(b, nc, CHUNK, h, t.shape[-1]).permute(0, 3, 1, 2, 4)
 
     rf, kf, vf, dof = chunks(r), chunks(k), chunks(v), chunks(do)
-    la = torch.log(torch.clamp_min(chunks(w, 1.0), 1e-30))
+    p = torch.clamp_min(chunks(w, 1.0), 1e-30)
     uf = u.float()[None, :, None, None, :]
-    lab = la.reshape(b, h, nc, nb, SUB, kd)
-    elcp = tref._before(lab, 4).reshape(la.shape).exp()
-    ers = tref._after(lab, 4).reshape(la.shape).exp()
-    et = lab.sum(4).exp()                        # [B, H, NC, 4, K]
     blk = [t // SUB for t in range(CHUNK)]
+
+    # running products inside each sub-block, exclusive, step by step
+    pb = p.reshape(b, h, nc, nb, SUB, kd)
+    ones = torch.ones_like(pb[..., :1, :])
+    elcp = torch.cat([ones, torch.cumprod(pb, 4)[..., :-1, :]], 4)
+    ers = torch.cat([ones, torch.cumprod(pb.flip(4), 4)[..., :-1, :]],
+                    4).flip(4)
+    et = torch.cumprod(pb, 4)[..., -1, :]       # [B, H, NC, 4, K]
+    elcp, ers = elcp.reshape(p.shape), ers.reshape(p.shape)
 
     def prod(m0, m1):
         out = torch.ones(b, h, nc, kd)
@@ -240,20 +284,15 @@ def _emulate_kernel(r, k, v, w, u, state, do, dso):
 
     ecp = elcp * torch.stack([prod(0, blk[t]) for t in range(CHUNK)], 3)
     edec = ers * torch.stack([prod(blk[t] + 1, nb) for t in range(CHUNK)], 3)
-    ecl = prod(0, nb)
+    plast = prod(0, nb)
     dpair = {(i, j): prod(j + 1, i) for i in range(nb) for j in range(i)}
 
-    def span(lo, hi):        # e^{sum_{lo <= n < hi} la_n}, step by step
-        x = torch.zeros(b, h, nc, kd)
-        for n in range(lo, hi):
-            x = x + la[:, :, :, n]
-        return x.exp()
-
+    # phases 1 and 2: the chunk states (the forward's) and the reverse scan
     st = torch.zeros(b, h, kd, vd) if state is None else state.float()
     sc = []
     for c in range(nc):
         sc.append(st)
-        st = ecl[:, :, c, :, None] * st + torch.einsum(
+        st = plast[:, :, c, :, None] * st + torch.einsum(
             "bhjk,bhjv->bhkv", kf[:, :, c] * edec[:, :, c], vf[:, :, c])
     sc = torch.stack(sc, 2)
     inc = torch.einsum("bhcjk,bhcjv->bhckv", rf * ecp, dof)
@@ -261,56 +300,88 @@ def _emulate_kernel(r, k, v, w, u, state, do, dso):
     gc = [None] * nc
     for c in reversed(range(nc)):
         gc[c] = g
-        g = ecl[:, :, c, :, None] * g + inc[:, :, c]
+        g = plast[:, :, c, :, None] * g + inc[:, :, c]
     gc = torch.stack(gc, 2)
 
+    # phase 3: the terms that take S and G (on the bf16 route S, G and k o
+    # edec in pieces; do and v are bf16-valued)
+    if pieces is None:
+        dr_s = ecp * torch.einsum("bhckv,bhctv->bhctk", sc, dof)
+        dk_s = edec * torch.einsum("bhckv,bhcjv->bhcjk", gc, vf)
+        dv_s = torch.einsum("bhckv,bhcjk->bhcjv", gc, kf * edec)
+    else:
+        dr_s = ecp * _mixed("bhckv,bhctv->bhctk", sc, dof, pieces, 0)
+        dk_s = edec * _mixed("bhckv,bhcjv->bhcjk", gc, vf, pieces, 0)
+        dv_s = _mixed("bhckv,bhcjk->bhcjv", gc, kf * edec, pieces, None)
+    q = plast * (sc * gc).sum(-1)
+
+    # phase 4
     dov = torch.einsum("bhctv,bhcjv->bhctj", dof, vf)
-    rp, kp = rf * elcp, kf * ers
-    a = torch.zeros(b, h, nc, CHUNK, CHUNK)
-    xo, yo = torch.zeros_like(kf), torch.zeros_like(rf)
-    dgr, dgk = torch.zeros_like(rf), torch.zeros_like(kf)
-    for t in range(CHUNK):
-        for j in range(t):
-            if blk[t] != blk[j]:
-                dp = dpair[(blk[t], blk[j])]
-                a[..., t, j] = (rp[:, :, :, t] * dp * kp[:, :, :, j]).sum(-1)
-                xo[:, :, :, j] += dov[..., t, j, None] * rp[:, :, :, t] * dp
-                yo[:, :, :, t] += dov[..., t, j, None] * kp[:, :, :, j] * dp
-            else:
-                e = span(j + 1, t)
-                a[..., t, j] = (rf[:, :, :, t] * kf[:, :, :, j] * e).sum(-1)
-                dgr[:, :, :, t] += dov[..., t, j, None] * kf[:, :, :, j] * e
-                dgk[:, :, :, j] += dov[..., t, j, None] * rf[:, :, :, t] * e
     bonus = torch.diagonal(dov, dim1=-2, dim2=-1)[..., None]
+    rt, kt = rf * elcp, kf * ers
+    a = torch.zeros(b, h, nc, CHUNK, CHUNK)
+    for (i, j), dp in dpair.items():
+        ri, rj = slice(SUB * i, SUB * i + SUB), slice(SUB * j, SUB * j + SUB)
+        a[..., ri, rj] = torch.einsum("bhctk,bhcjk->bhctj",
+                                      rt[:, :, :, ri] * dp[:, :, :, None],
+                                      kt[:, :, :, rj])
+    dgk, ersk = torch.zeros_like(kf), torch.ones_like(kf)
+    dgr, elcpr = torch.zeros_like(rf), torch.ones_like(rf)
+    for m in range(nb):
+        for jl in range(SUB):           # (j, channel) carried along t
+            j, e = SUB * m + jl, torch.ones(b, h, nc, kd)
+            for tl in range(jl + 1, SUB):
+                t = SUB * m + tl
+                re = rf[:, :, :, t] * e
+                a[..., t, j] = (re * kf[:, :, :, j]).sum(-1)
+                dgk[:, :, :, j] += dov[..., t, j, None] * re
+                e = e * p[:, :, :, t]
+            ersk[:, :, :, j] = e
+        for tl in range(SUB):           # (t, channel) carried down j
+            t, e = SUB * m + tl, torch.ones(b, h, nc, kd)
+            for jl in reversed(range(tl)):
+                j = SUB * m + jl
+                dgr[:, :, :, t] += dov[..., t, j, None] * kf[:, :, :, j] * e
+                e = e * p[:, :, :, j]
+            elcpr[:, :, :, t] = e
     a = a + torch.diag_embed((rf * uf * kf).sum(-1))
-    sdo = torch.einsum("bhckv,bhctv->bhctk", sc, dof)
-    gv = torch.einsum("bhckv,bhcjv->bhcjk", gc, vf)
-    dr = ecp * sdo + elcp * yo + dgr + bonus * uf * kf
-    dk = ers * xo + dgk + bonus * uf * rf + edec * gv
-    dv = (torch.einsum("bhctj,bhctv->bhcjv", a, dof)
-          + torch.einsum("bhckv,bhcjk->bhcjv", gc, kf * edec))
+    dv = torch.einsum("bhctj,bhctv->bhcjv", a, dof) + dv_s
+    xo, yo = torch.zeros_like(kf), torch.zeros_like(rf)
+    for (i, j), dp in dpair.items():
+        ri, rj = slice(SUB * i, SUB * i + SUB), slice(SUB * j, SUB * j + SUB)
+        blkd = dov[..., ri, rj]
+        xo[:, :, :, rj] += dp[:, :, :, None] * torch.einsum(
+            "bhctj,bhctk->bhcjk", blkd, rt[:, :, :, ri])
+        yo[:, :, :, ri] += dp[:, :, :, None] * torch.einsum(
+            "bhctj,bhcjk->bhctk", blkd, kt[:, :, :, rj])
+    dk = ersk * xo + dgk + bonus * uf * rf + dk_s
+    dr = elcpr * yo + dgr + bonus * uf * kf + dr_s
     du = torch.einsum("bhctx,bhctk->hk", bonus, rf * kf)
-    x, z = rf * ecp * sdo, kf * edec * gv
-    q = ecl * (sc * gc).sum(-1)
-    pb, pc = kp * xo, rp * yo
+    x, z, pbt, pct = rf * dr_s, kf * dk_s, kt * xo, rt * yo
     qpair = {(i, j): torch.einsum(
-        "bhctk,bhctj,bhcjk->bhck", rp[:, :, :, SUB * i:SUB * i + SUB],
+        "bhctk,bhctj,bhcjk->bhck", rt[:, :, :, SUB * i:SUB * i + SUB],
         dov[..., SUB * i:SUB * i + SUB, SUB * j:SUB * j + SUB],
-        kp[:, :, :, SUB * j:SUB * j + SUB])
+        kt[:, :, :, SUB * j:SUB * j + SUB])
         for (i, j) in dpair if i >= j + 2}
-    dla = torch.zeros_like(la)
-    for i in range(CHUNK):
-        m, i0 = blk[i], SUB * blk[i]
-        acc = (x[:, :, :, i + 1:].sum(3) + z[:, :, :, :i].sum(3) + q
-               + sum((dpair[p] * qq for p, qq in qpair.items()
-                      if p[0] > m > p[1]), torch.zeros(b, h, nc, kd))
-               + pb[:, :, :, i0:i].sum(3) + pc[:, :, :, i + 1:i0 + SUB].sum(3))
-        for t in range(i + 1, i0 + SUB):
-            inner = sum((dov[..., t, j, None] * kf[:, :, :, j]
-                         * span(j + 1, i + 1) for j in range(i0, i)),
-                        torch.zeros(b, h, nc, kd))
-            acc = acc + rf[:, :, :, t] * span(i + 1, t) * inner
-        dla[:, :, :, i] = acc
+    dla = torch.zeros_like(p)
+    for m in range(nb):
+        i0 = SUB * m
+        pa = sum((dpair[pr] * qq for pr, qq in qpair.items()
+                  if pr[0] > m > pr[1]), torch.zeros(b, h, nc, kd))
+        wt = [torch.zeros(b, h, nc, kd) for _ in range(SUB)]
+        for n in range(SUB):
+            i = i0 + n
+            dd, bt = torch.zeros(b, h, nc, kd), torch.ones(b, h, nc, kd)
+            for tl in range(n + 1, SUB):             # (d)
+                dd = dd + rf[:, :, :, i0 + tl] * bt * wt[tl]
+                bt = bt * p[:, :, :, i0 + tl]
+            dla[:, :, :, i] = (x[:, :, :, i + 1:].sum(3)
+                               + pct[:, :, :, i + 1:i0 + SUB].sum(3)
+                               + z[:, :, :, :i].sum(3)
+                               + pbt[:, :, :, i0:i].sum(3) + q + pa + dd)
+            for tl in range(n + 2, SUB):
+                wt[tl] = (wt[tl] + dov[..., i0 + tl, i, None]
+                          * kf[:, :, :, i]) * p[:, :, :, i + 1]
 
     def unchunk(t):
         return t.permute(0, 2, 3, 1, 4).reshape(b, nc * CHUNK, h,
@@ -326,6 +397,8 @@ def _emulate_kernel(r, k, v, w, u, state, do, dso):
     (1, 150, 2, 8, 8, True, True, None),     # ragged S, three chunks
     (2, 64, 1, 4, 4, False, False, None),    # one chunk, B = 2
     (1, 100, 1, 4, 4, True, True, -69.0),    # strong decay
+    (1, 130, 2, 8, 8, False, False, -1.5),   # zero state, strong decay
+    (1, 70, 2, 8, 8, True, True, -1e-3),     # w near 1
 ])
 def test_kernel_emulation_matches_plain_backward(case):
     b, s, h, kd, vd, with_state, with_dso, log_w = case
@@ -334,3 +407,97 @@ def test_kernel_emulation_matches_plain_backward(case):
     want = _port(args, do, dso, with_state, with_dso)
     excess = _excess(got, want, args[3])
     assert max(excess.values()) <= 1.0, excess
+
+
+def _around_clamp(w, seed):
+    """w with a third of its entries moved to 10^U(-31, -29): on both
+    sides of the clamp at 1e-30."""
+    rng = np.random.default_rng(seed)
+    near = 10.0 ** rng.uniform(-31.0, -29.0, w.shape)
+    return np.where(rng.random(w.shape) < 1 / 3, near, w).astype(np.float32)
+
+
+# (b, s, h, k, v, with_state, with_dso, log_w, around the clamp)
+EMULATION_CASES = [
+    (1, 200, 2, 8, 8, False, False, -69.0, False),   # zero state, strong
+    (1, 200, 2, 8, 8, False, False, -1.5, False),    # decay, no dstate_out
+    (2, 100, 2, 8, 8, True, True, -1e-3, False),     # w near 1
+    (1, 150, 2, 8, 8, True, True, None, True),       # w around 1e-30
+    (1, 70, 1, 64, 64, False, False, -1.5, False),   # rwkv6-3b's head
+]
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_kernel_emulation_matches_jax_vjp_and_plain(case):
+    """The kernel's arithmetic (decays as running products of the clamped
+    w) against `jax.vjp` of the reference's sequential scan and against
+    the plain backward, at the same limits: from a zero state under a
+    strong decay with no final state's gradient (as a training step calls
+    it), with w near 1, and with w on both sides of the clamp (where dw is
+    0 below it, the gradient of a clamped forward; compared as w o dw, the
+    reference's unclamped gradient there is below the tolerance)."""
+    b, s, h, kd, vd, with_state, with_dso, log_w, clamp = case
+    args, do, dso = _inputs(b, s, h, kd, vd, log_w=log_w, seed=37)
+    if clamp:
+        args = list(args)
+        args[3] = _around_clamp(args[3], 41)
+    got = _port(args, do, dso, with_state, with_dso, fn=_emulate_kernel)
+    if clamp:
+        below = torch.from_numpy(args[3] < 1e-30)
+        assert bool(below.any()) and (got[3][below] == 0).all()
+    w_cmp = np.maximum(args[3], 1e-30)
+    for want in (_jax_want(args, do, dso, with_state, with_dso),
+                 _port(args, do, dso, with_state, with_dso)):
+        excess = _excess(got, want, w_cmp)
+        assert max(excess.values()) <= 1.0, excess
+
+
+PIECES = 2            # kPieces in the CUDA source
+# (b, s, h, k, v, with_state, with_dso, log_w)
+BF16_CASES = [
+    (1, 130, 2, 16, 16, False, False, None),   # a training step's call
+    (2, 100, 2, 8, 8, True, True, None),       # state, final state's grad
+    (1, 130, 2, 16, 16, False, False, -1.5),   # zero state, strong decay
+]
+
+
+def _bf16_route(case, pieces):
+    """The bf16 route's emulation with `pieces`, and the two oracles, on
+    bf16-rounded operands (r, k, v, u, do) carried in f32."""
+    b, s, h, kd, vd, with_state, with_dso, log_w = case
+    args, do, dso = _inputs(b, s, h, kd, vd, log_w=log_w, seed=43)
+    args = list(args)
+    for i in (0, 1, 2, 4):
+        args[i] = torch.from_numpy(args[i]).to(torch.bfloat16).float().numpy()
+    do = torch.from_numpy(do).to(torch.bfloat16).float().numpy()
+    t = [torch.from_numpy(x) for x in args]
+    bf = [x.to(torch.bfloat16) if i in (0, 1, 2, 4) else x
+          for i, x in enumerate(t)]
+    got = _emulate_kernel(*bf[:5], bf[5] if with_state else None,
+                          torch.from_numpy(do).to(torch.bfloat16),
+                          torch.from_numpy(dso) if with_dso else None,
+                          pieces=pieces)
+    return (got, _jax_want(args, do, dso, with_state, with_dso),
+            _port(args, do, dso, with_state, with_dso), args[3])
+
+
+@pytest.mark.parametrize("case", BF16_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_bf16_route_emulation_within_the_cards_tolerance(case):
+    """The bf16 route (the state terms' products on the tensor cores with
+    S, G and k o edec in two bf16 pieces, do.v exact, dr, dk, dv and du
+    rounded once) against `jax.vjp` of the reference's scan and against
+    the plain backward, at the card's tolerance for bf16 operands."""
+    got, want, plain, w = _bf16_route(case, PIECES)
+    for oracle in (want, plain):
+        excess = _excess(got, oracle, w, bf16=True)
+        assert max(excess.values()) <= 1.0, excess
+
+
+def test_bf16_route_one_piece_misses_the_tolerance():
+    """S, G and k o edec rounded to bf16 once (no split): dw, an f32
+    gradient held to 1e-4 of its max, misses it several times over.  This
+    is why the route splits them."""
+    got, _, plain, w = _bf16_route(BF16_CASES[0], 1)
+    assert _excess(got, plain, w, bf16=True)["dw"] > 4.0

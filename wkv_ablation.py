@@ -11,12 +11,15 @@ of one stage emptied (its results are wrong by design), built into
 the library's C entry (the port's wrapper is not touched), and timed with
 torch.profiler at rwkv6-3b's prefill (S = 1024, 40 heads of 64, bf16,
 seed 1) for the forward and at its train shape (B 2, S 1024, no state)
-for the backward (four kernels a call; its stages are those of the chunk
-gradients, and the state increments' product), every variant in one
+for the backward (four kernels a call; its stages are the product of the
+state increments and those of the chunk gradients: the state terms'
+three, do.v, A, dv, the sub-blocks and the decay's gradient), every
+variant in one
 process on one card, in two rounds.  The drop in a kernel's time when a
 stage goes is that stage's share; `loads_only` keeps the loads, the
-running sums, the barriers and the stores.  A stage whose text is not found exactly once in the source stops
-the script: after an edit of the kernel, bring STAGES up to date.  Prints
+running sums, the barriers and the stores.  A stage whose text is not
+found exactly once in the source stops the script: after an edit of the
+kernel, bring STAGES and BWD_STAGES up to date.  Prints
 one JSON line per variant and round and writes them all to
 `chiprun_out/wkv_ablation.json`.
 """
@@ -48,31 +51,49 @@ STAGES = {
                       "    for (int j = 0; j < 0; ++j)"),
 }
 PHASES = ("wkv_chunk_state", "wkv_state_scan", "wkv_chunk_output")
-# the backward's stages: the state increments' product (wkv_bwd_state_inc)
-# and the chunk gradients' (wkv_bwd_chunk_grad) products, exponential
-# loops and the decay's gradient
+# the backward's stages: the state increments' product
+# (wkv_bwd_state_inc), and the chunk gradients' (wkv_bwd_chunk_grad):
+# the state terms' three products, do.v, A, dv, the sub-blocks' products,
+# the decay's gradient and the state terms' reads.  A stage is one (text,
+# replacement) pair or a list of them.
 BWD_STAGES = {
-    "inc_product": ("  for (int t = 0; t < kC; ++t) {\n    float dv[4];",
-                    "  for (int t = 0; t < 0; ++t) {\n    float dv[4];"),
-    "a_offdiag": ("  for (int e = tid; e < kPairs * kL * kL; e += kThreads) {",
-                  "  for (int e = tid; e < 0; e += kThreads) {"),
-    "a_diag": ("  for (int e = tid; e < kDiagExp + kC; e += kThreads) {",
-               "  for (int e = tid; e < 0; e += kThreads) {"),
-    "q_pairs": ("  if (tid < 3 * kBK) {\n    const int p = tid / kBK",
-                "  if (tid < 0) {\n    const int p = tid / kBK"),
-    "dv": ("    for (int t = tr; t < kC; ++t) {\n      const float* ar",
-           "    for (int t = tr; t < 0; ++t) {\n      const float* ar"),
-    "dk_offdiag": ("    for (int bi = sj + 1; bi < kNSub; ++bi) {",
-                   "    for (int bi = sj + 1; bi < 0; ++bi) {"),
-    "dk_diag": ("        for (int t = j + 1; t < kL * sj + kL; ++t) {",
-                "        for (int t = j + 1; t < 0; ++t) {"),
-    "dr_offdiag": ("    for (int bj = 0; bj < st; ++bj) {",
+    "inc_product": ("  for (int t = 0; t < kC; ++t)\n    outer(acc, ld4(s_re",
+                    "  for (int t = 0; t < 0; ++t)\n    outer(acc, ld4(s_re"),
+    "sdo": ("    mma_rows(acc, sh_do, sh_sp, kPieces, ln);", ""),
+    "gv": ("    mma_rows(acc, sh_v, sh_gp, kPieces, ln);", ""),
+    "gk": ("    for (int ks = 0; ks < kBK / 16; ++ks)\n#pragma unroll\n"
+           "      for (int ia = 0; ia < kPieces; ++ia) {",
+           "    for (int ks = 0; ks < 0; ++ks)\n#pragma unroll\n"
+           "      for (int ia = 0; ia < kPieces; ++ia) {"),
+    "dov": ("      mma_rows(acc, smem_addr(s_do), smem_addr(s_v), 1,\n"
+            "               MmaLanes(wm, wn, lane));", ""),
+    "a_diag": ("    for (int tl = 1; tl < kL; ++tl) {",
+               "    for (int tl = 1; tl < 0; ++tl) {"),
+    "a_offdiag": ("    for (int c = 0; c < kBK; c += 4) {\n      const float4 e1",
+                  "    for (int c = 0; c < 0; c += 4) {\n      const float4 e1"),
+    "q_pairs": ("  if (tid < 3 * kBK) {\n    const int pq",
+                "  if (tid < 0) {\n    const int pq"),
+    "dv": ("    for (int t = tr; t < kC; ++t) {\n      float a[4];",
+           "    for (int t = tr; t < 0; ++t) {\n      float a[4];"),
+    "dk_offdiag": ("    for (int bi = kNSub - 1; bi > sb; --bi) {",
+                   "    for (int bi = kNSub - 1; bi > kNSub; --bi) {"),
+    "dk_diag": ("    for (int t = tr + 1; t < bend; ++t) {",
+                "    for (int t = tr + 1; t < 0; ++t) {"),
+    "dr_offdiag": ("    for (int bj = 0; bj < sb; ++bj) {",
                    "    for (int bj = 0; bj < 0; ++bj) {"),
-    "dr_diag": ("        for (int j = t - 1; j >= kL * st; --j) {",
-                "        for (int j = t - 1; j >= kC; --j) {"),
-    "dla_pivot": ("      for (int t = i + 1; t < i0 + kL; ++t) {\n"
-                  "        float inner",
-                  "      for (int t = i + 1; t < 0; ++t) {\n        float inner"),
+    "dr_diag": ("    for (int j = tr + 2; j >= kL * sb; --j) {",
+                "    for (int j = tr + 2; j >= kC; --j) {"),
+    "dla_pivot": [("      for (int t = n + 1; t < kL; ++t) {\n        dd = fmaf",
+                   "      for (int t = kL; t < kL; ++t) {\n        dd = fmaf"),
+                  ("      for (int t = n + 2; t < kL; ++t)\n        wt[t] =",
+                   "      for (int t = kL; t < kL; ++t)\n        wt[t] =")],
+    "terms_reads": [
+        ("      const float4 x = ld4(tb + 2 * kC * kBK + (tr + i) * kBK + vc);",
+         "      const float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);"),
+        ("        const float st = tb[kC * kBK + j * kBK + c];",
+         "        const float st = 0.0f;"),
+        ("        const float st = tb[t * kBK + c];",
+         "        const float st = 0.0f;")],
 }
 BWD_PHASES = ("wkv_bwd_state_inc", "wkv_bwd_state_scan",
               "wkv_bwd_chunk_grad", "wkv_bwd_reduce")
@@ -82,11 +103,12 @@ def variants(src: str, stages: dict, prefix: str = "") -> dict:
     def without(*names):
         text = src
         for st in names:
-            old, new = stages[st]
-            if text.count(old) != 1:
-                raise RuntimeError(f"stage {st!r} not found once in the "
-                                   "kernel's source")
-            text = text.replace(old, new)
+            pairs = stages[st]
+            for old, new in ([pairs] if isinstance(pairs, tuple) else pairs):
+                if text.count(old) != 1:
+                    raise RuntimeError(f"stage {st!r} not found once in the "
+                                       "kernel's source")
+                text = text.replace(old, new)
         return text
 
     out = {f"{prefix}full": src}
