@@ -25,8 +25,10 @@ to the CPU:
                 same inputs as a yardstick (timed only; the port never
                 calls it; the kernels it ran name its backend).  The
                 attention forward at zamba2's, starcoder2's, qwen3-14b's
-                (40 over 8 kv heads of 128) and minicpm3-4b's MLA widths
-                (40 heads, Dh 96, Dv 64).  The attention backward (flash_attention_bwd,
+                (40 over 8 kv heads of 128), minicpm3-4b's MLA widths
+                (40 heads, Dh 96, Dv 64), dbrx-132b's (48 over 8 kv heads
+                of 128) and deepseek-v3's MLA prefill (128 heads, Dh 192,
+                Dv 128).  The attention backward (flash_attention_bwd,
                 three kernels per call, or four where the bf16 route
                 splits the GQA group, asserted) at starcoder2's train
                 shape in bf16 and f32, an MLA width and Sq < Skv, against
@@ -118,14 +120,28 @@ to the CPU:
                 attention) must read at least one launch per layer per
                 request just after, and zamba2's attention must have
                 launched; the peak device memory stays under two servers'
-                weights (fresh servers are built one at a time).
+                weights (fresh servers are built one at a time).  Then
+                dbrx-132b and deepseek-v3-671b the same way at published
+                widths with all their experts, 4 layers deep (26.58 and
+                29.42 GiB; deepseek's first 3 dense, the 4th MoE): at
+                least 4 attention launches per request, and a
+                `serve.moe` line: the share of routed assignments dropped
+                over the run's prefills (the bucket's pad tokens
+                included), the largest expert load against its capacity,
+                and, on one more server, a decode step's ms per token
+                beside the time to read its weights.
   9. serve_check — outside the timed windows, in f32 at full width:
                 zamba2 2 groups (12 layers) deep, rwkv6 4 layers,
-                qwen3-14b 2, minicpm3-4b 4 and yi-34b 2 (yi-34b runs on
-                the card at this cut only).
-                Greedy tokens equal the argmax of repeated full forwards,
+                qwen3-14b 2, minicpm3-4b 4, yi-34b 2 (yi-34b runs on
+                the card at this cut only), dbrx-132b 1 and
+                deepseek-v3-671b 2 (one dense, one MoE with 32 of its 256
+                experts).
+                Greedy tokens equal the argmax of repeated full forwards
+                (MoE archs at a capacity at which nothing drops, asserted),
                 and prefill logits on the card match the port on the CPU
-                with the same weights.
+                with the same weights; for the MoE archs, every token's
+                top-k experts and the dropped assignments are the same on
+                both.
  10. train    — starcoder2-3b training through the port's train(): at its
                 published widths and depth (30 layers, d_model 3072, bf16,
                 remat, 3.18 B parameters, random weights from a seed), 6
@@ -204,6 +220,18 @@ SERVE_MIN_PROMPT = 64
 # the dense family, served at published widths and full depth with the
 # same mix (yi-34b, 64.1 GiB in bf16, is checked at a depth cut only)
 DENSE_ARCHS = ("qwen3-14b", "minicpm3-4b")
+# the MoE archs, served at published widths with all their experts, 4
+# layers deep (dbrx 26.58 GiB, deepseek-v3 with its MTP block 29.42 GiB
+# in bf16: one layer more would put two servers' weights past the card)
+MOE_ARCHS = ("dbrx-132b", "deepseek-v3-671b")
+MOE_SERVE_LAYERS = 4
+# serve_check's archs, each with its cut (f32 at full width)
+SERVE_CHECKS = (
+    (SERVE_ARCH, dict(n_layers=12)),          # 2 groups of 6
+    (RWKV_ARCH, dict(n_layers=4)), ("qwen3-14b", dict(n_layers=2)),
+    ("minicpm3-4b", dict(n_layers=4)), ("yi-34b", dict(n_layers=2)),
+    ("dbrx-132b", dict(n_layers=1)),
+    ("deepseek-v3-671b", dict(n_layers=2, first_k_dense=1, n_experts=32)))
 
 
 def log(phase: str, **kv) -> None:
@@ -1251,7 +1279,9 @@ def phase_lm_kernels():
             ("zamba2 f32 S=1024", 1024, 32, 32, 80, 80, f32),
             ("qwen3 bf16 S=1024", 1024, 40, 8, 128, 128, bf16),
             ("minicpm3 bf16 S=1024", 1024, 40, 40, 96, 64, bf16),
-            ("minicpm3 f32 S=1024", 1024, 40, 40, 96, 64, f32)):
+            ("minicpm3 f32 S=1024", 1024, 40, 40, 96, 64, f32),
+            ("dbrx bf16 S=1024", 1024, 48, 8, 128, 128, bf16),
+            ("deepseek bf16 S=1024", 1024, 128, 128, 192, 128, bf16)):
         q = randn(1, sq, h, dh, dtype=dtype)
         k = randn(1, sq, hkv, dh, dtype=dtype)
         v = randn(1, sq, hkv, dv, dtype=dtype)
@@ -2338,7 +2368,10 @@ def phase_serve(arch, kernels):
     n_layers x requests (warm-ups add more); each other kernel named must
     have launched.  The fresh servers are built one at a time: the peak
     must stay under two servers' weights (a lingering server would put a
-    third beside them)."""
+    third beside them).  For an MoE arch every MoE layer's routing is
+    observed over the run (`moe.observe`) and summed after it
+    (`_moe_serve_stats`)."""
+    import contextlib
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2346,39 +2379,54 @@ def phase_serve(arch, kernels):
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.launch import serve
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
 
     counters = {"flash_attention": fa, "mamba2_ssd": ssd, "rwkv6_wkv": wkv}
+    cfg = configs.get(arch)
+    routes = []
+
+    def on_route(idx, keep, cap):
+        # a prefill's routing (a decode step routes one token): dropped
+        # assignments, all of them, the largest expert load, the capacity,
+        # the tokens; kept on the device until the run ends
+        if idx.shape[0] > 1:
+            load = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+            routes.append(((~keep).sum(), keep.numel(), load.max(), cap,
+                           idx.shape[0]))
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in counters.values():
         mod.reset_launches()
     out = {}
     t_serve = time.perf_counter()
-    for mode, n_req, persistent in (("persistent", SERVE_REQUESTS, True),
-                                    ("fresh-server", SERVE_FRESH, False)):
-        r = serve.serve_benchmark(
-            arch, reduced=False, n_requests=n_req,
-            max_new=SERVE_MAX_NEW, n_workers=1, persistent=persistent,
-            max_len=SERVE_MAX_LEN, min_prompt=SERVE_MIN_PROMPT, seed=0)
-        torch.cuda.synchronize()
-        s = r["summary"]
-        init_ts = [rec.cpu_time - rec.compute_t for rec in r["records"]]
-        init_share = 1 - s.total_compute / max(s.total_cpu_time, 1e-9)
-        if r["tokens"] != n_req * SERVE_MAX_NEW:
-            raise AssertionError(f"serve {arch} {mode}: {r['tokens']} "
-                                 f"tokens")
-        out[mode] = dict(
-            requests=n_req, wall_s=r["wall"], cpu_s=s.total_cpu_time,
-            compute_s=s.total_compute, init_share=init_share,
-            tokens=r["tokens"], tokens_per_s=r["tokens"] / r["wall"],
-            server_init_s=[t for t in init_ts if t > 0],
-            makespan_s=s.makespan)
-        log("serve", arch=arch, mode=mode, requests=n_req,
-            wall_s=f"{r['wall']:.3f}", cpu_s=f"{s.total_cpu_time:.3f}",
-            init_share=f"{init_share:.4f}",
-            tokens_per_s=f"{r['tokens'] / r['wall']:.2f}",
-            server_init_s=[f"{t:.3f}" for t in init_ts if t > 0])
+    with contextlib.ExitStack() as watch:
+        if cfg.n_experts:
+            watch.enter_context(moe.observe(on_route))
+        for mode, n_req, persistent in (("persistent", SERVE_REQUESTS, True),
+                                        ("fresh-server", SERVE_FRESH, False)):
+            r = serve.serve_benchmark(
+                arch, reduced=False, n_requests=n_req,
+                max_new=SERVE_MAX_NEW, n_workers=1, persistent=persistent,
+                max_len=SERVE_MAX_LEN, min_prompt=SERVE_MIN_PROMPT, seed=0)
+            torch.cuda.synchronize()
+            s = r["summary"]
+            init_ts = [rec.cpu_time - rec.compute_t for rec in r["records"]]
+            init_share = 1 - s.total_compute / max(s.total_cpu_time, 1e-9)
+            if r["tokens"] != n_req * SERVE_MAX_NEW:
+                raise AssertionError(f"serve {arch} {mode}: {r['tokens']} "
+                                     f"tokens")
+            out[mode] = dict(
+                requests=n_req, wall_s=r["wall"], cpu_s=s.total_cpu_time,
+                compute_s=s.total_compute, init_share=init_share,
+                tokens=r["tokens"], tokens_per_s=r["tokens"] / r["wall"],
+                server_init_s=[t for t in init_ts if t > 0],
+                makespan_s=s.makespan)
+            log("serve", arch=arch, mode=mode, requests=n_req,
+                wall_s=f"{r['wall']:.3f}", cpu_s=f"{s.total_cpu_time:.3f}",
+                init_share=f"{init_share:.4f}",
+                tokens_per_s=f"{r['tokens'] / r['wall']:.2f}",
+                server_init_s=[f"{t:.3f}" for t in init_ts if t > 0])
     torch.cuda.synchronize()
     out["serve_s"] = time.perf_counter() - t_serve
     launches = {name: mod.launches[name] for name, mod in counters.items()}
@@ -2386,7 +2434,6 @@ def phase_serve(arch, kernels):
     lens = np.random.default_rng(0).integers(
         SERVE_MIN_PROMPT, SERVE_MAX_LEN // 2, SERVE_REQUESTS)
     out["prompt_lens"] = lens.tolist()
-    cfg = configs.get(arch)
     out["weights_gib"] = model.count_params(cfg) * 2 / 2 ** 30
     need = cfg.n_layers * (SERVE_REQUESTS + SERVE_FRESH)
     log("serve.total", arch=arch, seconds=f"{out['serve_s']:.3f}",
@@ -2404,56 +2451,142 @@ def phase_serve(arch, kernels):
         raise AssertionError(f"{arch}: peak {out['peak_device_gib']:.2f} "
                              f"GiB reaches two servers' weights "
                              f"({2 * out['weights_gib']:.2f} GiB)")
+    if cfg.n_experts:
+        out["moe"] = _moe_serve_stats(arch, cfg, routes)
     return out, {k: launches[k] for k in kernels}
+
+
+def _moe_serve_stats(arch, cfg, routes):
+    """The served run's routing over its prefills (the bucket's pad tokens
+    included): over all of them, and over the requests' alone (a bucket of
+    at least SERVE_MIN_PROMPT tokens; a server's warm-up prefills 16
+    tokens of one id, which all route alike).  Then, outside the counted
+    run, a decode step's ms per token
+    on one more server (a 512-token prompt, SERVE_MAX_LEN / 4, then 16 new
+    tokens against 1,
+    the median of 3 each): with the reference's dense capacity buffers
+    every decode step reads every expert's weights."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    def share(rs):
+        return sum(int(r[0]) for r in rs) / sum(r[1] for r in rs)
+
+    requests = [r for r in routes if r[4] >= SERVE_MIN_PROMPT]
+    worst = max(requests, key=lambda r: int(r[2]) / r[3])
+    srv = serve.LMServer(cfg, max_len=SERVE_MAX_LEN, seed=0)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (1, SERVE_MAX_LEN // 4))
+    srv.generate(prompt, 2)
+    walls = {}
+    for n in (1, 1 + SERVE_MAX_NEW):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.generate(prompt, n)
+            ts.append(time.perf_counter() - t0)
+        walls[n] = statistics.median(ts)
+    del srv
+    decode_ms = ((walls[1 + SERVE_MAX_NEW] - walls[1]) * 1e3
+                 / SERVE_MAX_NEW)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    expert_bytes = n_moe * 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 2
+    # the weights a decode step reads: all but the embedding (one row) and
+    # the MTP block (training only)
+    weight_bytes = 2 * sum(p.numel() for n, p in model.LM(
+        cfg, "meta").named_parameters()
+        if not n.startswith(("embedding", "mtp.")))
+    out = dict(prefill_moe_calls=len(routes),
+               assignments=sum(r[1] for r in routes),
+               dropped=sum(int(r[0]) for r in routes),
+               drop_share=share(routes),
+               request_moe_calls=len(requests),
+               request_drop_share=share(requests),
+               max_load=int(worst[2]), capacity_at_max=worst[3],
+               max_load_over_capacity=int(worst[2]) / worst[3],
+               decode_ms_per_token=decode_ms,
+               decode_expert_gb_per_token=expert_bytes / 1e9,
+               decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3)
+    log("serve.moe", arch=arch, **{k: (f"{v:.6g}" if isinstance(v, float)
+                                      else v) for k, v in out.items()})
+    return out
 
 
 def phase_serve_check():
     """Outside the timed windows, in f32 at full width: zamba2-2.7b 2
     groups (12 layers) deep, rwkv6-3b 4 layers, qwen3-14b 2, minicpm3-4b
-    4 and yi-34b 2 (yi-34b serves on the card at this cut only).  (a)
-    LMServer.generate's greedy tokens equal the argmax of repeated full
-    forwards (tests/test_serve.py's check); (b) prefill logits on the card
-    match the port on the CPU with the same weights, within 5e-3 relative
-    to max(|x|, 1): the same f32 formulas, summed in other orders (cuBLAS
-    and the kernels against the CPU's BLAS and the plain versions) over
-    d_model 2560-7168 and d_ff 6400-20480, through random-weight
-    layers; 1.3e-3 was measured on an H100 for zamba2."""
+    4, yi-34b 2 (yi-34b serves on the card at this cut only), dbrx-132b 1
+    (all 16 experts, 16.73 GiB) and deepseek-v3-671b 2 (its first dense,
+    the second MoE with 32 of its 256 experts, top-8 kept, 17.75 GiB; 256
+    experts in f32 are 42 GiB a layer).  (a) LMServer.generate's greedy
+    tokens equal the argmax of repeated full forwards
+    (tests/test_serve.py's check); an MoE arch runs this at the capacity
+    factor E / k, at which no assignment can drop (asserted on both
+    sides): with drops a bucketed prefill, whose capacity counts the pad
+    tokens, may drop other assignments than a forward over the prompt, as
+    the reference's does.  (b) prefill logits on the card match the port
+    on the CPU with the same weights, within 5e-3 relative to max(|x|,
+    1): the same f32 formulas, summed in other orders (cuBLAS and the
+    kernels against the CPU's BLAS and the plain versions) over d_model
+    2560-7168 and d_ff 6400-20480, through random-weight layers; 1.3e-3
+    was measured on an H100 for zamba2.  An MoE arch runs (b) at its own
+    capacity factor (1.25), and (c) every token's top-k experts in every
+    MoE layer and the set of dropped assignments equal on the card and on
+    the CPU (differences counted, 0 required)."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.launch import serve
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
+
+    def prefill(params, cfg, batch, dev):
+        routes = []
+        with moe.observe(lambda idx, keep, cap: routes.append(
+                (idx.cpu(), keep.cpu()))):
+            logits, _, _ = model.prefill(
+                params, {"tokens": batch.to(dev)}, cfg,
+                model.init_cache(cfg, 1, 64, dev))
+        return logits, routes
 
     out = {}
-    for arch, n_layers in (
-            (SERVE_ARCH, 2 * configs.get(SERVE_ARCH).shared_attn_every),
-            (RWKV_ARCH, 4), ("qwen3-14b", 2), ("minicpm3-4b", 4),
-            ("yi-34b", 2)):
+    for arch, cut in SERVE_CHECKS:
         t0 = time.perf_counter()
-        cfg = configs.get(arch).replace(n_layers=n_layers, dtype="float32")
-        srv = serve.LMServer(cfg, max_len=64, seed=5)
+        cfg = configs.get(arch).replace(dtype="float32", **cut)
+        # (a) at a capacity at which nothing drops (E / k: each expert may
+        # take every token)
+        cfg_a = (cfg.replace(capacity_factor=cfg.n_experts / cfg.moe_top_k)
+                 if cfg.n_experts else cfg)
+        srv = serve.LMServer(cfg_a, max_len=64, seed=5)
         prompt = np.random.default_rng(7).integers(0, cfg.vocab_size,
                                                    (1, 40))
-        gen = srv.generate(prompt, 4)
-        toks, want = prompt.copy(), []
-        for _ in range(4):
-            logits, _, _ = model.forward(
-                srv.params, {"tokens": torch.as_tensor(toks, device="cuda")},
-                cfg)
-            want.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
-            toks = np.concatenate([toks, [[want[-1]]]], 1)
+        drops = []
+        with moe.observe(lambda idx, keep, cap: drops.append(
+                (~keep).sum())):
+            gen = srv.generate(prompt, 4)
+            toks, want = prompt.copy(), []
+            for _ in range(4):
+                logits, _, _ = model.forward(
+                    srv.params,
+                    {"tokens": torch.as_tensor(toks, device="cuda")}, cfg_a)
+                want.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
+                toks = np.concatenate([toks, [[want[-1]]]], 1)
         if gen[0].tolist() != want:
             raise AssertionError(f"{arch}: greedy tokens {gen[0].tolist()} "
                                  f"!= teacher-forced {want}")
+        n_drops = int(sum(int(d) for d in drops))
+        if n_drops:
+            raise AssertionError(f"{arch}: {n_drops} assignments dropped at "
+                                 f"capacity factor {cfg_a.capacity_factor}")
 
         batch = torch.as_tensor(prompt)
-        card, _, _ = model.prefill(srv.params, {"tokens": batch.cuda()}, cfg,
-                                   model.init_cache(cfg, 1, 64, "cuda"))
+        card, card_routes = prefill(srv.params, cfg, batch, "cuda")
         cpu_params = model.LM(cfg, "cpu")
         cpu_params.load_state_dict(srv.params.state_dict())
         del srv
-        cpu, _, _ = model.prefill(cpu_params, {"tokens": batch}, cfg,
-                                  model.init_cache(cfg, 1, 64, "cpu"))
+        cpu, cpu_routes = prefill(cpu_params, cfg, batch, "cpu")
         del cpu_params
         err = float(((card.cpu() - cpu).abs()
                      / cpu.abs().clamp_min(1.0)).max())
@@ -2461,11 +2594,31 @@ def phase_serve_check():
             raise AssertionError(f"{arch}: card vs CPU prefill logits: "
                                  f"{err} > 5e-3")
         seconds = time.perf_counter() - t0
-        log("serve_check", arch=arch, layers=cfg.n_layers,
-            tokens=gen[0].tolist(), teacher_forced="equal",
-            prefill_logits_err=f"{err:.3g}", seconds=f"{seconds:.3f}")
-        out[arch] = dict(layers=cfg.n_layers, tokens=gen[0].tolist(),
-                         prefill_logits_err=err, seconds=seconds)
+        rec = dict(layers=cfg.n_layers, tokens=gen[0].tolist(),
+                   prefill_logits_err=err, seconds=seconds)
+        if cfg.n_experts:
+            if len(card_routes) != len(cpu_routes) or not card_routes:
+                raise AssertionError(f"{arch}: {len(card_routes)} MoE layers "
+                                     f"routed on the card, "
+                                     f"{len(cpu_routes)} on the CPU")
+            rec.update(
+                experts=cfg.n_experts, drops_at_no_drop_capacity=n_drops,
+                routing_diffs=sum(int((a[0] != b[0]).sum())
+                                  for a, b in zip(card_routes, cpu_routes)),
+                dropped_diffs=sum(int((a[1] != b[1]).sum())
+                                  for a, b in zip(card_routes, cpu_routes)),
+                dropped=sum(int((~b[1]).sum()) for b in cpu_routes),
+                assignments=sum(b[1].numel() for b in cpu_routes))
+            if rec["routing_diffs"] or rec["dropped_diffs"]:
+                raise AssertionError(f"{arch}: routing differs card vs CPU: "
+                                     f"{rec['routing_diffs']} top-k "
+                                     f"indices, {rec['dropped_diffs']} "
+                                     f"drops")
+        log("serve_check", arch=arch, teacher_forced="equal",
+            prefill_logits_err=f"{err:.3g}", seconds=f"{seconds:.3f}",
+            **{k: v for k, v in rec.items()
+               if k not in ("prefill_logits_err", "seconds")})
+        out[arch] = rec
     return out
 
 
@@ -3158,6 +3311,11 @@ def main() -> int:
     for arch in DENSE_ARCHS:
         dense_out[arch], dense_launches[arch] = timed(
             f"serve_{arch}", phase_serve, arch, ("flash_attention",))
+    moe_out, moe_launches = {}, {}
+    for arch in MOE_ARCHS:
+        moe_out[arch], moe_launches[arch] = timed(
+            f"serve_{arch}", phase_serve, _depth_cut(arch, MOE_SERVE_LAYERS),
+            ("flash_attention",))
     serve_check = timed("serve_check", phase_serve_check)
     train_out, train_launches = timed("train", phase_train)
     where = timed("where", phase_where)
@@ -3167,6 +3325,8 @@ def main() -> int:
                "serve_rwkv": rwkv_launches,
                **{f"serve_{arch}": per
                   for arch, per in dense_launches.items()},
+               **{f"serve_{arch}": per
+                  for arch, per in moe_launches.items()},
                "train": train_launches}
     launches = {}
     for per in by_path.values():
@@ -3217,7 +3377,7 @@ def main() -> int:
                   kernels=kernels, launches=launches,
                   launches_by_path=by_path, main=main_out, sim=sim_out,
                   service=service_out, serve=serve_out, serve_rwkv=rwkv_out,
-                  serve_dense=dense_out,
+                  serve_dense=dense_out, serve_moe=moe_out,
                   bwd_splits={r["name"]: r["splits"] for r in rows
                               if "splits" in r},
                   serve_check=serve_check, train=train_out, where=where,

@@ -2,9 +2,9 @@
 runs, each with its published config and a reduced smoke variant.
 
 `get(name)` / `get_reduced(name)` take the public dashed ids, as in
-`repro.configs`.  The reference's other four archs need blocks the port
-does not have yet; asking for one raises a `KeyError` that names the
-ROADMAP item that ports it.
+`repro.configs`.  The reference's other two archs need embedding inputs,
+which the port does not have yet; asking for one raises a `KeyError` that
+names the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -20,11 +20,11 @@ _MODULES: Dict[str, str] = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "yi-34b": "repro_torch.configs.yi_34b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 _LATER: Dict[str, str] = {
-    "dbrx-132b": "ROADMAP.md Queue 1 item 12 (MoE)",
-    "deepseek-v3-671b": "ROADMAP.md Queue 1 item 12 (MoE, MTP)",
     "phi-3-vision-4.2b": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
     "musicgen-large": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
 }

@@ -58,8 +58,9 @@ def _fill(p: torch.Tensor, d: ParamDef, gen: torch.Generator) -> None:
             std = d.scale / math.sqrt(max(fan_in, 1))
         else:
             std = d.scale * 0.02
+        # scaled in place: an f32 draw of one expert stack is 14 GiB
         p.copy_(torch.randn(d.shape, generator=gen, device=p.device,
-                            dtype=torch.float32) * std)
+                            dtype=torch.float32).mul_(std))
 
 
 @torch.no_grad()

@@ -7,14 +7,20 @@ The zamba2 hybrid is a stack of *groups*: N Mamba2 layers and then the one
 weight-shared attention block (`LM.shared_attn`, a single module, so the
 sharing is structural).  The parameter names follow the reference's tree,
 with the stacked layer axes as module indices: `groups.g.mamba.i.mamba.w_in`
-is the reference's `groups/mamba/mamba/w_in[g, i]`.
+is the reference's `groups/mamba/mamba/w_in[g, i]`.  MoE archs are a
+`dense` segment of their first `first_k_dense` layers (SwiGLU of width
+`dense_d_ff`) and a `moe` segment of the rest; deepseek-v3's
+multi-token-prediction block is `LM.mtp` (`proj`, `norm` and one dense
+`layer`), which only the loss runs.
 
 Caches are nested dicts of stacked tensors with the reference's shapes and
 dtypes, written in place by prefill and decode.
 
-Training (`loss_fn`) recomputes each layer in the backward when the config
-asks for remat (`torch.utils.checkpoint`, non-reentrant), as the
-reference's `jax.checkpoint` with no policy does.
+Every layer returns an aux loss beside its output (the MoE's load-balance
+loss, None elsewhere); the forward returns their sum.  Training
+(`loss_fn`) recomputes each layer in the backward when the config asks
+for remat (`torch.utils.checkpoint`, non-reentrant), as the reference's
+`jax.checkpoint` with no policy does.
 """
 from __future__ import annotations
 
@@ -31,9 +37,11 @@ from repro_torch.models.attention import (attention_apply,
                                           attention_cache_shapes,
                                           attention_module)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, ParamModule, embed_tokens,
-                                       logits_from_hidden, mlp_apply,
-                                       rms_norm, softmax_cross_entropy)
+from repro_torch.models.layers import (MLP, ParamModule, dense,
+                                       embed_tokens, logits_from_hidden,
+                                       mlp_apply, rms_norm,
+                                       softmax_cross_entropy)
+from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rwkv import (RWKV6Layer, rwkv6_apply,
                                      rwkv6_cache_shapes)
 from repro_torch.models.ssm import Mamba2, mamba2_apply, mamba2_cache_shapes
@@ -41,25 +49,20 @@ from repro_torch.models.ssm import Mamba2, mamba2_apply, mamba2_cache_shapes
 Cache = Dict[str, Any]
 
 MOE_AUX_COEF = 0.01
+MTP_LOSS_COEF = 0.3
 
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
     n_layers: int
-    kind: str                 # attn_mlp | mamba2 | rwkv6 | zamba_group
+    kind: str                 # attn_mlp | attn_moe | mamba2 | rwkv6 | zamba_group
     cfg: ModelConfig
 
 
 def model_segments(cfg: ModelConfig) -> List[Segment]:
     if cfg.block_kind == "rwkv6":
         return [Segment("layers", cfg.n_layers, "rwkv6", cfg)]
-    if cfg.n_experts:
-        raise NotImplementedError("MoE blocks (attn_moe) are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 12)")
-    if cfg.mtp_depth:
-        raise NotImplementedError("multi-token prediction is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 12)")
     if cfg.input_mode != "tokens":
         raise NotImplementedError("embedding inputs are not ported yet "
                                   "(ROADMAP.md Queue 1 item 14)")
@@ -71,7 +74,21 @@ def model_segments(cfg: ModelConfig) -> List[Segment]:
             return [Segment("groups", cfg.n_layers // cfg.shared_attn_every,
                             "zamba_group", cfg)]
         return [Segment("layers", cfg.n_layers, "mamba2", cfg)]
+    if cfg.n_experts:
+        segs = []
+        if cfg.first_k_dense:
+            segs.append(Segment("dense", cfg.first_k_dense, "attn_mlp",
+                                _dense_cfg(cfg)))
+        segs.append(Segment("moe", cfg.n_layers - cfg.first_k_dense,
+                            "attn_moe", cfg))
+        return segs
     return [Segment("layers", cfg.n_layers, "attn_mlp", cfg)]
+
+
+def _dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of an MoE arch's dense layers (the leading ones and the
+    MTP block's)."""
+    return cfg.replace(n_experts=0, d_ff=cfg.dense_d_ff or cfg.d_ff)
 
 
 # --------------------------------------------------------------------------
@@ -85,6 +102,16 @@ class AttnMLPLayer(ParamModule):
         self.attn = attention_module(cfg, dtype, device)
         self.add("norm2", (d,), "ones")
         self.mlp = MLP(cfg, dtype, device)
+
+
+class AttnMoELayer(ParamModule):
+    def __init__(self, cfg, dtype, device):
+        super().__init__(dtype, device)
+        d = cfg.d_model
+        self.add("norm1", (d,), "ones")
+        self.attn = attention_module(cfg, dtype, device)
+        self.add("norm2", (d,), "ones")
+        self.moe = MoE(cfg, dtype, device)
 
 
 class Mamba2Layer(ParamModule):
@@ -101,13 +128,14 @@ class ZambaGroup(nn.Module):
                                    for _ in range(cfg.shared_attn_every))
 
 
-_LAYERS = {"attn_mlp": AttnMLPLayer, "mamba2": Mamba2Layer,
-           "rwkv6": RWKV6Layer, "zamba_group": ZambaGroup}
+_LAYERS = {"attn_mlp": AttnMLPLayer, "attn_moe": AttnMoELayer,
+           "mamba2": Mamba2Layer, "rwkv6": RWKV6Layer,
+           "zamba_group": ZambaGroup}
 
 
 def _layer_cache_shapes(kind: str, cfg: ModelConfig, batch: int,
                         max_len: int):
-    if kind == "attn_mlp":
+    if kind in ("attn_mlp", "attn_moe"):
         return attention_cache_shapes(cfg, batch, max_len)
     if kind == "mamba2":
         return mamba2_cache_shapes(cfg, batch)
@@ -132,32 +160,37 @@ def _index(tree, i: int):
 
 def _layer_apply(kind: str, lp, x, cfg, *, positions, cache, decode_pos,
                  shared=None):
-    """-> (x, cache or None)."""
-    if kind == "attn_mlp":
+    """-> (x, cache or None, aux loss or None)."""
+    if kind in ("attn_mlp", "attn_moe"):
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
         attn_out, new_c = attention_apply(lp.attn, h, cfg,
                                           positions=positions, cache=cache,
                                           decode_pos=decode_pos)
         x = x + attn_out
         h = rms_norm(x, lp.norm2, cfg.norm_eps)
-        return x + mlp_apply(lp.mlp, h, cfg), new_c
+        if kind == "attn_moe":
+            mo, aux = moe_apply(lp.moe, h, cfg)
+            return x + mo, new_c, aux
+        return x + mlp_apply(lp.mlp, h, cfg), new_c, None
     if kind == "mamba2":
         h = rms_norm(x, lp.norm, cfg.norm_eps)
         out, new_c = mamba2_apply(lp.mamba, h, cfg, cache=cache,
                                   decode=decode_pos is not None)
-        return x + out, new_c
+        return x + out, new_c, None
     if kind == "rwkv6":
-        return rwkv6_apply(lp, x, cfg, cache=cache,
-                           decode=decode_pos is not None)
+        x, new_c = rwkv6_apply(lp, x, cfg, cache=cache,
+                               decode=decode_pos is not None)
+        return x, new_c, None
     if kind == "zamba_group":
-        x, _ = _run_stack("mamba2", lp.mamba, x, cfg, positions=positions,
-                          caches=None if cache is None else cache["mamba"],
-                          decode_pos=decode_pos)
-        x, _ = _layer_apply(
+        x, _, _ = _run_stack(
+            "mamba2", lp.mamba, x, cfg, positions=positions,
+            caches=None if cache is None else cache["mamba"],
+            decode_pos=decode_pos)
+        x, _, _ = _layer_apply(
             "attn_mlp", shared, x, cfg, positions=positions,
             cache=None if cache is None else cache["shared_attn"],
             decode_pos=decode_pos)
-        return x, cache
+        return x, cache, None
     raise ValueError(kind)
 
 
@@ -178,23 +211,28 @@ def _remat(cfg: ModelConfig, caches, decode_pos) -> bool:
 
 def _run_stack(kind: str, stack: nn.ModuleList, x, cfg, *, positions,
                caches, decode_pos, shared=None):
-    """Run a stack of identical layers; `caches` is stacked or None."""
+    """Run a stack of identical layers; `caches` is stacked or None.
+    -> (x, caches, the layers' summed aux loss or None)."""
     remat = _remat(cfg, caches, decode_pos)
+    aux = None
     for i, lp in enumerate(stack):
         if remat:
-            x = torch_checkpoint.checkpoint(
+            x, a = torch_checkpoint.checkpoint(
                 _train_layer, kind, lp, x, cfg, positions, shared,
                 use_reentrant=False)
-            continue
-        x, _ = _layer_apply(kind, lp, x, cfg, positions=positions,
-                            cache=_index(caches, i), decode_pos=decode_pos,
-                            shared=shared)
-    return x, caches
+        else:
+            x, _, a = _layer_apply(kind, lp, x, cfg, positions=positions,
+                                   cache=_index(caches, i),
+                                   decode_pos=decode_pos, shared=shared)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, caches, aux
 
 
 def _train_layer(kind, lp, x, cfg, positions, shared):
-    return _layer_apply(kind, lp, x, cfg, positions=positions, cache=None,
-                        decode_pos=None, shared=shared)[0]
+    x, _, aux = _layer_apply(kind, lp, x, cfg, positions=positions,
+                             cache=None, decode_pos=None, shared=shared)
+    return x, aux
 
 
 # --------------------------------------------------------------------------
@@ -220,12 +258,25 @@ class LM(ParamModule):
                 for _ in range(seg.n_layers)))
         if cfg.shared_attn_every:
             self.shared_attn = AttnMLPLayer(cfg, dtype, dev)
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, dtype, dev)
 
     def trainable(self) -> "LM":
         """Turn on `requires_grad` for every parameter (the train entry's
         model); serving's models stay without it."""
         self.requires_grad_(True)
         return self
+
+
+class MTP(ParamModule):
+    """deepseek-v3's multi-token-prediction block (one extra depth)."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__(dtype, device)
+        d = cfg.d_model
+        self.add("proj", (2 * d, d))
+        self.add("norm", (d,), "ones")
+        self.layer = AttnMLPLayer(_dense_cfg(cfg), dtype, device)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
@@ -237,6 +288,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
 
 def count_params(cfg: ModelConfig) -> int:
     return sum(p.numel() for p in LM(cfg, "meta").parameters())
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token: routed experts scaled by top_k/E,
+    input embedding excluded (a lookup, not a matmul).  As the reference,
+    the rule goes by the names along the path of each stacked leaf (every
+    leaf of the `moe` segment but its router and shared expert is
+    scaled), and its integer division takes the whole stacked leaf."""
+    leaves: Dict[Tuple[str, ...], int] = {}
+    for name, p in LM(cfg, "meta").named_parameters():
+        keys = tuple(k for k in name.split(".") if not k.isdigit())
+        leaves[keys] = leaves.get(keys, 0) + p.numel()
+    total = 0
+    for keys, n in leaves.items():
+        if "embedding" in keys and not cfg.tie_embeddings:
+            continue
+        if "moe" in keys and "shared" not in keys and "router" not in keys:
+            n = n * cfg.moe_top_k // max(cfg.n_experts, 1)
+        total += n
+    return total
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
@@ -284,29 +355,61 @@ def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     shared = getattr(params, "shared_attn", None)
+    aux = torch.zeros((), device=x.device)
     for seg in model_segments(cfg):
-        x, _ = _run_stack(seg.kind, getattr(params, seg.name), x, seg.cfg,
-                          positions=positions,
-                          caches=None if cache is None else cache[seg.name],
-                          decode_pos=decode_pos, shared=shared)
+        x, _, a = _run_stack(
+            seg.kind, getattr(params, seg.name), x, seg.cfg,
+            positions=positions,
+            caches=None if cache is None else cache[seg.name],
+            decode_pos=decode_pos, shared=shared)
+        if a is not None:
+            aux = aux + a
     if last_index is not None:
         x = x[torch.arange(b, device=x.device), last_index.long()][:, None]
     elif last_only:
         x = x[:, -1:]
     logits = logits_from_hidden(params, x, cfg)
-    return logits, cache, torch.zeros((), device=x.device)
+    return logits, cache, aux
 
 
 def loss_fn(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, metrics): next-token CE over the batch (labels, or the
-    tokens themselves) plus MOE_AUX_COEF x the aux loss, which is 0 here
-    (MoE is not ported; `model_segments` raises for it and for MTP)."""
+    tokens themselves), plus MOE_AUX_COEF x the MoE aux loss (0 without
+    experts), plus MTP_LOSS_COEF x the MTP block's CE where the config has
+    one (`mtp_ce`)."""
     logits, _, aux = forward(params, batch, cfg)
     labels = batch.get("labels", batch.get("tokens"))
     ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:], cfg.vocab_size)
     loss = ce + MOE_AUX_COEF * aux
-    return loss, {"ce": ce, "aux": aux, "loss": loss}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth:
+        mtp_ce = _mtp_loss(params, batch, cfg)
+        loss = loss + MTP_LOSS_COEF * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(params: LM, batch, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction, one extra depth (predict t + 2)
+    as the reference computes it: h'_t = proj([norm(emb_t); emb(token_{t+1})])
+    for t < S - 1 through the dense `mtp.layer`, then the shared head."""
+    mtp = params.mtp
+    x = embed_tokens(params, batch["tokens"], cfg)
+    b, s = x.shape[:2]
+    labels = batch.get("labels", batch.get("tokens"))
+    h = rms_norm(x, mtp.norm, cfg.norm_eps)
+    nxt = embed_tokens(params, labels, cfg)
+    hp = dense(torch.cat([h[:, :-1], nxt[:, 1:]], dim=-1), mtp.proj)
+    positions = torch.arange(s - 1, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s - 1)
+    hp, _, _ = _layer_apply("attn_mlp", mtp.layer, hp, _dense_cfg(cfg),
+                            positions=positions, cache=None,
+                            decode_pos=None)
+    logits = logits_from_hidden(params, hp, cfg)
+    return softmax_cross_entropy(logits[:, :-1], labels[:, 2:],
+                                 cfg.vocab_size)
 
 
 def prefill(params, batch, cfg, cache, *, last_only: bool = False):

@@ -38,7 +38,10 @@ another order); in bf16 out within 2e-2 + 2e-2 |y| (both round an f32
 result to bf16 once) and the f32 state within 2e-3 + 2e-3 |s|.
 Reduced models, card against CPU: 1e-3 relative to max(|x|, 1) (f32
 matmuls and the kernels sum in other orders than the CPU's, through a few
-layers).
+layers).  An MoE layer, card against CPU with the same routing: 1e-5 in
+f32, 1e-2 in bf16 (a sum that lands on the other side of a bf16 rounding
+boundary moves a result by one bf16 step); in bf16 two calls on the card
+give the same bits.
 """
 import numpy as np
 import pytest
@@ -365,6 +368,8 @@ def _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, dev, seed=0):
     (1, 1024, 1024, 40, 40, 96, 64),   # minicpm3's MLA prefill, S=1024
     (1, 333, 333, 40, 40, 96, 64),     # minicpm3's MLA widths, ragged S
     (1, 300, 300, 40, 8, 128, 128),    # qwen3-14b's GQA group of 5
+    (1, 1024, 1024, 48, 8, 128, 128),  # dbrx-132b's GQA prefill, S=1024
+    (1, 1024, 1024, 128, 128, 192, 128),   # deepseek-v3's MLA prefill
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1104,7 +1109,8 @@ def test_mamba2_ssd_bwd_da_from_a_zero_state_under_strong_decay(cuda,
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "starcoder2-3b",
                                   "rwkv6-3b", "qwen3-14b", "yi-34b",
-                                  "minicpm3-4b"])
+                                  "minicpm3-4b", "dbrx-132b",
+                                  "deepseek-v3-671b"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     """The same weights forward on the card (through the kernels) and on
     the CPU (plain versions), f32: logits at 1e-3 relative to max(|x|,1)."""
@@ -1170,6 +1176,90 @@ def test_reduced_mla_prefill_and_decode_on_card_match_cpu(cuda):
             caches["cpu"]["layers"][name]
         err = ((got - ref_c).abs() / ref_c.abs().clamp_min(1.0)).max()
         assert float(err) <= 1e-3, name
+
+
+def _moe_case(dtype, seed=6):
+    """A deepseek-style MoE layer (sigmoid router, a shared expert) at
+    d 512, 16 experts of width 256, top-4, and 2 x 64 tokens, drawn on the
+    CPU."""
+    from repro_torch import configs
+    from repro_torch.models import layers, moe
+    cfg = configs.get_reduced("deepseek-v3-671b").replace(
+        d_model=512, n_experts=16, moe_top_k=4, moe_d_ff=256, dtype=dtype)
+    p = layers.init_params(moe.MoE(cfg, cfg.activation_dtype, "cpu"), seed)
+    x = torch.randn(2, 64, 512, generator=torch.Generator().manual_seed(
+        seed)).to(cfg.activation_dtype)
+    return cfg, p, x
+
+
+def _moe_run(p, x, cfg):
+    from repro_torch.models import moe
+    seen = []
+    with moe.observe(lambda idx, keep, cap: seen.append((idx.cpu(),
+                                                         keep.cpu()))):
+        out, aux = moe.moe_apply(p, x, cfg)
+    return out, aux, seen[0]
+
+
+@pytest.mark.parametrize("factor", [0.5, 1.25])
+def test_moe_apply_bf16_on_card(cuda, factor):
+    """bf16 on the card: two calls give the same bits (no atomics in the
+    combine), the routing (top-k indices and the kept assignments) equals
+    the CPU's on the same weights, and the output is within 1e-2 of the
+    CPU's relative to max(|x|, 1) (the same f32 sums in other orders; a
+    sum on the other side of a bf16 rounding boundary moves a result by
+    one bf16 step, 2^-8 relative)."""
+    import copy
+    cfg, cpu_p, x = _moe_case("bfloat16")
+    cfg = cfg.replace(capacity_factor=factor)
+    card_p = copy.deepcopy(cpu_p).to(cuda)
+    a, aux_a, route_a = _moe_run(card_p, x.to(cuda), cfg)
+    b, aux_b, _ = _moe_run(card_p, x.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert a.dtype == torch.bfloat16
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    want, aux_w, route_w = _moe_run(cpu_p, x, cfg)
+    assert torch.equal(route_a[0], route_w[0])
+    assert torch.equal(route_a[1], route_w[1])
+    if factor == 0.5:
+        assert not bool(route_w[1].all())          # some assignments drop
+    err = ((a.cpu().float() - want.float()).abs()
+           / want.float().abs().clamp_min(1.0)).max()
+    assert float(err) <= 1e-2
+    assert float(aux_a) == pytest.approx(float(aux_w), abs=1e-6)
+
+
+def test_moe_products_keep_f32_on_card(cuda):
+    """The grouped products of bf16 operands come back in f32 (`torch.bmm`
+    with out_dtype=float32): equal to the f32 product of the widened
+    operands within 1e-5 relative to max(|x|, 1), and not rounded to
+    bf16."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(7)
+    a = torch.randn(4, 33, 512, generator=g).bfloat16()
+    w = torch.randn(4, 512, 256, generator=g).bfloat16() / 16
+    for lhs, rhs in ((a, w), (a[0], w[0])):
+        got = moe._mm_f32(lhs.to(cuda), rhs.to(cuda))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        want = torch.matmul(lhs.float(), rhs.float())
+        err = ((got.cpu() - want).abs() / want.abs().clamp_min(1.0)).max()
+        assert float(err) <= 1e-5
+        assert not torch.equal(got, got.bfloat16().float())
+
+
+def test_moe_apply_f32_on_card_matches_cpu(cuda):
+    """f32 (no TF32): the card's output within 1e-5 of the CPU's relative
+    to max(|x|, 1), with the same routing."""
+    import copy
+    cfg, cpu_p, x = _moe_case("float32", seed=8)
+    got, _, route_a = _moe_run(copy.deepcopy(cpu_p).to(cuda), x.to(cuda),
+                               cfg)
+    want, _, route_w = _moe_run(cpu_p, x, cfg)
+    assert torch.equal(route_a[0], route_w[0])
+    assert torch.equal(route_a[1], route_w[1])
+    err = ((got.cpu() - want).abs() / want.abs().clamp_min(1.0)).max()
+    assert float(err) <= 1e-5
 
 
 # --------------------------------------------------------------------------

@@ -22,18 +22,20 @@ import torch
 
 from repro import configs as jconfigs
 from repro.launch import serve as jserve
+from repro.models import model as jmodel
 from repro_torch import configs as tconfigs
 from repro_torch import device
 from repro_torch.core import EvalRequest, Executor, LambdaModel
 from repro_torch.launch import serve as tserve
 from repro_torch.models import model as tmodel
+from repro_torch.models import moe as tmoe
 from repro_torch.models.weights import params_from_numpy
 from torch_port_util import on_cpu  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
 ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b", "qwen3-14b",
-         "yi-34b", "minicpm3-4b"]
+         "yi-34b", "minicpm3-4b", "dbrx-132b", "deepseek-v3-671b"]
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
 
@@ -56,18 +58,63 @@ def test_generate_matches_reference_server(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generation_matches_teacher_forced(arch):
     """Bucketed prefill + cached decode emit the greedy tokens of repeated
-    full forwards (the port's twin of tests/test_serve.py)."""
+    full forwards (the port's twin of tests/test_serve.py).  An MoE arch
+    runs at the capacity factor E / k, where no assignment can drop (each
+    expert's capacity is the token count): the bucketed prefill routes
+    the pad tokens too and sizes its capacity by the bucket, so with drops
+    it may drop other assignments than a forward over the prompt alone,
+    as the reference's does (`test_moe_served_tokens_follow_the_reference`)."""
     cfg = tconfigs.get_reduced(arch)
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.moe_top_k)
     srv = tserve.LMServer(cfg, max_len=64, seed=3)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 6))
-    out = srv.generate(prompt, 4)
-    toks, ref = prompt.copy(), []
-    for _ in range(4):
-        logits, _, _ = tmodel.forward(srv.params,
-                                      {"tokens": torch.from_numpy(toks)}, cfg)
-        ref.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
-        toks = np.concatenate([toks, [[ref[-1]]]], 1)
+    dropped = []
+    with tmoe.observe(lambda idx, keep, cap: dropped.append(
+            int((~keep).sum()))):
+        out = srv.generate(prompt, 4)
+        toks, ref = prompt.copy(), []
+        for _ in range(4):
+            logits, _, _ = tmodel.forward(
+                srv.params, {"tokens": torch.from_numpy(toks)}, cfg)
+            ref.append(int(logits[0, -1, :cfg.vocab_size].argmax()))
+            toks = np.concatenate([toks, [[ref[-1]]]], 1)
     assert out[0].tolist() == ref
+    assert sum(dropped) == 0
+    assert len(dropped) == (cfg.n_layers - cfg.first_k_dense) * 8 * bool(
+        cfg.n_experts)
+
+
+def test_moe_served_tokens_follow_the_reference():
+    """At dbrx's own capacity factor (1.25) a bucketed prefill sizes each
+    expert's capacity by the bucket (16 tokens, pads included), a forward
+    over the prompt by its 6 tokens, so the two may drop other
+    assignments; the port keeps the reference's behaviour: the same served
+    tokens, and the same teacher-forced ones."""
+    arch = "dbrx-132b"
+    jsrv = jserve.LMServer(jconfigs.get_reduced(arch), max_len=64, seed=3)
+    tsrv = tserve.LMServer(tconfigs.get_reduced(arch), max_len=64, seed=3)
+    tsrv.params = params_from_numpy(tsrv.cfg,
+                                    jax.tree.map(np.asarray, jsrv.params))
+    prompt = np.random.default_rng(0).integers(
+        0, tsrv.cfg.vocab_size, (1, 6)).astype(np.int32)
+    caps = []
+    with tmoe.observe(lambda idx, keep, cap: caps.append(cap)):
+        served = tsrv.generate(prompt, 4)[0].tolist()
+        tmodel.forward(tsrv.params, {"tokens": torch.from_numpy(prompt)},
+                       tsrv.cfg)
+    # per MoE layer: the prefill's capacity, then 3 decode steps', then
+    # the forward's: ceil(1.25 * T * k / E) at T = 16, 1, 6
+    assert caps == [10] * 2 + [1] * 6 + [4] * 2
+    assert served == np.asarray(jsrv.generate(prompt, 4))[0].tolist()
+    toks = prompt.copy()
+    for _ in range(4):
+        want, _, _ = jmodel.forward(jsrv.params, {"tokens": toks}, jsrv.cfg)
+        got, _, _ = tmodel.forward(
+            tsrv.params, {"tokens": torch.from_numpy(toks)}, tsrv.cfg)
+        nxt = int(np.argmax(np.asarray(want)[0, -1, :tsrv.cfg.vocab_size]))
+        assert int(got[0, -1, :tsrv.cfg.vocab_size].argmax()) == nxt
+        toks = np.concatenate([toks, [[nxt]]], 1).astype(np.int32)
 
 
 def test_bucket_sizes_are_powers_of_two():
@@ -136,15 +183,16 @@ def test_executor_releases_servers_without_a_collector(persistent,
 
 
 def test_serving_loads_neither_jax_nor_repro(tmp_path):
-    """Reduced zamba2, rwkv6 and minicpm3 (MLA) serve_benchmarks through
-    the port, in a fresh interpreter: no `jax` or `repro` module is
-    loaded."""
+    """Reduced zamba2, rwkv6, minicpm3 (MLA) and deepseek-v3 (MLA, MoE)
+    serve_benchmarks through the port, in a fresh interpreter: no `jax` or
+    `repro` module is loaded."""
     script = textwrap.dedent("""
         import sys
         from repro_torch import device
         device.set_device("cpu")
         from repro_torch.launch import serve
-        for arch in ("zamba2-2.7b", "rwkv6-3b", "minicpm3-4b"):
+        for arch in ("zamba2-2.7b", "rwkv6-3b", "minicpm3-4b",
+                     "deepseek-v3-671b"):
             out = serve.serve_benchmark(arch, n_requests=2, max_new=2,
                                         n_workers=1, max_len=32)
             assert out["tokens"] == 4, arch
