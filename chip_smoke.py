@@ -27,11 +27,16 @@ to the CPU:
                 attention forward at zamba2's, starcoder2's, qwen3-14b's
                 (40 over 8 kv heads of 128), minicpm3-4b's MLA widths
                 (40 heads, Dh 96, Dv 64), dbrx-132b's (48 over 8 kv heads
-                of 128) and deepseek-v3's MLA prefill (128 heads, Dh 192,
-                Dv 128).  The attention backward (flash_attention_bwd,
-                three kernels per call, or four where the bf16 route
-                splits the GQA group, asserted) at starcoder2's train
-                shape in bf16 and f32, an MLA width and Sq < Skv, against
+                of 128), deepseek-v3's MLA prefill (128 heads, Dh 192,
+                Dv 128), and the train shapes of phi-3-vision-4.2b (B 2,
+                32 MHA heads of 96) and musicgen-large (a microbatch of 1,
+                32 MHA heads of 64).  The attention backward
+                (flash_attention_bwd, three kernels per call, or four
+                where the bf16 route splits the GQA group, asserted) at
+                starcoder2's, phi-3-vision's and musicgen's train shapes
+                in bf16, starcoder2's in f32, an MLA width and Sq < Skv,
+                each bf16 row with its kernels' blocks per SM and shared
+                memory, against
                 float64 oracles (the plain blocked backward and autograd
                 through the plain forward), with the backward of
                 scaled_dot_product_attention as its yardstick.  First the launch floor: the device time of the
@@ -141,7 +146,14 @@ to the CPU:
                 and prefill logits on the card match the port on the CPU
                 with the same weights; for the MoE archs, every token's
                 top-k experts and the dropped assignments are the same on
-                both.
+                both.  Then phi-3-vision-4.2b and musicgen-large 2 layers
+                deep on the frontends' embeddings (the reference serves
+                them through no server): a 300-position embedding prompt
+                and 16 decode steps of one embedding each, from a seed;
+                the cached decode's logits equal the teacher-forced
+                forward's over the 316 positions, and the prefill's
+                logits on the card match the port on the CPU and lie no
+                further from a float64 forward than the CPU's own.
  10. train    — starcoder2-3b training through the port's train(): at its
                 published widths and depth (30 layers, d_model 3072, bf16,
                 remat, 3.18 B parameters, random weights from a seed), 6
@@ -172,7 +184,15 @@ to the CPU:
                 2 x 32 x 6 forward and 32 x 6 backward launches; the
                 profiled step gives the WKV backward's ms; and one f32
                 step 2 layers deep on the card against the CPU at
-                RWKV_GRAD_LIMITS.
+                RWKV_GRAD_LIMITS.  Then phi-3-vision-4.2b (32 layers, 32
+                MHA heads of 96) and musicgen-large (48 layers, 32 MHA
+                heads of 64, accum_steps 2: two microbatches of 1 a step)
+                the same way on the pipeline's embeddings: the attention
+                counters must read 2 x 32 x 6 and 32 x 6, 2 x 48 x 6 x 2
+                and 48 x 6 x 2; the profiled step gives the attention
+                kernels' ms and launches; and one f32 step 2 layers deep on
+                the card against the CPU at PHI3_GRAD_LIMITS and
+                MUSICGEN_GRAD_LIMITS.
  11. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
@@ -232,6 +252,12 @@ SERVE_CHECKS = (
     ("minicpm3-4b", dict(n_layers=4)), ("yi-34b", dict(n_layers=2)),
     ("dbrx-132b", dict(n_layers=1)),
     ("deepseek-v3-671b", dict(n_layers=2, first_k_dense=1, n_experts=32)))
+# serve_check's embedding-input archs: f32 at full width, 2 layers deep, a
+# 300-position embedding prompt and 16 decode steps of one embedding each
+EMBED_CHECKS = ("phi-3-vision-4.2b", "musicgen-large")
+EMBED_CHECK_LAYERS = 2
+EMBED_CHECK_PROMPT = 300
+EMBED_CHECK_DECODE = 16
 
 
 def log(phase: str, **kv) -> None:
@@ -915,9 +941,11 @@ def _sdpa_bwd_ms(q, k, v, dout, label):
 
 
 def _attention_bwd_rows(randn):
-    """flash_attention_bwd against its plain version at the train path's
-    shape (starcoder2-3b: B 2, S 1024, 24 query heads over 2 kv heads of
-    128) in bf16 and f32, an MLA width (Dh 192, Dv 128) and Sq < Skv.  The
+    """flash_attention_bwd against its plain version at the train paths'
+    shapes (starcoder2-3b: B 2, S 1024, 24 query heads over 2 kv heads of
+    128, in bf16 and f32; phi-3-vision-4.2b: B 2, 32 MHA heads of 96;
+    musicgen-large: a microbatch of 1, 32 MHA heads of 64), an MLA width
+    (Dh 192, Dv 128) and Sq < Skv.  The
     oracle is float64 on the card: the plain blocked backward
     (ref.attention_bwd) on the same q, k, v, output, log-sum-exp and
     output gradient, and autograd through ref.attention.  Tolerances per
@@ -944,7 +972,10 @@ def _attention_bwd_rows(randn):
             ("starcoder2 f32 S=1024", 2, 1024, 1024, 24, 2, 128, 128, f32),
             ("MLA width bf16 S=1024", 1, 1024, 1024, 16, 16, 192, 128, bf16),
             ("starcoder2 bf16 Sq=512 Skv=1024", 2, 512, 1024, 24, 2, 128,
-             128, bf16)):
+             128, bf16),
+            ("phi-3-vision bf16 S=1024", 2, 1024, 1024, 32, 32, 96, 96,
+             bf16),
+            ("musicgen bf16 S=1024", 1, 1024, 1024, 32, 32, 64, 64, bf16)):
         q = randn(b, sq, h, dh, dtype=dtype)
         k = randn(b, skv, hkv, dh, dtype=dtype)
         v = randn(b, skv, hkv, dv, dtype=dtype)
@@ -1002,6 +1033,8 @@ def _attention_bwd_rows(randn):
                 run, f"flash_attention_bwd {label}",
                 4 * fa.bwd_scratch(q, k, v)),
             deterministic=True,
+            **({"blocks_per_sm": fa.bf16_occupancy(dh, dv)}
+               if dtype == bf16 else {}),
             note=f"ms sums the device time of the call's {len(phases)} "
                  "kernels (D = rowsum(dO O), dq, dk/dv"
                  + (f", the reduction of G = {splits} partials"
@@ -1256,8 +1289,11 @@ def phase_lm_kernels():
     """flash_attention, mamba2_ssd and rwkv6_wkv against their plain
     versions at the serve paths' shapes (zamba2: 32 heads of 80, 80 SSD
     heads of 64 with a 64-wide state; starcoder2: a GQA group of 12 with
-    heads of 128; rwkv6-3b: 40 WKV heads of 64), then the attention
-    backward at the train path's shapes (`_attention_bwd_rows`)."""
+    heads of 128; rwkv6-3b: 40 WKV heads of 64; the dense and MoE archs'
+    prefills) and the attention forward at phi-3-vision's and musicgen's
+    train shapes (MHA at 96 and 64), then the backwards at the train
+    paths' shapes (`_ssd_bwd_rows`, `_wkv_bwd_rows`,
+    `_attention_bwd_rows`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1272,19 +1308,22 @@ def phase_lm_kernels():
 
     rows = []
     bf16, f32 = torch.bfloat16, torch.float32
-    for label, sq, h, hkv, dh, dv, dtype in (
-            ("zamba2 bf16 S=1024", 1024, 32, 32, 80, 80, bf16),
-            ("zamba2 bf16 S=777", 777, 32, 32, 80, 80, bf16),
-            ("starcoder2 bf16 S=1024", 1024, 24, 2, 128, 128, bf16),
-            ("zamba2 f32 S=1024", 1024, 32, 32, 80, 80, f32),
-            ("qwen3 bf16 S=1024", 1024, 40, 8, 128, 128, bf16),
-            ("minicpm3 bf16 S=1024", 1024, 40, 40, 96, 64, bf16),
-            ("minicpm3 f32 S=1024", 1024, 40, 40, 96, 64, f32),
-            ("dbrx bf16 S=1024", 1024, 48, 8, 128, 128, bf16),
-            ("deepseek bf16 S=1024", 1024, 128, 128, 192, 128, bf16)):
-        q = randn(1, sq, h, dh, dtype=dtype)
-        k = randn(1, sq, hkv, dh, dtype=dtype)
-        v = randn(1, sq, hkv, dv, dtype=dtype)
+    for label, b, sq, h, hkv, dh, dv, dtype in (
+            ("zamba2 bf16 S=1024", 1, 1024, 32, 32, 80, 80, bf16),
+            ("zamba2 bf16 S=777", 1, 777, 32, 32, 80, 80, bf16),
+            ("starcoder2 bf16 S=1024", 1, 1024, 24, 2, 128, 128, bf16),
+            ("zamba2 f32 S=1024", 1, 1024, 32, 32, 80, 80, f32),
+            ("qwen3 bf16 S=1024", 1, 1024, 40, 8, 128, 128, bf16),
+            ("minicpm3 bf16 S=1024", 1, 1024, 40, 40, 96, 64, bf16),
+            ("minicpm3 f32 S=1024", 1, 1024, 40, 40, 96, 64, f32),
+            ("dbrx bf16 S=1024", 1, 1024, 48, 8, 128, 128, bf16),
+            ("deepseek bf16 S=1024", 1, 1024, 128, 128, 192, 128, bf16),
+            ("phi-3-vision train bf16 B=2 S=1024", 2, 1024, 32, 32, 96, 96,
+             bf16),
+            ("musicgen train bf16 S=1024", 1, 1024, 32, 32, 64, 64, bf16)):
+        q = randn(b, sq, h, dh, dtype=dtype)
+        k = randn(b, sq, hkv, dh, dtype=dtype)
+        v = randn(b, sq, hkv, dv, dtype=dtype)
         tol = 2e-2 if dtype == bf16 else 2e-5
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -1299,7 +1338,7 @@ def phase_lm_kernels():
         library = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=h != hkv), 200,
             label=f"sdpa {label}", by_kernel=sdpa, expect=1)
-        b, by = _attn_bound(q, k, v)
+        bnd, by = _attn_bound(q, k, v)
         row = dict(
             name=f"flash_attention[{label}]", source=fa.SOURCE, tol=tol,
             shape=f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}",
@@ -1309,10 +1348,12 @@ def phase_lm_kernels():
             call_ms=call_ms(run, 20),
             plain_ms=device_ms(lambda: ref.attention(q, k, v), 10,
                                label=f"plain attention {label}", expect=1),
-            bound_ms=b, bound_by=by, library_ms=library,
+            bound_ms=bnd, bound_by=by, library_ms=library,
             # which SDPA backend ran: its kernels, by device time
             library_kernels=[name[:90] for name, _ in sorted(
                 sdpa.items(), key=lambda kv: -kv[1][0])[:3]])
+        if dtype == bf16:
+            row["blocks_per_sm"] = fa.bf16_occupancy(dh, dv)
         rows.append(row)
 
     h, p, n = 80, 64, 64
@@ -2619,7 +2660,104 @@ def phase_serve_check():
             **{k: v for k, v in rec.items()
                if k not in ("prefill_logits_err", "seconds")})
         out[arch] = rec
+    for arch in EMBED_CHECKS:
+        out[arch] = _embedding_decode_check(arch)
     return out
+
+
+def _embedding_decode_check(arch: str) -> dict:
+    """An embedding-input arch, f32 at full width, EMBED_CHECK_LAYERS
+    deep: a prefill of EMBED_CHECK_PROMPT embeddings and
+    EMBED_CHECK_DECODE cached decode steps of one embedding [1, 1, D]
+    each, all from a seed (the reference's path for these archs:
+    `_inputs_to_hidden` and `decode_step` on [B, 1, D]; its server feeds
+    token ids only, so no server runs here).  (a) Each decode step's
+    logits equal the teacher-forced forward's over all the positions, at
+    tests/test_models.py's decode-equivalence tolerance (2e-3 absolute and
+    relative).  (b) The prefill's logits, relative to max(|x|, 1): the
+    card's no further from the same model in float64 on the CPU than
+    max(5e-4, 2x the CPU's own f32 logits), and within serve_check's 5e-3
+    of the CPU's.  The reference's init saturates these MHA softmaxes
+    (scores of std ~96 at phi-3's widths), so two f32 forwards part by
+    more than 5e-4 (2.07e-3 card vs CPU for phi-3-vision on an H100
+    80GB HBM3 at 700 W, as yi-34b's 2.36e-3); the float64 forward says
+    which of them is off.  The attention launches of (a) are counted:
+    one per layer a pass."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    cfg = configs.get(arch).replace(dtype="float32",
+                                    n_layers=EMBED_CHECK_LAYERS)
+    total = EMBED_CHECK_PROMPT + EMBED_CHECK_DECODE
+    g = torch.Generator().manual_seed(11)
+    emb = torch.randn(1, total, cfg.d_model, generator=g)
+    params = model.init_params(cfg, 5, "cuda")
+    card = emb.to("cuda")
+    fa.reset_launches()
+    with torch.no_grad():
+        full, _, _ = model.forward(params, {"embeddings": card}, cfg)
+        cache = model.init_cache(cfg, 1, total, "cuda")
+        prefill, cache, _ = model.prefill(
+            params, {"embeddings": card[:, :EMBED_CHECK_PROMPT]}, cfg, cache)
+        decode_err = 0.0
+        for pos in range(EMBED_CHECK_PROMPT, total):
+            step, cache = model.decode_step(
+                params, {"embeddings": card[:, pos:pos + 1]}, cfg, cache,
+                pos)
+            want = full[:, pos]
+            if not (torch.isfinite(step).all() and torch.allclose(
+                    step, want, atol=2e-3, rtol=2e-3)):
+                raise AssertionError(f"{arch}: cached decode at {pos} off "
+                                     f"the teacher-forced forward by "
+                                     f"{max_err(step, want)}")
+            decode_err = max(decode_err, max_err(step, want))
+    launches = dict(fa.launches)
+    if launches["flash_attention"] < 2 * cfg.n_layers:
+        raise AssertionError(f"{arch}: attention launches {launches}")
+    state = {k: v.cpu() for k, v in params.state_dict().items()}
+    del params, cache
+
+    def cpu_prefill(c):
+        m = model.LM(c, "cpu")
+        m.load_state_dict({k: v.to(c.activation_dtype)
+                           for k, v in state.items()})
+        with torch.no_grad():
+            logits, _, _ = model.prefill(
+                m, {"embeddings": emb[:, :EMBED_CHECK_PROMPT].to(
+                    c.activation_dtype)}, c,
+                model.init_cache(c, 1, total, "cpu"))
+        return logits
+
+    def rel(a, b):
+        return float(((a.double() - b.double()).abs()
+                      / b.double().abs().clamp_min(1.0)).max())
+
+    cpu = cpu_prefill(cfg)
+    f64 = cpu_prefill(cfg.replace(dtype="float64"))
+    card = prefill.cpu()
+    err, card_f64, cpu_f64 = rel(card, cpu), rel(card, f64), rel(cpu, f64)
+    if not (torch.isfinite(card).all() and err <= 5e-3
+            and card_f64 <= max(5e-4, 2 * cpu_f64)):
+        raise AssertionError(
+            f"{arch}: prefill logits on embeddings: card vs CPU {err} "
+            f"(limit 5e-3), card vs float64 {card_f64} against the CPU's "
+            f"{cpu_f64} (limit max(5e-4, 2x))")
+    rec = dict(layers=cfg.n_layers, prompt=EMBED_CHECK_PROMPT,
+               decode_steps=EMBED_CHECK_DECODE,
+               decode_max_abs_err=decode_err, prefill_logits_err=err,
+               prefill_card_f64_err=card_f64, prefill_cpu_f64_err=cpu_f64,
+               launches=launches, seconds=time.perf_counter() - t0)
+    log("serve_check", arch=arch, inputs="embeddings",
+        layers=cfg.n_layers, prompt=EMBED_CHECK_PROMPT,
+        decode_steps=EMBED_CHECK_DECODE, cached_decode="equal",
+        decode_max_abs_err=f"{decode_err:.3g}",
+        prefill_logits_err=f"{err:.3g}", card_f64_err=f"{card_f64:.3g}",
+        cpu_f64_err=f"{cpu_f64:.3g}", seconds=f"{rec['seconds']:.3f}",
+        **launches)
+    return rec
 
 
 TRAIN_ARCH = "starcoder2-3b"
@@ -2634,6 +2772,12 @@ ZAMBA_CPU_LAYERS = 6
 # card-vs-CPU step is 2 layers deep
 RWKV_TRAIN_ARCH = "rwkv6-3b"
 RWKV_CPU_LAYERS = 2
+# phi-3-vision-4.2b and musicgen-large train last at their published widths
+# and depth on the frontends' embeddings (32 layers of 32 MHA heads of 96;
+# 48 layers of 32 MHA heads of 64 at accum_steps 2); each card-vs-CPU step
+# is TRAIN_CPU_LAYERS deep
+PHI3_TRAIN_ARCH = "phi-3-vision-4.2b"
+MUSICGEN_TRAIN_ARCH = "musicgen-large"
 TRAIN_STEPS = 6
 TRAIN_BATCH = 2
 TRAIN_SEQ = 1024
@@ -2708,6 +2852,32 @@ RWKV_GRAD_LIMITS = (
 )
 
 
+# phi-3-vision's and musicgen's card-vs-CPU steps (2 layers, f32, on
+# embeddings): relative L2 gap per tensor, the first pattern that matches
+# the tensor's name, set as TRAIN_GRAD_LIMITS are: about 3x the largest
+# card-vs-CPU gap over three seeds and below the smallest gap of the TF32
+# control (train_grad_readings.py --arch phi-3-vision-4.2b / --arch
+# musicgen-large on an NVIDIA H100 80GB HBM3 at 700 W: the numbers beside
+# each pattern).  As in starcoder2, the gap goes by whether the gradient
+# comes back through the attention's scores; with 32 MHA heads (fan-in
+# 32 for w_q and w_k alike) the scores saturate less than starcoder2's
+# (w_k over 2 kv heads), so the gaps are smaller.  The CPU's own f32
+# gradient is as far from float64 as the card's on every tensor.  The
+# embedding table, which the loss does not reach, is held to zero.
+PHI3_GRAD_LIMITS = (
+    # back through the scores: <= 8.38e-4, TF32 >= 0.265
+    (r"layers\.0\..*|layers\.1\.(norm1|attn\.w_[qk])", 2.5e-3),
+    # through none: <= 1.00e-4, TF32 >= 2.73e-2
+    (r".*", 3e-4),
+)
+MUSICGEN_GRAD_LIMITS = (
+    # back through the scores: <= 2.16e-4, TF32 >= 0.154
+    (r"layers\.0\..*|layers\.1\.(norm1|attn\.w_[qk])", 6.5e-4),
+    # through none: <= 2.32e-5, TF32 >= 1.25e-3
+    (r".*", 7e-5),
+)
+
+
 def _depth_cut(arch: str, layers: int) -> str:
     """Register `arch` cut to `layers` layers, its widths kept, under a new
     name that the port's `train()` takes (as examples/train_lm.py
@@ -2731,14 +2901,14 @@ def _train_step_profile(out, cfg, seed):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import make_pipeline
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import _to_device
     from repro_torch.optim import AdamWConfig
     step = make_train_step(cfg, AdamWConfig(moments_dtype=cfg.moments_dtype,
                                             total_steps=TRAIN_STEPS))
     pipe = make_pipeline("synthetic", vocab_size=cfg.vocab_size,
                          seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                         seed=seed)
-    batch = {"tokens": torch.as_tensor(pipe.batch(TRAIN_STEPS)["tokens"])
-             .to("cuda", torch.long)}
+                         seed=seed, embeddings_dim=_embeddings_dim(cfg))
+    batch = _to_device(pipe.batch(TRAIN_STEPS), torch.device("cuda"))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2753,8 +2923,16 @@ def _train_step_profile(out, cfg, seed):
         return sum(e.self_device_time_total for e in _kernel_events(prof)
                    if any(k in e.key for k in names)) / 1e3
 
-    # the attention backward's kernels (flash_attention_bwd_*), and the
-    # SSD's and the WKV's forward and backward kernels, each summed
+    def kernel_calls(*names):
+        """Launches of the named kernels (a backward call is 3 or 4)."""
+        return sum(e.count for e in _kernel_events(prof)
+                   if any(k in e.key for k in names))
+
+    # the attention forward's kernel (flash_attention_kernel or
+    # flash_attention_bf16_kernel) and its backward's (flash_attention_bwd_*),
+    # and the SSD's and the WKV's forward and backward kernels, each summed
+    attn_fwd_names = ("flash_attention_kernel", "flash_attention_bf16_kernel")
+    attn_fwd = kernel_ms(*attn_fwd_names)
     attn_bwd = kernel_ms("flash_attention_bwd")
     ssd_bwd = kernel_ms(*SSD_BWD_PHASES)
     ssd_fwd = kernel_ms(*SSD_PHASES)
@@ -2764,7 +2942,11 @@ def _train_step_profile(out, cfg, seed):
     return dict(wall_ms=wall * 1e3,
                 device_busy_ms=busy if seen else None,
                 device_idle_share=idle,
+                attention_fwd_ms=attn_fwd if seen else None,
+                attention_fwd_kernels=kernel_calls(*attn_fwd_names),
                 attention_bwd_ms=attn_bwd if seen else None,
+                attention_bwd_kernels=kernel_calls(*ATTN_BWD_PHASES,
+                                                   ATTN_BWD_REDUCE),
                 ssd_bwd_ms=ssd_bwd if seen else None,
                 ssd_fwd_ms=ssd_fwd if seen else None,
                 ssd_bwd_share_of_busy=ssd_bwd / busy if seen else None,
@@ -2774,10 +2956,16 @@ def _train_step_profile(out, cfg, seed):
                 top_device_ops=_top_device_ops(prof, 8))
 
 
+def _embeddings_dim(cfg) -> int:
+    """The pipeline's embeddings width for `cfg`, as train() sets it."""
+    return cfg.d_model if cfg.input_mode == "embeddings" else 0
+
+
 def _train_launches_want(cfg) -> dict:
     """The LM kernels' launches a TRAIN_STEPS-step run of `cfg` must make
     under the port's remat (torch.utils.checkpoint: a checkpointed
-    function's forward runs again in the backward, before its backward).
+    function's forward runs again in the backward, before its backward),
+    in each of the step's `accum_steps` microbatches.
     A stack of layers checkpoints each layer: its forward twice a step,
     its backward once.  zamba2's remat is nested, as the reference's is
     (repro/models/model.py:155-158): each group of Mamba2 layers and the
@@ -2787,7 +2975,7 @@ def _train_launches_want(cfg) -> dict:
     recompute, its own recompute) and the shared block's twice.  rwkv6's
     layers are checkpointed one by one: each WKV forward twice a step, its
     backward once."""
-    steps = TRAIN_STEPS
+    steps = TRAIN_STEPS * max(cfg.accum_steps, 1)
     want = {"flash_attention": 0, "flash_attention_bwd": 0,
             "mamba2_ssd": 0, "mamba2_ssd_bwd": 0,
             "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0}
@@ -2807,10 +2995,12 @@ def _train_launches_want(cfg) -> dict:
 
 
 def _train_full_depth(arch: str):
-    """`arch` at its published widths and depth (bf16, remat) through the
-    port's `train()`: 6 AdamW steps at B 2, S 1024 on synthetic data.  The
-    attention, SSD and WKV launch counters are zeroed just before and read
-    just after; they must read `_train_launches_want` exactly."""
+    """`arch` at its published widths and depth (bf16, remat, its
+    published accum_steps) through the port's `train()`: 6 AdamW steps at
+    B 2, S 1024 on synthetic data (token ids, or embeddings for an
+    embedding-input arch).  The attention, SSD and WKV launch counters
+    are zeroed just before and read just after; they must read
+    `_train_launches_want` exactly."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2831,7 +3021,8 @@ def _train_full_depth(arch: str):
     wkv.reset_launches()
     t0 = time.perf_counter()
     out = train(arch, reduced=False, steps=TRAIN_STEPS,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1)
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1,
+                accum_steps=cfg.accum_steps)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     after = torch.cuda.memory_stats()
@@ -2869,6 +3060,7 @@ def _train_full_depth(arch: str):
     res = dict(
         arch=arch, layers=cfg.n_layers, params=n_params,
         dtype=cfg.dtype, remat=cfg.remat, steps=TRAIN_STEPS,
+        accum_steps=cfg.accum_steps, inputs=cfg.input_mode,
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=out["losses"],
         grad_norms=out["grad_norms"], step_s=out["step_s"],
         step_ms_median_last4=step_ms,
@@ -2878,7 +3070,9 @@ def _train_full_depth(arch: str):
         tensors_moved=n_moved,
         tensors=len(list(out["params"].parameters())), launches=launches)
     log("train", arch=arch, layers=cfg.n_layers, params=n_params,
-        steps=TRAIN_STEPS, losses=[f"{x:.4f}" for x in out["losses"]],
+        steps=TRAIN_STEPS, accum_steps=cfg.accum_steps,
+        inputs=cfg.input_mode,
+        losses=[f"{x:.4f}" for x in out["losses"]],
         grad_norms=[f"{x:.3f}" for x in out["grad_norms"]],
         step_ms=f"{step_ms:.2f}",
         tokens_per_s=f"{res['tokens_per_s']:.1f}",
@@ -2892,7 +3086,10 @@ def _train_full_depth(arch: str):
         device_busy_ms=p["device_busy_ms"] or "not measured",
         idle_share=p["device_idle_share"]
         if p["device_idle_share"] is not None else "not measured",
+        attention_fwd_ms=p["attention_fwd_ms"] or "not measured",
+        attention_fwd_kernels=p["attention_fwd_kernels"],
         attention_bwd_ms=p["attention_bwd_ms"] or "not measured",
+        attention_bwd_kernels=p["attention_bwd_kernels"],
         ssd_bwd_ms=p["ssd_bwd_ms"] or "not measured",
         ssd_fwd_ms=p["ssd_fwd_ms"] or "not measured",
         wkv_bwd_ms=p["wkv_bwd_ms"] or "not measured",
@@ -3007,9 +3204,11 @@ def _train_checkpoint_resume():
 def _train_step_grads(seed: int = 7, tok_seed: int = 9,
                       repeat: bool = False, arch: str = TRAIN_ARCH,
                       layers: int = TRAIN_CPU_LAYERS) -> dict:
-    """One train step of `arch` (starcoder2-3b, zamba2-2.7b or rwkv6-3b)
-    at full width, `layers` deep, in f32, from the same parameters (drawn from `seed`) and batch
-    (from `tok_seed`): the gradient of `loss_fn`, then `adamw_update` (the
+    """One train step of `arch` (starcoder2-3b, zamba2-2.7b, rwkv6-3b,
+    phi-3-vision-4.2b or musicgen-large) at full width, `layers` deep, in
+    f32, from the same parameters (drawn from `seed`) and batch (from
+    `tok_seed`: token ids, or embeddings and labels for an
+    embedding-input arch): the gradient of `loss_fn`, then `adamw_update` (the
     train step at one micro-batch), on the card and through the port on
     the CPU; the same gradient on the card with TF32 GEMMs (a control of
     lower precision) and of the same model in float64 on the CPU (the
@@ -3034,14 +3233,28 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
     cpu64.load_state_dict({k: v.double() for k, v in
                            cpu.state_dict().items()})
     cpu64.trainable()
-    toks = np.random.default_rng(tok_seed).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CPU_SEQ))
+    rng = np.random.default_rng(tok_seed)
+    if cfg.input_mode == "embeddings":
+        batch = {"embeddings": torch.as_tensor(rng.standard_normal(
+                     (TRAIN_BATCH, TRAIN_CPU_SEQ, cfg.d_model)),
+                     dtype=torch.float32),
+                 "labels": torch.as_tensor(rng.integers(
+                     0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CPU_SEQ)))}
+    else:
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CPU_SEQ)))}
 
     def grad(m, c):
         named = dict(m.named_parameters())
-        loss, _ = model.loss_fn(m, {"tokens": torch.as_tensor(toks).to(
-            next(m.parameters()).device)}, c)
-        g = torch.autograd.grad(loss, list(named.values()))
+        dev = next(m.parameters()).device
+        # the embeddings in the model's dtype (float64 for the oracle)
+        loss, _ = model.loss_fn(m, {k: v.to(dev, c.activation_dtype)
+                                    if v.is_floating_point() else v.to(dev)
+                                    for k, v in batch.items()}, c)
+        # the embedding table of an embedding-input arch is not reached:
+        # a zero gradient, as train() takes it
+        g = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True, materialize_grads=True)
         return named, float(loss.detach()), dict(zip(named, g))
 
     metrics, grads, out = {}, {}, {}
@@ -3097,21 +3310,28 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
     the CPU tests' tolerances (f32 sums in other orders; AdamW's first
     step turns a gradient near 0 into +-lr).  Each tensor's gradient is
     within its limit in `limits` (TRAIN_GRAD_LIMITS for starcoder2,
-    ZAMBA_GRAD_LIMITS for zamba2, RWKV_GRAD_LIMITS for rwkv6) of the
-    CPU's, the TF32 control must
+    ZAMBA_GRAD_LIMITS for zamba2, RWKV_GRAD_LIMITS for rwkv6,
+    PHI3_GRAD_LIMITS and MUSICGEN_GRAD_LIMITS for the embedding-input
+    archs) of the CPU's, the TF32 control must
     read more than that limit on every tensor, and the gradient norm is
-    held to the bound those limits give it (|‖a‖ − ‖b‖| <= ‖a − b‖)."""
+    held to the bound those limits give it (|‖a‖ − ‖b‖| <= ‖a − b‖).  A
+    tensor the loss does not reach (the embedding table of an
+    embedding-input arch: zero on the CPU) must read zero on the card and
+    has no control."""
     import re
     r = _train_step_grads(arch=arch, layers=layers)
     met, per = r["metrics"], r["tensors"]
     rel = {k: abs(met["card"][k] - met["cpu"][k]) / abs(met["cpu"][k])
            for k in ("loss", "grad_norm", "lr")}
-    lim = {k: next(v for pat, v in limits if re.fullmatch(pat, k))
+    # for a zero CPU gradient, card_cpu is the card gradient's norm
+    unreached = {k for k, t in per.items() if t["norm"] == 0.0}
+    lim = {k: 0.0 if k in unreached
+           else next(v for pat, v in limits if re.fullmatch(pat, k))
            for k in per}
     over = {k: t["card_cpu"] for k, t in per.items()
             if not t["card_cpu"] <= lim[k]}
     blind = {k: t["tf32_cpu"] for k, t in per.items()
-             if not t["tf32_cpu"] > lim[k]}
+             if k not in unreached and not t["tf32_cpu"] > lim[k]}
     norm_tol = math.sqrt(sum((lim[k] * t["norm"]) ** 2 for k, t in
                              per.items())) / met["cpu"]["grad_norm"]
     lr = met["cpu"]["lr"]
@@ -3132,10 +3352,12 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
         grad_norm_tol=f"{norm_tol:.3g}",
         **{f"limit_{v:g}": f"max {max(per[k]['card_cpu'] for k in ks):.3g}"
                            f" tf32_min {min(per[k]['tf32_cpu'] for k in ks):.3g}"
-           for v, ks in by_limit.items()},
+           for v, ks in by_limit.items() if v > 0},
+        unreached=sorted(unreached),
         max_param_err=f"{err:.3g}", param_tol=f"{2 * lr + 1e-6:.3g}")
     return dict(arch=arch, layers=layers, metrics=met, rel=rel,
                 grad_norm_tol=norm_tol, tensors=per, limits=lim,
+                unreached=sorted(unreached),
                 max_param_err=err, param_tol=2 * lr + 1e-6)
 
 
@@ -3146,9 +3368,11 @@ def phase_train():
     full-depth run (its SSD's gradient through the backward kernel) and
     its one-group step on the card against the CPU; then rwkv6-3b's
     full-depth run (its WKV's gradient through the backward kernel) and
-    its 2-layer step on the card against the CPU.  No checkpoint round
-    for zamba2 or rwkv6: the format is the model's tree, which starcoder2
-    proves."""
+    its 2-layer step on the card against the CPU; then phi-3-vision-4.2b's
+    and musicgen-large's full-depth runs on embeddings (musicgen at
+    accum_steps 2) and their 2-layer steps on the card against the CPU.
+    No checkpoint round for the others: the format is the model's tree,
+    which starcoder2 proves."""
     import torch
     # a trainer runs in a process of its own: the serve phases' cached
     # blocks are handed back first, so they do not shape its allocations
@@ -3180,7 +3404,20 @@ def phase_train():
         RWKV_TRAIN_ARCH, RWKV_CPU_LAYERS, RWKV_GRAD_LIMITS)
     rwkv["card_vs_cpu_s"] = time.perf_counter() - t1
     out["rwkv6"] = rwkv
-    launches = {k: launches[k] + zamba_launches[k] + rwkv_launches[k]
+    per_arch = [zamba_launches, rwkv_launches]
+    for arch, limits in ((PHI3_TRAIN_ARCH, PHI3_GRAD_LIMITS),
+                         (MUSICGEN_TRAIN_ARCH, MUSICGEN_GRAD_LIMITS)):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res, arch_launches = _train_full_depth(arch)
+        res["full_depth_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res["card_vs_cpu"] = _train_card_vs_cpu(arch, TRAIN_CPU_LAYERS,
+                                                limits)
+        res["card_vs_cpu_s"] = time.perf_counter() - t1
+        out[arch] = res
+        per_arch.append(arch_launches)
+    launches = {k: launches[k] + sum(p[k] for p in per_arch)
                 for k in launches}
     out["seconds"] = time.perf_counter() - t0
     log("train.total", seconds=f"{out['seconds']:.3f}",
@@ -3190,7 +3427,10 @@ def phase_train():
         zamba2_full_depth_s=f"{zamba['full_depth_s']:.3f}",
         zamba2_card_vs_cpu_s=f"{zamba['card_vs_cpu_s']:.3f}",
         rwkv6_full_depth_s=f"{rwkv['full_depth_s']:.3f}",
-        rwkv6_card_vs_cpu_s=f"{rwkv['card_vs_cpu_s']:.3f}", **launches)
+        rwkv6_card_vs_cpu_s=f"{rwkv['card_vs_cpu_s']:.3f}",
+        **{f"{arch}_{k}": f"{out[arch][k]:.3f}"
+           for arch in (PHI3_TRAIN_ARCH, MUSICGEN_TRAIN_ARCH)
+           for k in ("full_depth_s", "card_vs_cpu_s")}, **launches)
     return out, launches
 
 

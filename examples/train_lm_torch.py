@@ -7,9 +7,8 @@ port, the twin of examples/train_lm.py.
 The port's training path on one device: seeded init, synthetic pipeline,
 the eager train step (attention forward and backward through the CUDA
 kernels on a card, the plain versions on the CPU), async checkpoints with
-restore.  The reference scales a qwen3-family model, which the port does
-not have yet (ROADMAP.md Queue 1 item 14); this one scales starcoder2-3b
-(GQA, RoPE, gelu MLP) to ~100M parameters.  Checkpoints go under build/.
+restore.  The reference scales a qwen3-family model; this one scales
+starcoder2-3b (GQA, RoPE, gelu MLP) to ~100M parameters.  Checkpoints go under build/.
 zamba2-2.7b trains through `python -m repro_torch.launch.train --arch
 zamba2-2.7b`, its Mamba2 SSD forward and backward through the CUDA
 kernels on a card.

@@ -1,10 +1,8 @@
-"""Architecture registry of the port: the archs whose block kinds the port
-runs, each with its published config and a reduced smoke variant.
+"""Architecture registry of the port: the reference's ten archs, each
+with its published config and a reduced smoke variant.
 
 `get(name)` / `get_reduced(name)` take the public dashed ids, as in
-`repro.configs`.  The reference's other two archs need embedding inputs,
-which the port does not have yet; asking for one raises a `KeyError` that
-names the ROADMAP item that ports it.
+`repro.configs`.
 """
 from __future__ import annotations
 
@@ -22,19 +20,14 @@ _MODULES: Dict[str, str] = {
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
-}
-
-_LATER: Dict[str, str] = {
-    "phi-3-vision-4.2b": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
-    "musicgen-large": "ROADMAP.md Queue 1 item 14 (embedding inputs)",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi3_vision_4b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
 
 
 def _module(name: str):
-    if name in _LATER:
-        raise KeyError(f"arch {name!r} is not ported yet: {_LATER[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name])

@@ -1744,11 +1744,67 @@ cudaError_t dispatch_bwd_bf16(const void* q_, const void* k_, const void* v_,
 #undef BWD_ARGS
 }
 
+// Blocks per SM and dynamic shared memory (bytes) of the bf16 route's
+// forward, dq and dk/dv kernels at padded width D, in that order, each at
+// the shared memory it is launched with.
+template <int D>
+cudaError_t occupancy_bf16(int* blocks, int* smem) {
+  using S = BwdShape<D>;
+  auto fwd = flash_attention_bf16_kernel<D>;
+  auto dq = flash_attention_bwd_dq_tc<D>;
+  auto dkv = flash_attention_bwd_dkv_tc<D>;
+  smem[0] = (int)TcShape<D>::kSmem;
+  smem[1] = (int)S::kDqSmem;
+  smem[2] = (int)S::kDkvSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem[0]);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem[1]);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dkv,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem[2]);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[0], fwd,
+                                                      kTcThreads, smem[0]);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[1], dq,
+                                                      kTcThreads, smem[1]);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[2], dkv,
+                                                      kTcThreads, smem[2]);
+  return e;
+}
+
+cudaError_t dispatch_occupancy_bf16(int dh, int dv, int* blocks, int* smem) {
+  switch ((max(dh, dv) + 15) / 16 * 16) {
+#define OCC_WIDTH(d) \
+  case d:            \
+    return occupancy_bf16<d>(blocks, smem);
+    OCC_WIDTH(16) OCC_WIDTH(32) OCC_WIDTH(48) OCC_WIDTH(64)
+    OCC_WIDTH(80) OCC_WIDTH(96) OCC_WIDTH(112) OCC_WIDTH(128)
+    OCC_WIDTH(144) OCC_WIDTH(160) OCC_WIDTH(176) OCC_WIDTH(192)
+    OCC_WIDTH(208) OCC_WIDTH(224) OCC_WIDTH(240) OCC_WIDTH(256)
+#undef OCC_WIDTH
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int flash_attention_max_head_dim() { return kMaxHeadDim; }
+
+// blocks[0..2], smem[0..2]: blocks per SM and dynamic shared memory bytes
+// of the bf16 route's forward, dq and dk/dv kernels for widths dh, dv.
+int flash_attention_bf16_occupancy(int dh, int dv, int* blocks, int* smem) {
+  if (dh < 1 || dh > kMaxHeadDim || dv < 1 || dv > kMaxHeadDim)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_occupancy_bf16(dh, dv, blocks, smem);
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  lse, where not
 // null, receives each row's log-sum-exp of the scaled scores, f32

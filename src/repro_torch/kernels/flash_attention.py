@@ -59,6 +59,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_splits.restype = i
     lib.flash_attention_bwd_scratch.argtypes = [i] * 8
     lib.flash_attention_bwd_scratch.restype = ctypes.c_size_t
+    lib.flash_attention_bf16_occupancy.argtypes = [i, i, p, p]
+    lib.flash_attention_bf16_occupancy.restype = i
     lib.flash_attention_max_head_dim.argtypes = []
     lib.flash_attention_max_head_dim.restype = i
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
@@ -133,6 +135,27 @@ def bwd_splits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     return load().flash_attention_bwd_splits(b, skv, h, hkv, dh, dv,
                                              DTYPES[q.dtype])
+
+
+BF16_KERNELS = ("flash_attention_bf16_kernel", "flash_attention_bwd_dq_tc",
+                "flash_attention_bwd_dkv_tc")
+
+
+def bf16_occupancy(dh: int, dv: int) -> dict:
+    """For the bf16 route at head widths dh, dv (one template instance per
+    padded width): how many blocks of its forward, dq and dk/dv kernels
+    one SM of the current card holds at once (CUDA's occupancy
+    calculator) and the dynamic shared memory each is launched with, by
+    kernel name: {name: {"blocks_per_sm", "smem_bytes"}}."""
+    if not (1 <= dh <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"no bf16 instance for Dh {dh}, Dv {dv}")
+    blocks = (ctypes.c_int * len(BF16_KERNELS))()
+    smem = (ctypes.c_int * len(BF16_KERNELS))()
+    _build.raise_on(load().flash_attention_bf16_occupancy(dh, dv, blocks,
+                                                          smem),
+                    "flash_attention_bf16_occupancy")
+    return {name: {"blocks_per_sm": b, "smem_bytes": m}
+            for name, b, m in zip(BF16_KERNELS, blocks, smem)}
 
 
 def bwd_scratch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:

@@ -6,16 +6,21 @@
         --full --steps 5 --batch 2 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
         --full --steps 5 --batch 2 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi-3-vision-4.2b --full --steps 5 --batch 2 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large \
+        --full --steps 5 --batch 2 --seq 1024 --accum-steps 2
 
 Runs the training path on one card (or on the CPU after
 `repro_torch.device.set_device("cpu")`): the model initialised from a seed
 with `requires_grad` on, the AdamW state, the synthetic (or memmap) data
-pipeline, the eager train step (each layer recomputed in the backward when
-the config asks for remat; on a card the attention's, the Mamba2 SSD's
-and the RWKV6 WKV's gradients go through their backward kernels),
-periodic async checkpoints in the reference's
-npz layout with restore of the latest, gradient accumulation and optional
-int8 gradient compression.  The reference lays the model over a (data,
+pipeline (f32 embeddings [B, S, D] and labels for the embedding-input
+archs, phi-3-vision-4.2b and musicgen-large), the eager train step (each
+layer recomputed in the backward when the config asks for remat; on a
+card the attention's, the Mamba2 SSD's and the RWKV6 WKV's gradients go
+through their backward kernels), periodic async checkpoints in the
+reference's npz layout with restore of the latest, gradient accumulation
+and optional int8 gradient compression.  The reference lays the model over a (data,
 model) mesh; the port runs on one device, and mesh sizes other than 1
 raise (ROADMAP.md Queue 1 item 16).
 """

@@ -16,15 +16,25 @@ multi-token-prediction block is `LM.mtp` (`proj`, `norm` and one dense
 Caches are nested dicts of stacked tensors with the reference's shapes and
 dtypes, written in place by prefill and decode.
 
+The input is token ids (`batch["tokens"]`, through the embedding table)
+or, for the archs with `input_mode="embeddings"` (phi-3-vision-4.2b,
+musicgen-large, whose vision and audio frontends are stubs), the
+frontend's embeddings `[B, S, D]` (`batch["embeddings"]`, cast to the
+activation dtype) with the labels beside them; the embedding table stays
+in the tree either way, as in the reference.
+
 Every layer returns an aux loss beside its output (the MoE's load-balance
 loss, None elsewhere); the forward returns their sum.  Training
 (`loss_fn`) recomputes each layer in the backward when the config asks
-for remat (`torch.utils.checkpoint`, non-reentrant), as the reference's
-`jax.checkpoint` with no policy does.
+for remat (`torch.utils.checkpoint`, non-reentrant): everything under the
+"full" policy, as the reference's `jax.checkpoint` with no policy does;
+everything but the outputs of products without batch dims under "dots",
+as its `dots_with_no_batch_dims_saveable` does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -63,9 +73,6 @@ class Segment:
 def model_segments(cfg: ModelConfig) -> List[Segment]:
     if cfg.block_kind == "rwkv6":
         return [Segment("layers", cfg.n_layers, "rwkv6", cfg)]
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError("embedding inputs are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 14)")
     if cfg.block_kind == "mamba2":
         if cfg.shared_attn_every:
             if cfg.n_layers % cfg.shared_attn_every:
@@ -194,32 +201,57 @@ def _layer_apply(kind: str, lp, x, cfg, *, positions, cache, decode_pos,
     raise ValueError(kind)
 
 
-def _remat(cfg: ModelConfig, caches, decode_pos) -> bool:
-    """Recompute each layer in the backward: the config asks for it, the
-    pass is a training forward (no cache, no decode position) and a graph
-    is being recorded."""
+# The products without batch dims, every overload (mm.dtype is the MoE's
+# product with an f32 result): a [..., D] @ [D, F] is one of these after
+# matmul folds its leading dims (the projections, the MLPs, the head).
+# Batched products (aten.bmm: the plain attention's scores, the MoE's
+# grouped experts) are recomputed, as the reference's policy does.
+_SAVEABLE_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for remat "dots": keep the outputs
+    of products without batch dims, recompute everything else.  The
+    hand-written kernels launch through ctypes into buffers from
+    `torch.empty`, which is recomputed, so a recompute reruns the kernel
+    into a fresh buffer and no saved output is written in place."""
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE
+            if op.overloadpacket in _SAVEABLE_DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXTS = {
+    "full": torch_checkpoint.noop_context_fn,
+    "dots": functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy),
+}
+
+
+def _remat(cfg: ModelConfig, caches, decode_pos):
+    """The checkpoint's context function where each layer is recomputed in
+    the backward (the config asks for it, the pass is a training forward,
+    with no cache and no decode position, and a graph is being recorded),
+    else None."""
     if not (cfg.remat and caches is None and decode_pos is None
             and torch.is_grad_enabled()):
-        return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} (save the matmul outputs) "
-            f"is not ported yet (ROADMAP.md Queue 1 item 23); no config "
-            f"uses it")
-    return True
+        return None
+    if cfg.remat_policy not in _REMAT_CONTEXTS:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: not one of "
+                         f"{sorted(_REMAT_CONTEXTS)}")
+    return _REMAT_CONTEXTS[cfg.remat_policy]
 
 
 def _run_stack(kind: str, stack: nn.ModuleList, x, cfg, *, positions,
                caches, decode_pos, shared=None):
     """Run a stack of identical layers; `caches` is stacked or None.
     -> (x, caches, the layers' summed aux loss or None)."""
-    remat = _remat(cfg, caches, decode_pos)
+    context_fn = _remat(cfg, caches, decode_pos)
     aux = None
     for i, lp in enumerate(stack):
-        if remat:
+        if context_fn is not None:
             x, a = torch_checkpoint.checkpoint(
                 _train_layer, kind, lp, x, cfg, positions, shared,
-                use_reentrant=False)
+                use_reentrant=False, context_fn=context_fn)
         else:
             x, _, a = _layer_apply(kind, lp, x, cfg, positions=positions,
                                    cache=_index(caches, i),
@@ -337,6 +369,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None
 # --------------------------------------------------------------------------
 # Forward passes
 # --------------------------------------------------------------------------
+def _inputs_to_hidden(params: LM, batch: Dict[str, torch.Tensor],
+                      cfg: ModelConfig) -> torch.Tensor:
+    """The first layer's input [B, S, D]: the frontend's embeddings in the
+    activation dtype, or the token ids' rows of the embedding table."""
+    if cfg.input_mode == "embeddings":
+        return batch["embeddings"].to(cfg.activation_dtype)
+    return embed_tokens(params, batch["tokens"], cfg)
+
+
 def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, cache: Optional[Cache] = None, decode_pos: Optional[int] = None,
             last_only: bool = False,
@@ -346,7 +387,7 @@ def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     place.  last_only=True computes the LM head on the final position
     only; last_index [B] selects a per-row position instead (bucketed
     prefill)."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = _inputs_to_hidden(params, batch, cfg)
     b, s = x.shape[:2]
     if decode_pos is not None:
         positions = torch.full((b, s), decode_pos, dtype=torch.int32,
@@ -396,7 +437,7 @@ def _mtp_loss(params: LM, batch, cfg: ModelConfig) -> torch.Tensor:
     as the reference computes it: h'_t = proj([norm(emb_t); emb(token_{t+1})])
     for t < S - 1 through the dense `mtp.layer`, then the shared head."""
     mtp = params.mtp
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = _inputs_to_hidden(params, batch, cfg)
     b, s = x.shape[:2]
     labels = batch.get("labels", batch.get("tokens"))
     h = rms_norm(x, mtp.norm, cfg.norm_eps)
@@ -418,7 +459,8 @@ def prefill(params, batch, cfg, cache, *, last_only: bool = False):
 
 
 def decode_step(params, token_batch, cfg, cache, pos: int):
-    """token_batch: {'tokens': [B,1]}; pos: the position of that token."""
+    """token_batch: {'tokens': [B,1]} (or {'embeddings': [B,1,D]}); pos:
+    the position of that token."""
     logits, new_cache, _ = forward(params, token_batch, cfg, cache=cache,
                                    decode_pos=pos)
     return logits[:, -1], new_cache

@@ -370,6 +370,8 @@ def _attn_inputs(b, sq, skv, h, hkv, dh, dv, dtype, dev, seed=0):
     (1, 300, 300, 40, 8, 128, 128),    # qwen3-14b's GQA group of 5
     (1, 1024, 1024, 48, 8, 128, 128),  # dbrx-132b's GQA prefill, S=1024
     (1, 1024, 1024, 128, 128, 192, 128),   # deepseek-v3's MLA prefill
+    (2, 1024, 1024, 32, 32, 96, 96),   # phi-3-vision's train shape, MHA
+    (1, 1024, 1024, 32, 32, 64, 64),   # musicgen's train microbatch, MHA
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1110,22 +1112,29 @@ def test_mamba2_ssd_bwd_da_from_a_zero_state_under_strong_decay(cuda,
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "starcoder2-3b",
                                   "rwkv6-3b", "qwen3-14b", "yi-34b",
                                   "minicpm3-4b", "dbrx-132b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "phi-3-vision-4.2b",
+                                  "musicgen-large"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     """The same weights forward on the card (through the kernels) and on
-    the CPU (plain versions), f32: logits at 1e-3 relative to max(|x|,1)."""
+    the CPU (plain versions), f32: logits at 1e-3 relative to max(|x|,1).
+    The embedding-input archs take embeddings [B, S, D]."""
     from repro_torch import configs
     from repro_torch.models import model
     cfg = configs.get_reduced(arch)
     card = model.init_params(cfg, seed=3, device=cuda)
     cpu = model.LM(cfg, "cpu")
     cpu.load_state_dict(card.state_dict())
-    toks = torch.randint(0, cfg.vocab_size, (2, 40),
-                         generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    if cfg.input_mode == "embeddings":
+        batch = {"embeddings": torch.randn(2, 40, cfg.d_model, generator=gen)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                         generator=gen)}
     fa_kernel.reset_launches()
     ssd_kernel.reset_launches()
     wkv_kernel.reset_launches()
-    got, _, _ = model.forward(card, {"tokens": toks.to(cuda)}, cfg)
+    got, _, _ = model.forward(card, {k: v.to(cuda) for k, v in batch.items()},
+                              cfg)
     torch.cuda.synchronize()
     if arch == "rwkv6-3b":
         assert wkv_kernel.launches["rwkv6_wkv"] == cfg.n_layers
@@ -1133,7 +1142,7 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
         assert fa_kernel.launches["flash_attention"] >= 1
     if arch == "zamba2-2.7b":
         assert ssd_kernel.launches["mamba2_ssd"] == cfg.n_layers
-    want, _, _ = model.forward(cpu, {"tokens": toks}, cfg)
+    want, _, _ = model.forward(cpu, batch, cfg)
     err = ((got.cpu() - want).abs() / want.abs().clamp_min(1.0)).max()
     assert float(err) <= 1e-3
 
@@ -1291,7 +1300,9 @@ BWD_SHAPES = [(2, 1024, 1024, 24, 2, 128, 128),    # starcoder2's train shape
               (1, 77, 200, 4, 2, 64, 64),          # Sq < Skv, ragged tiles
               (2, 100, 100, 6, 3, 40, 24),         # widths not a multiple of 8
               (1, 33, 33, 2, 2, 256, 256),         # the widest head
-              (1, 1, 9, 2, 1, 16, 16)]             # one query row
+              (1, 1, 9, 2, 1, 16, 16),             # one query row
+              (2, 1024, 1024, 32, 32, 96, 96),     # phi-3-vision's, MHA
+              (1, 1024, 1024, 32, 32, 64, 64)]     # musicgen's, MHA
 
 
 @pytest.mark.parametrize("shape", BWD_SHAPES)
@@ -1341,7 +1352,27 @@ BWD_SPLIT_SHAPES = [
     (2, 300, 300, 8, 2, 128, 128, 4),      # a small grid: the whole group
     (1, 100, 150, 4, 1, 256, 256, 4),      # the widest head, split
     (1, 70, 70, 3, 1, 256, 200, 3),        # 256 over Dh != Dv, ragged
+    (2, 1024, 1024, 32, 32, 96, 96, 1),    # phi-3-vision: MHA, no split
+    (1, 1024, 1024, 32, 32, 64, 64, 1),    # musicgen: MHA, no split
 ]
+
+
+@pytest.mark.parametrize("dh,dv", [(64, 64), (96, 96), (96, 64),
+                                   (128, 128), (192, 128)])
+def test_flash_attention_bf16_occupancy(cuda, dh, dv):
+    """The bf16 route's forward, dq and dk/dv kernels at each padded width:
+    each launched with the shared memory its tile shapes give (the CUDA
+    source's TcShape and BwdShape), and at least one block per SM."""
+    d = (max(dh, dv) + 15) // 16 * 16
+    rows = 32 if d > 128 else 64
+    pitch = d + 8
+    want = {"flash_attention_bf16_kernel": 2 * pitch * (64 + 4 * rows),
+            "flash_attention_bwd_dq_tc": 2 * pitch * (2 * 64 + 4 * 32),
+            "flash_attention_bwd_dkv_tc": 2 * pitch * (2 * rows + 4 * rows)
+            + 4 * 4 * rows}
+    got = fa_kernel.bf16_occupancy(dh, dv)
+    assert {k: v["smem_bytes"] for k, v in got.items()} == want
+    assert all(v["blocks_per_sm"] >= 1 for v in got.values()), got
 
 
 @pytest.mark.parametrize("shape", BWD_SPLIT_SHAPES,
@@ -1617,3 +1648,45 @@ def test_train_step_on_card_matches_cpu(cuda, remat):
     worst = max(float((a.detach().cpu() - b.detach()).abs().max())
                 for a, b in zip(card.parameters(), cpu.parameters()))
     assert worst <= 2 * lr + 1e-6
+
+
+def test_remat_dots_step_on_card_matches_full(cuda):
+    """starcoder2-3b at its published widths, 2 layers deep, f32, one
+    loss and gradient through the attention kernels under remat "dots"
+    (selective checkpointing: the products' outputs kept) against "full"
+    and no remat: the kernel's forward reruns in the recompute under both
+    policies (2 launches per layer, 1 backward), the gradients are equal
+    bit for bit (the recompute runs the same kernels and cuBLAS calls on
+    the same operands), and the peak memory of the forward, which holds
+    what the policy keeps for the backward, lies under "dots" between
+    "full"'s and no remat's.  (The step's own peak, with every gradient
+    and the head's logits live, moves by under 0.2%: 1,988,326,400 bytes
+    under "dots" and "full" and 1,990,425,088 with no remat on an H100.)"""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get("starcoder2-3b").replace(n_layers=2, dtype="float32")
+    m = model.init_params(cfg, 3, cuda).trainable()
+    toks = torch.randint(0, cfg.vocab_size, (2, 512),
+                         generator=torch.Generator().manual_seed(2))
+    grads, peak = {}, {}
+    for policy in ("none", "full", "dots"):
+        c = (cfg.replace(remat=False) if policy == "none"
+             else cfg.replace(remat=True, remat_policy=policy))
+        fa_kernel.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # above what is held before the step (the earlier policies' grads)
+        base = torch.cuda.memory_allocated()
+        loss, _ = model.loss_fn(m, {"tokens": toks.to(cuda)}, c)
+        torch.cuda.synchronize()
+        peak[policy] = torch.cuda.max_memory_allocated() - base
+        grads[policy] = torch.autograd.grad(loss, list(m.parameters()))
+        assert dict(fa_kernel.launches) == {
+            "flash_attention": cfg.n_layers * (1 if policy == "none" else 2),
+            "flash_attention_bwd": cfg.n_layers}, policy
+        del loss
+    assert all(torch.equal(a, b) for a, b in zip(grads["dots"],
+                                                 grads["full"]))
+    assert all(torch.equal(a, b) for a, b in zip(grads["dots"],
+                                                 grads["none"]))
+    assert peak["full"] < peak["dots"] < peak["none"], peak

@@ -1,11 +1,12 @@
 """The port's LM substrate against `repro.models`, on the CPU.
 
 Reduced zamba2-2.7b, starcoder2-3b, rwkv6-3b, qwen3-14b, yi-34b,
-minicpm3-4b (MLA), dbrx-132b (MoE) and deepseek-v3-671b (MLA, MoE with a
-shared expert, MTP; the archs the port's registry holds) with the
-reference's weights carried across by
-`weights.params_from_numpy`: forward logits, prefill caches and four
-decode steps against the reference on the same tokens.  Both run in f32;
+minicpm3-4b (MLA), dbrx-132b (MoE), deepseek-v3-671b (MLA, MoE with a
+shared expert, MTP), phi-3-vision-4.2b and musicgen-large (embedding
+inputs; the reference's ten archs) with the reference's weights carried
+across by `weights.params_from_numpy`: forward logits, prefill caches and
+four decode steps against the reference on the same inputs (token ids,
+or embeddings [B, S, D] for the last two).  Both run in f32;
 the tolerance, 1e-4 relative to max(|x|, 1), covers summation order in a
 few layers of f32 matmuls (XLA's and PyTorch's CPU kernels sum in other
 orders), the chunked SSD at the reduced chunk (32) against the port's
@@ -25,14 +26,14 @@ from repro.models import model as jmodel
 from repro_torch import configs as tconfigs
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import model as tmodel
-from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import params_from_numpy
 from torch_port_util import np32, on_cpu  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
 ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b", "qwen3-14b",
-         "yi-34b", "minicpm3-4b", "dbrx-132b", "deepseek-v3-671b"]
+         "yi-34b", "minicpm3-4b", "dbrx-132b", "deepseek-v3-671b",
+         "phi-3-vision-4.2b", "musicgen-large"]
 TOL = 1e-4
 
 
@@ -53,8 +54,26 @@ def pair(request, on_cpu):
     return cfg, tcfg, jparams, params_from_numpy(tcfg, tree)
 
 
-def _tokens(cfg, b, s, seed=3):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s))
+def _batch(cfg, b, s, seed=3):
+    """The model's input as numpy, from `seed`: token ids [B, S], or for
+    an embedding-input arch f32 embeddings [B, S, D]."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeddings":
+        return {"embeddings": rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s))}
+
+
+def _cut(batch, lo, hi):
+    return {k: v[:, lo:hi] for k, v in batch.items()}
+
+
+def _jax(batch):
+    return {k: jax.numpy.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def test_configs_match_reference():
@@ -68,20 +87,10 @@ def test_configs_match_reference():
     assert tconfigs.get("zamba2-2.7b").activation_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "musicgen-large"])
-def test_unported_archs_name_their_roadmap_item(arch):
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item"):
-        tconfigs.get(arch)
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item"):
-        tconfigs.get_reduced(arch)
-
-
-@pytest.mark.parametrize("kw", [dict(input_mode="embeddings")])
-def test_unported_blocks_raise(kw):
-    cfg = ModelConfig("x", "dense", 2, 16, 32, 64, n_heads=2, n_kv_heads=2,
-                      dtype="float32").replace(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmodel.LM(cfg, "meta")
+def test_registry_holds_the_reference_archs():
+    assert sorted(tconfigs.ARCH_NAMES) == sorted(jconfigs.ARCH_NAMES)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get("phi-3-vision")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -92,11 +101,9 @@ def test_param_counts_match_reference(arch):
 
 def test_forward_logits_match_reference(pair):
     cfg, tcfg, jparams, tparams = pair
-    toks = _tokens(cfg, 2, 12)
-    want, _, _ = jmodel.forward(jparams, {"tokens": jax.numpy.asarray(toks)},
-                                cfg)
-    got, _, _ = tmodel.forward(tparams, {"tokens": torch.from_numpy(toks)},
-                               tcfg)
+    batch = _batch(cfg, 2, 12)
+    want, _, _ = jmodel.forward(jparams, _jax(batch), cfg)
+    got, _, _ = tmodel.forward(tparams, _torch(batch), tcfg)
     assert got.dtype == torch.float32
     assert_close_scaled(got, want, what=cfg.name)
 
@@ -104,15 +111,13 @@ def test_forward_logits_match_reference(pair):
 def test_prefill_caches_and_decode_match_reference(pair):
     cfg, tcfg, jparams, tparams = pair
     b, prompt, total, max_len = 2, 6, 10, 12
-    toks = _tokens(cfg, b, total, seed=4)
+    batch = _batch(cfg, b, total, seed=4)
     jcache = jmodel.init_cache(cfg, b, max_len)
     jlog, jcache, _ = jmodel.prefill(
-        jparams, {"tokens": jax.numpy.asarray(toks[:, :prompt])}, cfg,
-        jcache)
+        jparams, _jax(_cut(batch, 0, prompt)), cfg, jcache)
     tcache = tmodel.init_cache(tcfg, b, max_len)
     tlog, tcache, _ = tmodel.prefill(
-        tparams, {"tokens": torch.from_numpy(toks[:, :prompt])}, tcfg,
-        tcache)
+        tparams, _torch(_cut(batch, 0, prompt)), tcfg, tcache)
     assert_close_scaled(tlog, jlog, what="prefill logits")
     jleaves = jax.tree_util.tree_leaves_with_path(jcache)
     tflat = dict(_flatten(tcache))
@@ -122,19 +127,18 @@ def test_prefill_caches_and_decode_match_reference(pair):
         assert tflat[key].dtype == torch.float32
         assert_close_scaled(tflat[key], leaf, what=f"cache {key}")
     jlast, _ = jsteps.make_prefill_step(cfg)(
-        jparams, {"tokens": jax.numpy.asarray(toks[:, :prompt])},
+        jparams, _jax(_cut(batch, 0, prompt)),
         jmodel.init_cache(cfg, b, max_len))
     tlast, _ = tsteps.make_prefill_step(tcfg)(
-        tparams, {"tokens": torch.from_numpy(toks[:, :prompt])},
+        tparams, _torch(_cut(batch, 0, prompt)),
         tmodel.init_cache(tcfg, b, max_len))
     assert_close_scaled(tlast, jlast, what="prefill step logits")
     for pos in range(prompt, total):
         jl, jcache = jmodel.decode_step(
-            jparams, {"tokens": jax.numpy.asarray(toks[:, pos:pos + 1])},
-            cfg, jcache, jax.numpy.int32(pos))
+            jparams, _jax(_cut(batch, pos, pos + 1)), cfg, jcache,
+            jax.numpy.int32(pos))
         tl, tcache = tmodel.decode_step(
-            tparams, {"tokens": torch.from_numpy(toks[:, pos:pos + 1])},
-            tcfg, tcache, pos)
+            tparams, _torch(_cut(batch, pos, pos + 1)), tcfg, tcache, pos)
         assert_close_scaled(tl, jl, what=f"decode logits at {pos}")
 
 

@@ -21,6 +21,7 @@ the port's.  Tolerances, each with its reason:
 The reference's `train()` fails on this JAX (torch_train_util), so its
 loop is `torch_train_util.reference_train`.
 """
+import collections
 import os
 import subprocess
 import sys
@@ -31,6 +32,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import checkpoint as torch_checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as jconfigs
 from repro.launch import steps as jsteps
@@ -246,15 +249,169 @@ def test_remat_gives_the_same_gradients():
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
-def test_remat_dots_policy_raises_with_its_item():
-    cfg = tconfigs.get_reduced("starcoder2-3b").replace(remat=True,
-                                                        remat_policy="dots")
-    model = tmodel.init_params(cfg, 0).trainable()
-    toks = torch.from_numpy(_tokens(cfg, 1, 8, seed=0)).long()
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tmodel.loss_fn(model, {"tokens": toks}, cfg)
-    with torch.no_grad():         # no graph: nothing is recomputed
-        tmodel.loss_fn(model, {"tokens": toks}, cfg)
+def _remat_batch(cfg):
+    return {"tokens": torch.from_numpy(_tokens(cfg, 2, 16, seed=8)).long()}
+
+
+def _remat_cfg(cfg, policy):
+    """`policy` is "none" (no remat), "full" or "dots"."""
+    if policy == "none":
+        return cfg.replace(remat=False)
+    return cfg.replace(remat=True, remat_policy=policy)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "zamba2-2.7b"])
+def test_remat_dots_gives_the_same_gradients(arch):
+    """Remat "dots" (selective checkpointing that keeps the products'
+    outputs) against "full" and no remat: loss and every gradient bit for
+    bit (the recompute runs the same CPU kernels on the same operands, and
+    a kept product is the forward's own output).  zamba2's remat is
+    nested, a checkpoint per Mamba2 layer inside its group's."""
+    cfg = tconfigs.get_reduced(arch)
+    model = tmodel.init_params(cfg, 4).trainable()
+    out = {}
+    for policy in ("none", "full", "dots"):
+        loss, _ = tmodel.loss_fn(model, _remat_batch(cfg),
+                                 _remat_cfg(cfg, policy))
+        out[policy] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    for policy in ("full", "dots"):
+        assert torch.equal(out[policy][0], out["none"][0])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(out[policy][1], out["none"][1])), policy
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "zamba2-2.7b"])
+def test_remat_dots_matches_reference(arch):
+    """The port's loss and gradients under remat "dots" against `jax.grad`
+    of the reference's `loss_fn` under `remat_policy="dots"`
+    (`dots_with_no_batch_dims_saveable`): loss within 1e-5, each gradient
+    within 1e-4 relative L2 (f32 sums in other orders)."""
+    jcfg = _remat_cfg(jconfigs.get_reduced(arch), "dots")
+    jparams = reference_params(arch, 0)
+    toks = _tokens(jcfg, 2, 16, seed=8)
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jmodel.loss_fn(p, {"tokens": jnp.asarray(toks)}, jcfg),
+        has_aux=True)(jparams)
+    model = _port_params(arch, jparams)
+    tcfg = _remat_cfg(model.cfg, "dots")
+    names, leaves = zip(*model.named_parameters())
+    loss, _ = tmodel.loss_fn(model, {"tokens": torch.from_numpy(toks).long()},
+                             tcfg)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=REL)
+    want = dict(params_from_numpy(tcfg, numpy_tree(jgrads))
+                .named_parameters())
+    for k, g in grads.items():
+        diff = float(torch.linalg.vector_norm((g - want[k]).double()))
+        scale = float(torch.linalg.vector_norm(want[k].double()))
+        assert diff <= 1e-4 * scale or diff <= 1e-12, (k, diff, scale)
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "zamba2-2.7b"])
+def test_remat_dots_keeps_the_products(arch):
+    """The backward's products, counted at the dispatcher with the
+    recompute taken whole (no early stop).  Under "dots" the backward runs
+    the aten.mm calls of the backward with no remat, none recomputed, and
+    fewer than "full" by at least the forward's products inside the
+    layers, by exactly these where the remat is not nested (starcoder2;
+    zamba2's Mamba2 layers are recomputed twice under "full").  Batched
+    products (aten.bmm: the plain attention's scores) are recomputed
+    under both, as the reference's policy keeps no product with batch
+    dims."""
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    cfg = tconfigs.get_reduced(arch)
+    model = tmodel.init_params(cfg, 4).trainable()
+    fwd, bwd = {}, {}
+    for policy in ("none", "full", "dots"):
+        with torch_checkpoint.set_checkpoint_early_stop(False):
+            with _CountOps() as f:
+                loss, _ = tmodel.loss_fn(model, _remat_batch(cfg),
+                                         _remat_cfg(cfg, policy))
+            with _CountOps() as b:
+                torch.autograd.grad(loss, list(model.parameters()))
+        fwd[policy], bwd[policy] = f.ops, b.ops
+    with _CountOps() as head:
+        tlayers.logits_from_hidden(model, torch.zeros(2, 16, cfg.d_model),
+                                   cfg)
+    in_layers = fwd["none"][mm] - head.ops[mm]
+    assert fwd["dots"][mm] == fwd["full"][mm] == fwd["none"][mm]
+    assert in_layers > 0
+    assert bwd["dots"][mm] == bwd["none"][mm]
+    fewer = bwd["full"][mm] - bwd["dots"][mm]
+    assert fewer == in_layers if arch == "starcoder2-3b" else fewer > in_layers
+    assert bwd["dots"][bmm] == bwd["full"][bmm] > bwd["none"][bmm]
+
+
+def _attention_function_on_the_cpu(monkeypatch, calls):
+    """Route `ops.flash_attention` through `FlashAttention` on CPU tensors,
+    its two kernels replaced by their plain versions.  The forward writes
+    its output and log-sum-exp as a ctypes launch does: into buffers from
+    `torch.empty`, through numpy, where the dispatcher does not see it.
+    `calls` counts each."""
+    from repro_torch.kernels import flash_attention as fa_kernel
+
+    def fwd(q, k, v, *, causal=True, return_lse=False):
+        assert return_lse and not torch.is_grad_enabled()
+        calls["fwd"] += 1
+        b, sq, h, _ = q.shape
+        out = torch.empty((b, sq, h, v.shape[3]), dtype=q.dtype)
+        lse = torch.empty((b, h, sq), dtype=torch.float32)
+        o, l = tref.attention_lse(q, k, v, causal=causal)
+        out.numpy()[...] = o.numpy()
+        lse.numpy()[...] = l.numpy()
+        return out, lse
+
+    def bwd(q, k, v, out, lse, dout, *, causal=True):
+        calls["bwd"] += 1
+        return tref.attention_bwd(q, k, v, out, lse, dout, causal=causal)
+
+    monkeypatch.setattr(fa_kernel, "flash_attention", fwd)
+    monkeypatch.setattr(fa_kernel, "flash_attention_bwd", bwd)
+    monkeypatch.setattr(
+        tops, "flash_attention",
+        lambda q, k, v, *, causal=True:
+        fa_kernel.FlashAttention.apply(q, k, v, causal))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_reruns_the_attention_kernel(monkeypatch, policy):
+    """A reduced starcoder2 step whose attention goes through the autograd
+    Function the card uses (`FlashAttention`), its kernels' plain versions
+    writing behind the dispatcher's back as the CUDA kernels do.  Under
+    either remat policy the recompute reruns the forward kernel (2 per
+    layer a step, 1 backward), as `torch.empty` is never a kept output;
+    the gradients equal autograd of the plain forward within 1e-4
+    relative L2 (the blocked backward sums in another order), and "dots"
+    equals "full" bit for bit."""
+    cfg = _remat_cfg(tconfigs.get_reduced("starcoder2-3b"), policy)
+    model = tmodel.init_params(cfg, 5).trainable()
+    batch = _remat_batch(cfg)
+
+    def grads(c):
+        loss, _ = tmodel.loss_fn(model, batch, c)
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    want = grads(cfg)
+    calls = {"fwd": 0, "bwd": 0}
+    _attention_function_on_the_cpu(monkeypatch, calls)
+    got = grads(cfg)
+    assert calls == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
+    for g, w in zip(got, want):
+        assert float((g - w).norm()) <= 1e-4 * float(w.norm()) + 1e-12
+    if policy == "dots":
+        full = grads(_remat_cfg(cfg, "full"))
+        assert all(torch.equal(a, b) for a, b in zip(got, full))
 
 
 def test_only_the_train_model_requires_grad():

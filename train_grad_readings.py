@@ -1,14 +1,18 @@
 """Per-tensor gradient readings of one f32 train step at full width
 (chip_smoke.py's card-vs-CPU step), over several seeds: starcoder2-3b 2
-layers deep, zamba2-2.7b one group (6 layers) deep, or rwkv6-3b 2 layers
-deep.  These are the readings from which chip_smoke.py's limits
-TRAIN_GRAD_LIMITS, ZAMBA_GRAD_LIMITS and RWKV_GRAD_LIMITS are set.  A measurement aid beside chip_smoke.py; the
-port never imports it.
+layers deep, zamba2-2.7b one group (6 layers) deep, or rwkv6-3b,
+phi-3-vision-4.2b or musicgen-large 2 layers deep (the last two on
+embeddings).  These are the readings from which chip_smoke.py's limits
+TRAIN_GRAD_LIMITS, ZAMBA_GRAD_LIMITS, RWKV_GRAD_LIMITS, PHI3_GRAD_LIMITS
+and MUSICGEN_GRAD_LIMITS are set.  A measurement aid beside
+chip_smoke.py; the port never imports it.
 
     python3 train_grad_readings.py                  # from the repo root, on a card
     python3 train_grad_readings.py --seeds 7:9 11:13
     python3 train_grad_readings.py --arch zamba2-2.7b
     python3 train_grad_readings.py --arch rwkv6-3b
+    python3 train_grad_readings.py --arch phi-3-vision-4.2b
+    python3 train_grad_readings.py --arch musicgen-large
 
 For each `params:tokens` seed pair it runs `chip_smoke._train_step_grads`
 (the card, the card with TF32 GEMMs as a control of lower precision, the
@@ -19,7 +23,7 @@ whether the card's gradient repeats bit for bit.  The summary gives, per
 tensor, the largest card-vs-CPU gap over the seeds and the smallest gap
 the control reads.  Prints one JSON line per seed and the summary, and
 writes everything to `chiprun_out/train_grad_readings.json`
-(`train_grad_readings_<arch>.json` for zamba2 and rwkv6).
+(`train_grad_readings_<arch>.json` for the other archs).
 """
 from __future__ import annotations
 
@@ -40,7 +44,9 @@ def main() -> int:
                     help="params:tokens seed pairs")
     layers = {chip_smoke.TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS,
               chip_smoke.ZAMBA_TRAIN_ARCH: chip_smoke.ZAMBA_CPU_LAYERS,
-              chip_smoke.RWKV_TRAIN_ARCH: chip_smoke.RWKV_CPU_LAYERS}
+              chip_smoke.RWKV_TRAIN_ARCH: chip_smoke.RWKV_CPU_LAYERS,
+              chip_smoke.PHI3_TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS,
+              chip_smoke.MUSICGEN_TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS}
     ap.add_argument("--arch", default=chip_smoke.TRAIN_ARCH,
                     choices=tuple(layers))
     args = ap.parse_args()
