@@ -944,7 +944,8 @@ def _attention_bwd_rows(randn):
     """flash_attention_bwd against its plain version at the train paths'
     shapes (starcoder2-3b: B 2, S 1024, 24 query heads over 2 kv heads of
     128, in bf16 and f32; phi-3-vision-4.2b: B 2, 32 MHA heads of 96;
-    musicgen-large: a microbatch of 1, 32 MHA heads of 64), an MLA width
+    musicgen-large: a microbatch of 1, 32 MHA heads of 64; dbrx-132b: B 2,
+    48 query heads over 8 kv heads of 128), an MLA width
     (Dh 192, Dv 128) and Sq < Skv.  The
     oracle is float64 on the card: the plain blocked backward
     (ref.attention_bwd) on the same q, k, v, output, log-sum-exp and
@@ -975,7 +976,8 @@ def _attention_bwd_rows(randn):
              128, bf16),
             ("phi-3-vision bf16 S=1024", 2, 1024, 1024, 32, 32, 96, 96,
              bf16),
-            ("musicgen bf16 S=1024", 1, 1024, 1024, 32, 32, 64, 64, bf16)):
+            ("musicgen bf16 S=1024", 1, 1024, 1024, 32, 32, 64, 64, bf16),
+            ("dbrx bf16 S=1024", 2, 1024, 1024, 48, 8, 128, 128, bf16)):
         q = randn(b, sq, h, dh, dtype=dtype)
         k = randn(b, skv, hkv, dh, dtype=dtype)
         v = randn(b, skv, hkv, dv, dtype=dtype)
@@ -1320,7 +1322,8 @@ def phase_lm_kernels():
             ("deepseek bf16 S=1024", 1, 1024, 128, 128, 192, 128, bf16),
             ("phi-3-vision train bf16 B=2 S=1024", 2, 1024, 32, 32, 96, 96,
              bf16),
-            ("musicgen train bf16 S=1024", 1, 1024, 32, 32, 64, 64, bf16)):
+            ("musicgen train bf16 S=1024", 1, 1024, 32, 32, 64, 64, bf16),
+            ("dbrx train bf16 B=2 S=1024", 2, 1024, 48, 8, 128, 128, bf16)):
         q = randn(b, sq, h, dh, dtype=dtype)
         k = randn(b, sq, hkv, dh, dtype=dtype)
         v = randn(b, sq, hkv, dv, dtype=dtype)
@@ -2778,6 +2781,20 @@ RWKV_CPU_LAYERS = 2
 # is TRAIN_CPU_LAYERS deep
 PHI3_TRAIN_ARCH = "phi-3-vision-4.2b"
 MUSICGEN_TRAIN_ARCH = "musicgen-large"
+# dbrx-132b trains last at its published widths, all 16 experts, top-4,
+# cut to 1 layer: 4.49 B parameters, whose bf16 weights and gradients and
+# f32 moments take 53.9 GB (50.2 GiB) before any activation; 2 layers
+# (7.75 B, 93 GB) do not fit the card.  It runs at accum_steps 1, not its
+# published 4: B 2 does not split into 4 microbatches, and at B 4 the f32
+# gradient accumulator (18 GB) and its division (18 GB more in transit)
+# do not fit beside the 53.9 GB.  Its card-vs-CPU step is 1 layer deep
+# with 8 of the 16 experts, top-4 kept (2.91 B, 10.83 GiB in f32): with
+# all 16 (16.7 GiB) the step's f32 and f64 copies on the host would come
+# to about 167 GiB.
+DBRX_TRAIN_ARCH = "dbrx-132b"
+DBRX_TRAIN_LAYERS = 1
+DBRX_CPU_LAYERS = 1
+DBRX_CPU_EXPERTS = 8
 TRAIN_STEPS = 6
 TRAIN_BATCH = 2
 TRAIN_SEQ = 1024
@@ -2875,6 +2892,24 @@ MUSICGEN_GRAD_LIMITS = (
     (r"layers\.0\..*|layers\.1\.(norm1|attn\.w_[qk])", 6.5e-4),
     # through none: <= 2.32e-5, TF32 >= 1.25e-3
     (r".*", 7e-5),
+)
+
+# dbrx-132b's card-vs-CPU step (1 layer, 8 of its 16 experts, top-4, f32):
+# relative L2 gap per tensor, the first pattern that matches the tensor's
+# name, set as TRAIN_GRAD_LIMITS are: about 3x the largest card-vs-CPU gap
+# over three seeds and below the smallest gap of the TF32 control
+# (train_grad_readings.py --arch dbrx-132b on an NVIDIA H100 80GB HBM3 at
+# 700 W: the numbers beside each pattern).  As in starcoder2, the gap goes
+# by whether the gradient comes back through the attention's scores (48
+# query heads over 8 kv heads); the MoE's tensors (norm2, router, the
+# expert stacks) read 2.4e-5 to 2.6e-5, the head and the value path
+# 1.4e-5 to 1.5e-5.  The CPU's own f32 gradient is as far from float64 as
+# the card's on every tensor.
+DBRX_GRAD_LIMITS = (
+    # back through the scores: <= 2.19e-4, TF32 >= 6.97e-2
+    (r"embedding|moe\.0\.(norm1|attn\.w_[qk])", 7e-4),
+    # through none: <= 2.57e-5, TF32 >= 6.19e-3
+    (r".*", 8e-5),
 )
 
 
@@ -2994,13 +3029,15 @@ def _train_launches_want(cfg) -> dict:
     return want
 
 
-def _train_full_depth(arch: str):
+def _train_full_depth(arch: str, accum_steps: int = 0):
     """`arch` at its published widths and depth (bf16, remat, its
-    published accum_steps) through the port's `train()`: 6 AdamW steps at
-    B 2, S 1024 on synthetic data (token ids, or embeddings for an
-    embedding-input arch).  The attention, SSD and WKV launch counters
-    are zeroed just before and read just after; they must read
-    `_train_launches_want` exactly."""
+    published accum_steps unless `accum_steps` is given) through the
+    port's `train()`: 6 AdamW steps at B 2, S 1024 on synthetic data
+    (token ids, or embeddings for an embedding-input arch).  The
+    attention, SSD and WKV launch counters are zeroed just before and read
+    just after; they must read `_train_launches_want` exactly.  An MoE
+    arch's routing is observed over the run (`_train_moe_stats`)."""
+    import contextlib
     import numpy as np
     import torch
     from repro_torch import configs
@@ -3008,10 +3045,12 @@ def _train_full_depth(arch: str):
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.launch.train import train
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
 
     cfg = configs.get(arch)
+    cfg = cfg.replace(accum_steps=accum_steps or cfg.accum_steps)
     n_params = model.count_params(cfg)
+    routes = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reserved_at_start = torch.cuda.memory_reserved() / 2 ** 30
@@ -3020,9 +3059,14 @@ def _train_full_depth(arch: str):
     ssd.reset_launches()
     wkv.reset_launches()
     t0 = time.perf_counter()
-    out = train(arch, reduced=False, steps=TRAIN_STEPS,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1,
-                accum_steps=cfg.accum_steps)
+    with contextlib.ExitStack() as watch:
+        if cfg.n_experts:
+            # kept on the device until the run ends
+            watch.enter_context(moe.observe(
+                lambda idx, keep, cap: routes.append((idx, keep, cap))))
+        out = train(arch, reduced=False, steps=TRAIN_STEPS,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, log_every=1,
+                    accum_steps=cfg.accum_steps)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     after = torch.cuda.memory_stats()
@@ -3080,6 +3124,9 @@ def _train_full_depth(arch: str):
         reserved_gib_at_start=f"{reserved_at_start:.2f}",
         tensors_moved=f"{n_moved}/{res['tensors']}", **launches,
         **allocator)
+    if cfg.n_experts:
+        res["moe"] = _train_moe_stats(arch, cfg, routes)
+    del routes
     res["profiled_step"] = _train_step_profile(out, cfg, 0)
     p = res["profiled_step"]
     log("train.where", arch=arch, wall_ms=f"{p['wall_ms']:.2f}",
@@ -3100,6 +3147,45 @@ def _train_full_depth(arch: str):
     del out
     torch.cuda.empty_cache()
     return res, launches
+
+
+def _train_moe_stats(arch, cfg, routes):
+    """The training run's routing: `routes` holds every observer call,
+    (idx, keep, capacity).  Remat "full" runs each MoE layer's forward
+    again in the backward, which calls the observers again, so a
+    micro-batch's calls are its layers' forwards, then their recomputes in
+    reverse order.  Each forward is counted once, and each recompute must
+    route as its forward did.  Gives the drop share over the forwards and
+    the largest expert load (assignments routed to one expert, before the
+    capacity drops them) against the capacity."""
+    import torch
+    n = cfg.n_layers - cfg.first_k_dense
+    per = 2 * n if cfg.remat else n
+    calls = TRAIN_STEPS * max(cfg.accum_steps, 1) * per
+    if len(routes) != calls:
+        raise AssertionError(f"train {arch}: {len(routes)} MoE calls, "
+                             f"expected {calls}")
+    fwd = []
+    for i in range(0, calls, per):
+        first, again = routes[i:i + n], routes[i + n:i + per][::-1]
+        for (ia, ka, _), (ib, kb, _) in zip(first, again):
+            if not (torch.equal(ia, ib) and torch.equal(ka, kb)):
+                raise AssertionError(f"train {arch}: a recompute routed "
+                                     f"otherwise than its forward")
+        fwd += first
+    loads = [int(torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+                 .max()) for idx, _, _ in fwd]
+    caps = {cap for _, _, cap in fwd}
+    dropped = sum(int((~keep).sum()) for _, keep, _ in fwd)
+    assignments = sum(keep.numel() for _, keep, _ in fwd)
+    out = dict(moe_forwards=len(fwd), observer_calls=calls,
+               assignments=assignments, dropped=dropped,
+               drop_share=dropped / assignments, max_load=max(loads),
+               capacity=max(caps), max_load_over_capacity=max(loads)
+               / max(caps), recompute_routes_equal=True)
+    log("train.moe", arch=arch, **{k: (f"{v:.6g}" if isinstance(v, float)
+                                      else v) for k, v in out.items()})
+    return out
 
 
 def _train_checkpoint_resume():
@@ -3203,36 +3289,41 @@ def _train_checkpoint_resume():
 
 def _train_step_grads(seed: int = 7, tok_seed: int = 9,
                       repeat: bool = False, arch: str = TRAIN_ARCH,
-                      layers: int = TRAIN_CPU_LAYERS) -> dict:
+                      layers: int = TRAIN_CPU_LAYERS,
+                      experts: int = 0) -> dict:
     """One train step of `arch` (starcoder2-3b, zamba2-2.7b, rwkv6-3b,
-    phi-3-vision-4.2b or musicgen-large) at full width, `layers` deep, in
-    f32, from the same parameters (drawn from `seed`) and batch (from
-    `tok_seed`: token ids, or embeddings and labels for an
-    embedding-input arch): the gradient of `loss_fn`, then `adamw_update` (the
-    train step at one micro-batch), on the card and through the port on
-    the CPU; the same gradient on the card with TF32 GEMMs (a control of
-    lower precision) and of the same model in float64 on the CPU (the
-    oracle).  Returns the metrics, each tensor's relative L2 gradient gaps
-    (`card_cpu`, `tf32_cpu`, `card_f64`, `cpu_f64`, and `norm`, the CPU
-    gradient's), the largest gap of the updated parameters, and with
-    `repeat` whether a second card gradient equals the first bit for bit.
-    train_grad_readings.py records these over several seeds."""
+    phi-3-vision-4.2b, musicgen-large or dbrx-132b) at full width,
+    `layers` deep (and with `experts` of its experts, its top-k kept,
+    where that is given), in f32, from the same parameters (drawn from
+    `seed`) and batch (from `tok_seed`: token ids, or embeddings and
+    labels for an embedding-input arch): the gradient of `loss_fn`, then
+    `adamw_update` (the train step at one micro-batch), on the card and
+    through the port on the CPU; the same gradient on the card with TF32
+    GEMMs (a control of lower precision) and of the same model in float64
+    on the CPU (the oracle).  Returns the metrics (loss, aux, lr, gradient
+    norm), each tensor's relative L2 gradient gaps (`card_cpu`,
+    `tf32_cpu`, `card_f64`, `cpu_f64`, and `norm`, the CPU gradient's),
+    the largest gap of the updated parameters, the MoE forwards' routing
+    differences from the CPU's (top-k indices and kept assignments; none
+    for a dense arch), and with `repeat` whether a second card gradient
+    equals the first bit for bit.  Each gradient stays where it was made
+    (the oracle's and the CPU's on the host, the card's and the control's
+    on the card) and the gaps are read one tensor at a time on the card,
+    so the host holds at most the f32 model, the f64 model and its
+    gradient, five f32 copies of the parameters (54 GiB at dbrx-132b's
+    cut), and the card four.  train_grad_readings.py records these over
+    several seeds."""
     import numpy as np
     import torch
     from repro_torch import configs, device
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
     from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
     cfg = configs.get(arch).replace(n_layers=layers, dtype="float32")
+    if experts:
+        cfg = cfg.replace(n_experts=experts)
+    n_moe = cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0
     cpu = model.init_params(cfg, seed, "cpu").trainable()
-    card = model.LM(cfg, "cuda")
-    card.load_state_dict(cpu.state_dict())
-    card.trainable()
-    cfg64 = cfg.replace(dtype="float64")
-    cpu64 = model.LM(cfg64, "cpu")
-    cpu64.load_state_dict({k: v.double() for k, v in
-                           cpu.state_dict().items()})
-    cpu64.trainable()
     rng = np.random.default_rng(tok_seed)
     if cfg.input_mode == "embeddings":
         batch = {"embeddings": torch.as_tensor(rng.standard_normal(
@@ -3245,57 +3336,89 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
             0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CPU_SEQ)))}
 
     def grad(m, c):
+        """-> (named parameters, loss, aux, gradients, routes): routes are
+        the forward's (idx, keep) per MoE layer, on the host (remat's
+        recompute calls the observer again after them)."""
         named = dict(m.named_parameters())
         dev = next(m.parameters()).device
-        # the embeddings in the model's dtype (float64 for the oracle)
-        loss, _ = model.loss_fn(m, {k: v.to(dev, c.activation_dtype)
-                                    if v.is_floating_point() else v.to(dev)
-                                    for k, v in batch.items()}, c)
-        # the embedding table of an embedding-input arch is not reached:
-        # a zero gradient, as train() takes it
-        g = torch.autograd.grad(loss, list(named.values()),
-                                allow_unused=True, materialize_grads=True)
-        return named, float(loss.detach()), dict(zip(named, g))
+        seen = []
+        with moe.observe(lambda idx, keep, cap: seen.append(
+                (idx.cpu(), keep.cpu()))):
+            # the embeddings in the model's dtype (float64 for the oracle)
+            loss, met = model.loss_fn(m, {k: v.to(dev, c.activation_dtype)
+                                          if v.is_floating_point()
+                                          else v.to(dev)
+                                          for k, v in batch.items()}, c)
+            # the embedding table of an embedding-input arch is not
+            # reached: a zero gradient, as train() takes it
+            g = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True, materialize_grads=True)
+        return (named, float(loss.detach()), float(met["aux"].detach()),
+                dict(zip(named, g)), seen[:n_moe])
 
-    metrics, grads, out = {}, {}, {}
+    metrics, out = {}, {}
+    # the oracle first: its model is gone before the other gradients exist
+    cfg64 = cfg.replace(dtype="float64")
+    cpu64 = model.LM(cfg64, "cpu")
+    src = dict(cpu.named_parameters())
+    with torch.no_grad():
+        for k, p64 in cpu64.named_parameters():
+            p64.copy_(src[k])
+    _, loss, aux, g64, r64 = grad(cpu64.trainable(), cfg64)
+    del cpu64, src
+    metrics["cpu_f64"] = dict(loss=loss, aux=aux, grad_norm=math.sqrt(
+        sum(float(v.square().sum()) for v in g64.values())))
+
+    card = model.LM(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    card.trainable()
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        _, loss, g = grad(card, cfg)
+        _, loss, _, g_tf32, r_tf32 = grad(card, cfg)
     finally:
         device.strict_numerics()
-    grads["tf32"] = {k: v.cpu() for k, v in g.items()}
     metrics["card_tf32"] = dict(loss=loss)
-    del g
-    for name, m in (("card", card), ("cpu", cpu)):
-        named, loss, g = grad(m, cfg)
-        if name == "card" and repeat:
-            _, loss2, g2 = grad(m, cfg)
-            out["repeat_bitwise"] = loss2 == loss and all(
-                torch.equal(g[k], g2[k]) for k in g)
-            del g2
-        grads[name] = {k: v.cpu() for k, v in g.items()}
-        _, _, met = adamw_update(named, g, init_opt_state(
-            named, AdamWConfig()), AdamWConfig())
-        metrics[name] = dict(loss=loss, **{k: float(v)
-                                           for k, v in met.items()})
-        del g
-    _, loss, g64 = grad(cpu64, cfg64)
-    del cpu64
-    metrics["cpu_f64"] = dict(loss=loss, grad_norm=math.sqrt(
-        sum(float(v.square().sum()) for v in g64.values())))
+    card_named, loss, aux, g_card, r_card = grad(card, cfg)
+    if repeat:
+        _, loss2, _, g2, _ = grad(card, cfg)
+        out["repeat_bitwise"] = loss2 == loss and all(
+            torch.equal(g_card[k], g2[k]) for k in g_card)
+        del g2
+    metrics["card"] = dict(loss=loss, aux=aux)
+    cpu_named, loss, aux, g_cpu, r_cpu = grad(cpu, cfg)
+    metrics["cpu"] = dict(loss=loss, aux=aux)
 
     def gap(a, b):
         n = float(torch.linalg.vector_norm(b.double()))
         d = float(torch.linalg.vector_norm(a.double() - b.double()))
         return d / n if n > 0 else d
 
-    out["tensors"] = {k: dict(
-        card_cpu=gap(grads["card"][k], grads["cpu"][k]),
-        tf32_cpu=gap(grads["tf32"][k], grads["cpu"][k]),
-        card_f64=gap(grads["card"][k], g64[k]),
-        cpu_f64=gap(grads["cpu"][k], g64[k]),
-        norm=float(torch.linalg.vector_norm(grads["cpu"][k].double())))
-        for k in g64}
+    out["tensors"] = {}
+    for k in g64:
+        c, f = g_cpu[k].cuda(), g64[k].cuda()
+        out["tensors"][k] = dict(
+            card_cpu=gap(g_card[k], c), tf32_cpu=gap(g_tf32[k], c),
+            card_f64=gap(g_card[k], f), cpu_f64=gap(c, f),
+            norm=float(torch.linalg.vector_norm(c.double())))
+        del c, f
+    del g_tf32, g64
+
+    def differ(a, b):
+        return dict(idx=sum(int((x[0] != y[0]).sum()) for x, y in zip(a, b)),
+                    keep=sum(int((x[1] != y[1]).sum())
+                             for x, y in zip(a, b)))
+
+    out["routing"] = dict(
+        moe_layers=n_moe, assignments=sum(r[1].numel() for r in r_cpu),
+        dropped_cpu=sum(int((~r[1]).sum()) for r in r_cpu),
+        card_cpu=differ(r_card, r_cpu), f64_cpu=differ(r64, r_cpu),
+        tf32_cpu=differ(r_tf32, r_cpu))
+    for name, named, g in (("card", card_named, g_card),
+                           ("cpu", cpu_named, g_cpu)):
+        _, _, met = adamw_update(named, g, init_opt_state(
+            named, AdamWConfig()), AdamWConfig())
+        metrics[name].update({k: float(v) for k, v in met.items()})
+    del g_card, g_cpu
     out["metrics"] = metrics
     out["max_param_err"] = max(
         float((a.detach().cpu() - b.detach()).abs().max())
@@ -3304,9 +3427,14 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
 
 
 def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
-                       limits=TRAIN_GRAD_LIMITS):
+                       limits=TRAIN_GRAD_LIMITS, experts: int = 0,
+                       repeat: bool = False):
     """`_train_step_grads` at its default seeds, held to the CPU: loss and
-    lr within 1e-5 relative and the updated parameters within 2 lr + 1e-6,
+    lr (and an MoE arch's aux loss) within 1e-5 relative, the same routing
+    as the CPU's (top-k indices and kept assignments; the f64 oracle's
+    differences are reported), with `repeat` a second card gradient
+    equal to the first bit for bit, and the updated parameters within 2 lr
+    + 1e-6,
     the CPU tests' tolerances (f32 sums in other orders; AdamW's first
     step turns a gradient near 0 into +-lr).  Each tensor's gradient is
     within its limit in `limits` (TRAIN_GRAD_LIMITS for starcoder2,
@@ -3319,10 +3447,12 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
     embedding-input arch: zero on the CPU) must read zero on the card and
     has no control."""
     import re
-    r = _train_step_grads(arch=arch, layers=layers)
-    met, per = r["metrics"], r["tensors"]
+    r = _train_step_grads(arch=arch, layers=layers, experts=experts,
+                          repeat=repeat)
+    met, per, routing = r["metrics"], r["tensors"], r["routing"]
     rel = {k: abs(met["card"][k] - met["cpu"][k]) / abs(met["cpu"][k])
-           for k in ("loss", "grad_norm", "lr")}
+           for k in ("loss", "grad_norm", "lr")
+           + (("aux",) if routing["moe_layers"] else ())}
     # for a zero CPU gradient, card_cpu is the card gradient's norm
     unreached = {k for k, t in per.items() if t["norm"] == 0.0}
     lim = {k: 0.0 if k in unreached
@@ -3336,18 +3466,31 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
                              per.items())) / met["cpu"]["grad_norm"]
     lr = met["cpu"]["lr"]
     err = r["max_param_err"]
+    routed = routing["card_cpu"] == dict(idx=0, keep=0)
+    repeated = r.get("repeat_bitwise", True)
     if over or blind or not (rel["loss"] <= 1e-5 and rel["lr"] <= 1e-5
+                             and rel.get("aux", 0.0) <= 1e-5
                              and rel["grad_norm"] <= norm_tol
-                             and err <= 2 * lr + 1e-6):
+                             and err <= 2 * lr + 1e-6
+                             and routed and repeated):
         raise AssertionError(
             f"train card vs CPU ({arch}): {rel} (grad norm tol {norm_tol}); tensors "
             f"over their limit {over}; tensors the TF32 control passes "
-            f"{blind}; parameters {err} > {2 * lr + 1e-6}")
+            f"{blind}; parameters {err} > {2 * lr + 1e-6}; routing "
+            f"{routing}; repeat bitwise {repeated}")
     by_limit = {}
     for k, v in lim.items():
         by_limit.setdefault(v, []).append(k)
+    moe_kw = {} if not routing["moe_layers"] else dict(
+        experts=experts or "all", assignments=routing["assignments"],
+        dropped_cpu=routing["dropped_cpu"],
+        routing_diff_card_cpu=routing["card_cpu"],
+        routing_diff_f64_cpu=routing["f64_cpu"],
+        routing_diff_tf32_cpu=routing["tf32_cpu"])
+    if repeat:
+        moe_kw["repeat_bitwise"] = repeated
     log("train.card_vs_cpu", arch=arch, layers=layers, dtype="float32",
-        loss=f"{met['card']['loss']:.6f}",
+        **moe_kw, loss=f"{met['card']['loss']:.6f}",
         **{f"{k}_rel": f"{v:.3g}" for k, v in rel.items()},
         grad_norm_tol=f"{norm_tol:.3g}",
         **{f"limit_{v:g}": f"max {max(per[k]['card_cpu'] for k in ks):.3g}"
@@ -3355,7 +3498,9 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
            for v, ks in by_limit.items() if v > 0},
         unreached=sorted(unreached),
         max_param_err=f"{err:.3g}", param_tol=f"{2 * lr + 1e-6:.3g}")
-    return dict(arch=arch, layers=layers, metrics=met, rel=rel,
+    return dict(arch=arch, layers=layers, experts=experts, metrics=met,
+                rel=rel, routing=routing, repeat_bitwise=r.get(
+                    "repeat_bitwise"),
                 grad_norm_tol=norm_tol, tensors=per, limits=lim,
                 unreached=sorted(unreached),
                 max_param_err=err, param_tol=2 * lr + 1e-6)
@@ -3370,7 +3515,10 @@ def phase_train():
     full-depth run (its WKV's gradient through the backward kernel) and
     its 2-layer step on the card against the CPU; then phi-3-vision-4.2b's
     and musicgen-large's full-depth runs on embeddings (musicgen at
-    accum_steps 2) and their 2-layer steps on the card against the CPU.
+    accum_steps 2) and their 2-layer steps on the card against the CPU;
+    then dbrx-132b at published widths, 1 layer deep, at accum_steps 1,
+    and its 1-layer step with 8 of its 16 experts on the card against the
+    CPU (DBRX_TRAIN_ARCH: why it is cut).
     No checkpoint round for the others: the format is the model's tree,
     which starcoder2 proves."""
     import torch
@@ -3417,6 +3565,19 @@ def phase_train():
         res["card_vs_cpu_s"] = time.perf_counter() - t1
         out[arch] = res
         per_arch.append(arch_launches)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dbrx, dbrx_launches = _train_full_depth(
+        _depth_cut(DBRX_TRAIN_ARCH, DBRX_TRAIN_LAYERS), accum_steps=1)
+    dbrx["full_depth_s"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dbrx["card_vs_cpu"] = _train_card_vs_cpu(
+        DBRX_TRAIN_ARCH, DBRX_CPU_LAYERS, DBRX_GRAD_LIMITS,
+        experts=DBRX_CPU_EXPERTS, repeat=True)
+    dbrx["card_vs_cpu_s"] = time.perf_counter() - t1
+    out[DBRX_TRAIN_ARCH] = dbrx
+    per_arch.append(dbrx_launches)
     launches = {k: launches[k] + sum(p[k] for p in per_arch)
                 for k in launches}
     out["seconds"] = time.perf_counter() - t0
@@ -3429,7 +3590,8 @@ def phase_train():
         rwkv6_full_depth_s=f"{rwkv['full_depth_s']:.3f}",
         rwkv6_card_vs_cpu_s=f"{rwkv['card_vs_cpu_s']:.3f}",
         **{f"{arch}_{k}": f"{out[arch][k]:.3f}"
-           for arch in (PHI3_TRAIN_ARCH, MUSICGEN_TRAIN_ARCH)
+           for arch in (PHI3_TRAIN_ARCH, MUSICGEN_TRAIN_ARCH,
+                        DBRX_TRAIN_ARCH)
            for k in ("full_depth_s", "card_vs_cpu_s")}, **launches)
     return out, launches
 

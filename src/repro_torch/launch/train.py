@@ -11,6 +11,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large \
         --full --steps 5 --batch 2 --seq 1024 --accum-steps 2
 
+dbrx-132b trains on a card only cut to 1 layer (its published 40 do not
+fit one card: at 1 layer its bf16 weights and gradients and f32 moments
+are 53.9 GB, at 2 layers 93 GB) and at `accum_steps` 1; `chip_smoke.py`'s
+`train` phase registers that cut and runs it through `train()`.
+
 Runs the training path on one card (or on the CPU after
 `repro_torch.device.set_device("cpu")`): the model initialised from a seed
 with `requires_grad` on, the AdamW state, the synthetic (or memmap) data
@@ -18,7 +23,8 @@ pipeline (f32 embeddings [B, S, D] and labels for the embedding-input
 archs, phi-3-vision-4.2b and musicgen-large), the eager train step (each
 layer recomputed in the backward when the config asks for remat; on a
 card the attention's, the Mamba2 SSD's and the RWKV6 WKV's gradients go
-through their backward kernels), periodic async checkpoints in the
+through their backward kernels, and the MoE's bf16 products through
+`models.moe.MatmulF32`), periodic async checkpoints in the
 reference's npz layout with restore of the latest, gradient accumulation
 and optional int8 gradient compression.  The reference lays the model over a (data,
 model) mesh; the port runs on one device, and mesh sizes other than 1

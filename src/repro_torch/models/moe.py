@@ -25,8 +25,12 @@ Rounding follows the reference step by step:
 On the card a bf16 product with an f32 result is `torch.bmm` / `torch.mm`
 with `out_dtype=torch.float32` (cuBLAS, f32 sums); on the CPU, where that
 overload is absent, the operands are widened to f32, which is exact.
+PyTorch registers no derivative for that overload, so the product is an
+autograd Function (`MatmulF32`) whose backward is the reference's
+transpose rule: the f32 cotangent times the other operand widened to
+f32, an f32 result cast once to the operand's dtype.
 
-Two choices make the result independent of the device's scheduling:
+Three choices make the result independent of the device's scheduling:
   * the top k experts are the first k of a stable descending sort over E,
     so that equal scores break toward the lower expert index, as
     `jax.lax.top_k` breaks them;
@@ -34,6 +38,14 @@ Two choices make the result independent of the device's scheduling:
     map [T, k] -> slot and sums them over k in order, where the reference
     scatter-adds (`index_add_` is atomic on CUDA).  Its f32 sum is
     therefore fixed, and differs from the reference's order by rounding.
+    Its backward writes each kept slot once (one (token, j) reads it; the
+    many reads of the zero row land on a row that is dropped), so it
+    needs no order of its own;
+  * the dispatch `x_pad[buf_tok]`, whose autograd backward would
+    scatter-add each token's k slot gradients, is a Function (`Dispatch`)
+    whose backward gathers them through the same inverse map and sums
+    them over k in order (`gather_sum`): the combine's forward, run on
+    the gradient.
 """
 from __future__ import annotations
 
@@ -90,16 +102,90 @@ def observe(fn: Callable):
         _OBSERVERS.remove(fn)
 
 
+class MatmulF32(torch.autograd.Function):
+    """a @ b (2-D, or batched 3-D over the experts) of two activation-dtype
+    operands, with an f32 result: the reference's `dot_general` with
+    `preferred_element_type=f32`, and its transpose rule for a gradient
+    (`jax/_src/lax/lax.py:_dot_general_transpose_lhs` / `_rhs`): the f32
+    cotangent g times the other operand widened to f32, summed in f32 (no
+    TF32) and cast once to the operand's dtype,
+        grad_a = (g @ b.float().mT).to(a.dtype)
+        grad_b = (a.float().mT @ g).to(b.dtype).
+    The cotangent is never rounded to the operands' dtype.  A batched
+    product takes its gradient one expert at a time, so that the widened
+    expert slice and its f32 weight gradient are all the backward holds
+    beside its outputs: 264 MB each at dbrx-132b's [6144, 10752], where the
+    whole stack's would be 4.23 GB each.  The same arithmetic on the CPU
+    and the card."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            mm = torch.bmm if a.dim() == 3 else torch.mm
+            return mm(a, b, out_dtype=torch.float32)
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        need_a, need_b = ctx.needs_input_grad[:2]
+        if a.dim() == 2:
+            ga = (torch.matmul(g, b.float().mT).to(a.dtype) if need_a
+                  else None)
+            gb = (torch.matmul(a.float().mT, g).to(b.dtype) if need_b
+                  else None)
+            return ga, gb
+        ga = torch.empty_like(a) if need_a else None
+        gb = torch.empty_like(b) if need_b else None
+        for e in range(a.shape[0]):
+            # each assignment casts its f32 product once to the dtype
+            if need_a:
+                ga[e] = torch.mm(g[e], b[e].float().mT)
+            if need_b:
+                gb[e] = torch.mm(a[e].float().mT, g[e])
+        return ga, gb
+
+
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b (2-D or batched 3-D) with the products of the activation-dtype
     operands summed in f32 and the result kept in f32 (the reference's
-    `preferred_element_type=f32` with no cast back)."""
+    `preferred_element_type=f32` with no cast back); f32 and f64 operands
+    take the plain product and its autograd."""
     if a.dtype in (torch.float32, torch.float64):
         return torch.matmul(a, b)
-    if a.is_cuda:
-        mm = torch.bmm if a.dim() == 3 else torch.mm
-        return mm(a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
+    return MatmulF32.apply(a, b)
+
+
+def gather_sum(y: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """y [E * C, D], slots [T, k] (E * C where an assignment was dropped)
+    -> [T, D]: each token's k rows of y summed over k in order, in y's
+    dtype, a dropped assignment reading a zero row."""
+    y_pad = torch.cat([y, y.new_zeros(1, y.shape[1])])
+    out = y_pad[slots[:, 0]]
+    for j in range(1, slots.shape[1]):
+        out = out + y_pad[slots[:, j]]
+    return out
+
+
+class Dispatch(torch.autograd.Function):
+    """x [T, D] -> the capacity buffers' rows x_pad[buf_tok] [E * C, D]
+    (row T of x_pad, an empty slot's, is zero).  Its backward sums each
+    token's k slot gradients in k order through the inverse map `slots`
+    (`gather_sum`), in the cotangent's dtype, x's, as the reference's
+    transpose of the gather scatter-adds in x's dtype
+    (`repro/models/moe.py:119-120`); an empty slot's gradient is read by
+    no token."""
+
+    @staticmethod
+    def forward(ctx, x, buf_tok, slots):
+        ctx.save_for_backward(slots)
+        return torch.cat([x, x.new_zeros(1, x.shape[1])])[buf_tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        (slots,) = ctx.saved_tensors
+        return gather_sum(g, slots), None, None
 
 
 def _top_k(scores: torch.Tensor, k: int
@@ -162,18 +248,13 @@ def _moe_body(x: torch.Tensor, p: MoE, cfg
     for fn in _OBSERVERS:
         fn(idx, keep.view(t, k), cap)
 
-    x_pad = torch.cat([x, x.new_zeros(1, d)])
-    xg = x_pad[buf_tok].view(e, cap, d)
+    slots = slot.view(t, k)
+    xg = Dispatch.apply(x, buf_tok, slots).view(e, cap, d)
     y = _swiglu_grouped(xg, p.w_gate, p.w_up, p.w_down).view(e * cap, d)
     y = y * buf_w[:, None].to(y.dtype)
     # combine: each token's k slot outputs (a zero row where dropped),
-    # summed over k in order
-    yf = f32(y)
-    y_pad = torch.cat([yf, yf.new_zeros(1, d)])
-    slots = slot.view(t, k)
-    out = y_pad[slots[:, 0]]
-    for j in range(1, k):
-        out = out + y_pad[slots[:, j]]
+    # summed over k in order in f32
+    out = gather_sum(f32(y), slots)
 
     if p.shared is not None:
         s = p.shared

@@ -41,7 +41,10 @@ matmuls and the kernels sum in other orders than the CPU's, through a few
 layers).  An MoE layer, card against CPU with the same routing: 1e-5 in
 f32, 1e-2 in bf16 (a sum that lands on the other side of a bf16 rounding
 boundary moves a result by one bf16 step); in bf16 two calls on the card
-give the same bits.
+give the same bits.  The MoE layer's bf16 backward (the f32-result
+products' Function, the fixed-order dispatch): the same bits over two
+calls, each gradient within 2e-2 relative L2 of the CPU's.  AdamW sliced
+and whole: the same bits.
 """
 import numpy as np
 import pytest
@@ -1269,6 +1272,82 @@ def test_moe_apply_f32_on_card_matches_cpu(cuda):
     assert torch.equal(route_a[1], route_w[1])
     err = ((got.cpu() - want).abs() / want.abs().clamp_min(1.0)).max()
     assert float(err) <= 1e-5
+
+
+def _moe_grads(p, x, cfg, ct):
+    """moe_apply's gradient of the cotangent `ct` in x and in every
+    parameter of the layer (router, expert stacks, shared expert), and
+    its routing."""
+    p.requires_grad_(True)
+    try:
+        xt = x.clone().requires_grad_()
+        out, _, route = _moe_run(p, xt, cfg)
+        names, leaves = zip(*p.named_parameters())
+        grads = torch.autograd.grad(out, (xt,) + leaves, ct)
+    finally:
+        p.requires_grad_(False)
+    return dict(zip(("x",) + names, grads)), route
+
+
+@pytest.mark.parametrize("factor", [0.5, 1.25])
+def test_moe_backward_bf16_on_card(cuda, factor):
+    """The bf16 MoE backward on the card, through `MatmulF32` (the grouped
+    and the shared expert's products) and `Dispatch`: two calls give the
+    same bits, the routing equals the CPU's, and every gradient is within
+    2e-2 relative L2 of the CPU's gradient of the same Functions (the same
+    f32 sums in other orders, each rounded once to bf16; a rounding step
+    in h's or x's gradient carries on, as tests/test_torch_moe_grad.py
+    holds the CPU to the reference)."""
+    import copy
+    cfg, cpu_p, x = _moe_case("bfloat16", seed=9)
+    cfg = cfg.replace(capacity_factor=factor)
+    ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        10)).bfloat16()
+    card_p = copy.deepcopy(cpu_p).to(cuda)
+    a, route_a = _moe_grads(card_p, x.to(cuda), cfg, ct.to(cuda))
+    b, _ = _moe_grads(card_p, x.to(cuda), cfg, ct.to(cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    want, route_w = _moe_grads(cpu_p, x, cfg, ct)
+    assert torch.equal(route_a[0], route_w[0])
+    assert torch.equal(route_a[1], route_w[1])
+    assert set(a) == set(want) and any(k.startswith("shared.") for k in a)
+    for k, g in a.items():
+        assert g.dtype == want[k].dtype == torch.bfloat16, k
+        w = want[k].double()
+        gap = float((g.cpu().double() - w).norm() / w.norm())
+        assert gap <= 2e-2, (k, gap)
+
+
+def test_sliced_adamw_on_card_is_bitwise_the_whole(cuda, monkeypatch):
+    """AdamW on the card over a bf16 tensor of three slices (the constant
+    patched to a third of it): parameters and moments after three steps
+    equal the unsliced update's bit for bit."""
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(peak_lr=1e-2, warmup_steps=2, total_steps=10,
+                            clip_norm=0.5)
+    g = torch.Generator().manual_seed(11)
+    p0 = {"w": torch.randn(3, 1000, 333, generator=g).bfloat16().to(cuda),
+          "b": torch.randn(333, generator=g).to(cuda)}
+    grads = [{k: torch.randn(v.shape, generator=g).to(cuda, v.dtype)
+              for k, v in p0.items()} for _ in range(3)]
+    out = {}
+    for size in (1000 * 333, 1 << 26):
+        monkeypatch.setattr(adamw, "_SLICE", size)
+        params = {k: v.clone() for k, v in p0.items()}
+        opt = adamw.init_opt_state(params, cfg)
+        for gr in grads:
+            params, opt, _ = adamw.adamw_update(params, gr, opt, cfg)
+        out[size] = (params, opt)
+    monkeypatch.setattr(adamw, "_SLICE", 1000 * 333)
+    assert len(adamw._slices(p0["w"])) == 3
+    (pa, oa), (pb, ob) = out.values()
+    torch.cuda.synchronize()
+    for k in p0:
+        assert torch.equal(pa[k], pb[k]), k
+        assert torch.equal(oa["m"][k], ob["m"][k]), k
+        assert torch.equal(oa["v"][k], ob["v"][k]), k
+    assert not torch.equal(pa["w"], p0["w"])
 
 
 # --------------------------------------------------------------------------

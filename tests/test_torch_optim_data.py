@@ -124,6 +124,87 @@ def test_adamw_update_matches_reference(moments, param_dtype):
     assert int(to["step"]) == 3
 
 
+def _adamw_whole(params, grads, state, cfg):
+    """The update as whole-tensor expressions, out of place: the
+    arithmetic `adamw_update` forms slice by slice, in place."""
+    step = state["step"] + 1
+    lr = tadamw.cosine_schedule(step, cfg)
+    gnorm = tadamw.global_norm(grads)
+    scale = torch.minimum(torch.ones(()), cfg.clip_norm / torch.maximum(
+        gnorm, torch.full((), 1e-12)))
+    mdt = getattr(torch, cfg.moments_dtype)
+    stepf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1), stepf)
+    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2), stepf)
+    for k, p in params.items():
+        m, v = state["m"][k], state["v"][k]
+        g32 = grads[k].float() * scale
+        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g32)
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+        m.copy_(m32.to(mdt))
+        v.copy_(v32.to(mdt))
+    return params, dict(state, step=step), {"lr": lr, "grad_norm": gnorm}
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_sliced_adamw_update_is_bitwise_the_whole(monkeypatch, moments,
+                                                  param_dtype):
+    """`adamw_update` walks a tensor larger than `_SLICE` elements one
+    leading-dimension slice at a time, in place.  With the constant
+    patched to 12, tensors of 2 to 3 slices (and one whose rows are each
+    larger than a slice) take three steps: parameters, moments and
+    metrics equal the unsliced update's bit for bit, and the whole-tensor
+    out-of-place expressions' (`_adamw_whole`; elementwise arithmetic in
+    the same order)."""
+    kw = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10, clip_norm=0.5,
+              moments_dtype=moments)
+    cfg = tadamw.AdamWConfig(**kw)
+    dt = getattr(torch, param_dtype)
+    rng = np.random.default_rng(3)
+    shapes = {"a": (7, 3), "b": (30,), "c": (2, 4, 3), "d": (3, 20),
+              "e": (5,), "f": ()}
+    p0 = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          .to(dt) for k, s in shapes.items()}
+    grads = [{k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              .to(dt) for k, s in shapes.items()} for _ in range(3)]
+    out = {}
+    for size in (12, 1 << 26, None):
+        monkeypatch.setattr(tadamw, "_SLICE", size or 1 << 26)
+        if size == 12:
+            assert [len(tadamw._slices(v)) for v in p0.values()] \
+                == [2, 3, 2, 3, 1, 1]
+        update = tadamw.adamw_update if size else _adamw_whole
+        params = {k: v.clone() for k, v in p0.items()}
+        opt = tadamw.init_opt_state(params, cfg)
+        for g in grads:
+            params, opt, met = update(params, g, opt, cfg)
+        out[size] = (params, opt, met)
+    pa, oa, ma = out[12]
+    for pb, ob, mb in (out[1 << 26], out[None]):
+        for k in shapes:
+            assert torch.equal(pa[k], pb[k]) and pa[k].dtype == dt, k
+            assert torch.equal(oa["m"][k], ob["m"][k]), k
+            assert torch.equal(oa["v"][k], ob["v"][k]), k
+        assert all(torch.equal(ma[k], mb[k]) for k in ma)
+        assert int(oa["step"]) == int(ob["step"]) == 3
+
+
+def test_adamw_slices_an_expert_stack_one_expert_at_a_time():
+    """At the constant's 2^26 elements, dbrx-132b's [16, 6144, 10752]
+    expert stack is 16 slices of one expert (66,060,288 elements each),
+    and its embedding [100352, 6144] slices of 10,922 rows."""
+    stack = torch.empty(16, 6144, 10752, device="meta")
+    table = torch.empty(100352, 6144, device="meta")
+    assert tadamw._SLICE == 1 << 26
+    assert tadamw._slices(stack) == [slice(i, i + 1) for i in range(16)]
+    rows = {s.stop - s.start for s in tadamw._slices(table)}
+    assert rows == {10922} and len(tadamw._slices(table)) == 10
+
+
 def test_bf16_moments_dtype():
     """tests/test_substrate.py::test_bf16_moments_dtype on the port."""
     cfg = tadamw.AdamWConfig(moments_dtype="bfloat16")

@@ -1,6 +1,6 @@
 """The port's training path against the reference, on the CPU.
 
-Reduced zamba2-2.7b, starcoder2-3b and rwkv6-3b (f32) with the
+Reduced zamba2-2.7b, starcoder2-3b, rwkv6-3b and dbrx-132b (f32) with the
 reference's parameters carried across (`weights.params_from_numpy`), the
 same batches made with numpy, and JAX's jitted `make_train_step` against
 the port's.  Tolerances, each with its reason:
@@ -58,7 +58,7 @@ from torch_train_util import (numpy_tree, reference_params, reference_train,
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
-ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b"]
+ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b", "dbrx-132b"]
 REL = 1e-5
 
 
@@ -693,6 +693,35 @@ a = train("starcoder2-3b", steps=4, batch=2, seq=16, ckpt_dir={str(tmp_path)!r},
 b = train("starcoder2-3b", steps=6, batch=2, seq=16, ckpt_dir={str(tmp_path)!r},
           ckpt_every=2, log_every=100)
 assert len(a["losses"]) == 4 and len(b["losses"]) == 2
+loaded = sorted(m for m in sys.modules if m in ("jax", "repro")
+                or m.startswith("jax.") or m.startswith("repro."))
+print("LOADED", loaded)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_moe_train_loads_neither_jax_nor_repro():
+    """Reduced dbrx-132b `train()` (the MoE's dispatch and combine, top-2
+    of 4 experts) in a fresh interpreter: finite losses, parameters that
+    move, and neither `jax` nor `repro` loads."""
+    root = Path(__file__).resolve().parents[1]
+    code = f"""
+import sys
+import math
+sys.path.insert(0, {str(root / 'src')!r})
+from repro_torch import device
+device.set_device("cpu")
+from repro_torch.launch.train import train
+from repro_torch.models import model
+out = train("dbrx-132b", steps=3, batch=2, seq=16, log_every=100)
+assert len(out["losses"]) == 3 and all(map(math.isfinite, out["losses"]))
+start = model.init_params(out["params"].cfg, 0, "cpu")
+assert any(not (a.detach() == b).all() for a, b in
+           zip(out["params"].parameters(), start.parameters()))
 loaded = sorted(m for m in sys.modules if m in ("jax", "repro")
                 or m.startswith("jax.") or m.startswith("repro."))
 print("LOADED", loaded)

@@ -1,11 +1,12 @@
 """Per-tensor gradient readings of one f32 train step at full width
 (chip_smoke.py's card-vs-CPU step), over several seeds: starcoder2-3b 2
-layers deep, zamba2-2.7b one group (6 layers) deep, or rwkv6-3b,
+layers deep, zamba2-2.7b one group (6 layers) deep, rwkv6-3b,
 phi-3-vision-4.2b or musicgen-large 2 layers deep (the last two on
-embeddings).  These are the readings from which chip_smoke.py's limits
-TRAIN_GRAD_LIMITS, ZAMBA_GRAD_LIMITS, RWKV_GRAD_LIMITS, PHI3_GRAD_LIMITS
-and MUSICGEN_GRAD_LIMITS are set.  A measurement aid beside
-chip_smoke.py; the port never imports it.
+embeddings), or dbrx-132b 1 layer deep with 8 of its 16 experts.  These
+are the readings from which chip_smoke.py's limits TRAIN_GRAD_LIMITS,
+ZAMBA_GRAD_LIMITS, RWKV_GRAD_LIMITS, PHI3_GRAD_LIMITS, MUSICGEN_GRAD_LIMITS
+and DBRX_GRAD_LIMITS are set.  A measurement aid beside chip_smoke.py;
+the port never imports it.
 
     python3 train_grad_readings.py                  # from the repo root, on a card
     python3 train_grad_readings.py --seeds 7:9 11:13
@@ -13,13 +14,15 @@ chip_smoke.py; the port never imports it.
     python3 train_grad_readings.py --arch rwkv6-3b
     python3 train_grad_readings.py --arch phi-3-vision-4.2b
     python3 train_grad_readings.py --arch musicgen-large
+    python3 train_grad_readings.py --arch dbrx-132b
 
 For each `params:tokens` seed pair it runs `chip_smoke._train_step_grads`
 (the card, the card with TF32 GEMMs as a control of lower precision, the
 port on the CPU in f32, and the same model in float64 on the CPU) and
 records each tensor's relative L2 gap of the card's gradient to the
-CPU's and of both to float64, the control's gap to the CPU's, and
-whether the card's gradient repeats bit for bit.  The summary gives, per
+CPU's and of both to float64, the control's gap to the CPU's, whether
+the card's gradient repeats bit for bit, and for an MoE arch the routing
+differences of the card, the control and float64 from the CPU.  The summary gives, per
 tensor, the largest card-vs-CPU gap over the seeds and the smallest gap
 the control reads.  Prints one JSON line per seed and the summary, and
 writes everything to `chiprun_out/train_grad_readings.json`
@@ -46,11 +49,14 @@ def main() -> int:
               chip_smoke.ZAMBA_TRAIN_ARCH: chip_smoke.ZAMBA_CPU_LAYERS,
               chip_smoke.RWKV_TRAIN_ARCH: chip_smoke.RWKV_CPU_LAYERS,
               chip_smoke.PHI3_TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS,
-              chip_smoke.MUSICGEN_TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS}
+              chip_smoke.MUSICGEN_TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS,
+              chip_smoke.DBRX_TRAIN_ARCH: chip_smoke.DBRX_CPU_LAYERS}
+    experts = {chip_smoke.DBRX_TRAIN_ARCH: chip_smoke.DBRX_CPU_EXPERTS}
     ap.add_argument("--arch", default=chip_smoke.TRAIN_ARCH,
                     choices=tuple(layers))
     args = ap.parse_args()
     layers = layers[args.arch]
+    experts = experts.get(args.arch, 0)
     import torch
     from repro_torch import device
     if not torch.cuda.is_available():
@@ -65,12 +71,14 @@ def main() -> int:
     for pair in args.seeds:
         seed, tok_seed = (int(x) for x in pair.split(":"))
         r = chip_smoke._train_step_grads(seed, tok_seed, repeat=True,
-                                         arch=args.arch, layers=layers)
+                                         arch=args.arch, layers=layers,
+                                         experts=experts)
         r.update(seed=seed, tok_seed=tok_seed)
         runs.append(r)
         print(json.dumps(dict(seed=seed, tok_seed=tok_seed,
                               metrics=r["metrics"],
                               repeat_bitwise=r["repeat_bitwise"],
+                              routing=r["routing"],
                               max_param_err=r["max_param_err"])), flush=True)
     summary = {}
     for k in runs[0]["tensors"]:
@@ -86,7 +94,8 @@ def main() -> int:
     name = ("train_grad_readings.json" if args.arch == chip_smoke.TRAIN_ARCH
             else f"train_grad_readings_{args.arch}.json")
     (out_dir / name).write_text(json.dumps(
-        dict(device=smi, arch=args.arch, layers=layers, runs=runs,
+        dict(device=smi, arch=args.arch, layers=layers, experts=experts,
+             runs=runs,
              summary=summary), indent=1))
     return 0
 
