@@ -192,7 +192,19 @@ to the CPU:
                 and 48 x 6 x 2; the profiled step gives the attention
                 kernels' ms and launches; and one f32 step 2 layers deep on
                 the card against the CPU at PHI3_GRAD_LIMITS and
-                MUSICGEN_GRAD_LIMITS.
+                MUSICGEN_GRAD_LIMITS.  Then the MoE archs at published
+                widths and accum_steps 1: dbrx-132b 1 layer deep with all
+                16 experts (2 x 1 x 6 and 1 x 6 attention launches), and
+                deepseek-v3-671b with its MTP loss, 4 layers deep (3
+                dense), 32 of its 256 experts (2 x 4 x 6 + 6 and 4 x 6 +
+                6: the MTP layer is not rematerialised); each with a
+                `train.moe` line (drop share, the largest load against
+                the capacity, every recompute routed as its forward) and
+                one f32 step on the card against the CPU (dbrx 1 layer, 8
+                experts; deepseek 1 layer, its MoE layer and the MTP
+                block, 16 experts) at DBRX_GRAD_LIMITS and
+                DEEPSEEK_GRAD_LIMITS, with 0 routing differences, a
+                bitwise repeat and the host's seconds by stage.
  11. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
@@ -945,7 +957,9 @@ def _attention_bwd_rows(randn):
     shapes (starcoder2-3b: B 2, S 1024, 24 query heads over 2 kv heads of
     128, in bf16 and f32; phi-3-vision-4.2b: B 2, 32 MHA heads of 96;
     musicgen-large: a microbatch of 1, 32 MHA heads of 64; dbrx-132b: B 2,
-    48 query heads over 8 kv heads of 128), an MLA width
+    48 query heads over 8 kv heads of 128; deepseek-v3-671b: B 2, 128 MLA
+    heads of 192 -> 128, at S 1024 and at its MTP layer's S - 1 = 1023),
+    an MLA width
     (Dh 192, Dv 128) and Sq < Skv.  The
     oracle is float64 on the card: the plain blocked backward
     (ref.attention_bwd) on the same q, k, v, output, log-sum-exp and
@@ -977,7 +991,11 @@ def _attention_bwd_rows(randn):
             ("phi-3-vision bf16 S=1024", 2, 1024, 1024, 32, 32, 96, 96,
              bf16),
             ("musicgen bf16 S=1024", 1, 1024, 1024, 32, 32, 64, 64, bf16),
-            ("dbrx bf16 S=1024", 2, 1024, 1024, 48, 8, 128, 128, bf16)):
+            ("dbrx bf16 S=1024", 2, 1024, 1024, 48, 8, 128, 128, bf16),
+            ("deepseek bf16 S=1024", 2, 1024, 1024, 128, 128, 192, 128,
+             bf16),
+            ("deepseek MTP bf16 S=1023", 2, 1023, 1023, 128, 128, 192, 128,
+             bf16)):
         q = randn(b, sq, h, dh, dtype=dtype)
         k = randn(b, skv, hkv, dh, dtype=dtype)
         v = randn(b, skv, hkv, dv, dtype=dtype)
@@ -1292,8 +1310,12 @@ def phase_lm_kernels():
     versions at the serve paths' shapes (zamba2: 32 heads of 80, 80 SSD
     heads of 64 with a 64-wide state; starcoder2: a GQA group of 12 with
     heads of 128; rwkv6-3b: 40 WKV heads of 64; the dense and MoE archs'
-    prefills) and the attention forward at phi-3-vision's and musicgen's
-    train shapes (MHA at 96 and 64), then the backwards at the train
+    prefills) and the attention forward at phi-3-vision's, musicgen's,
+    dbrx-132b's and deepseek-v3-671b's train shapes (MHA at 96 and 64, GQA
+    48 over 8 at 128, MLA 128 heads at 192 -> 128 at S 1024 and at the
+    MTP layer's 1023; deepseek's also against the plain version in
+    float64),
+    then the backwards at the train
     paths' shapes (`_ssd_bwd_rows`, `_wkv_bwd_rows`,
     `_attention_bwd_rows`)."""
     import torch
@@ -1323,7 +1345,13 @@ def phase_lm_kernels():
             ("phi-3-vision train bf16 B=2 S=1024", 2, 1024, 32, 32, 96, 96,
              bf16),
             ("musicgen train bf16 S=1024", 1, 1024, 32, 32, 64, 64, bf16),
-            ("dbrx train bf16 B=2 S=1024", 2, 1024, 48, 8, 128, 128, bf16)):
+            ("dbrx train bf16 B=2 S=1024", 2, 1024, 48, 8, 128, 128, bf16),
+            # deepseek-v3's training: its 4 layers, and its MTP layer at
+            # S - 1
+            ("deepseek train bf16 B=2 S=1024", 2, 1024, 128, 128, 192, 128,
+             bf16),
+            ("deepseek MTP train bf16 B=2 S=1023", 2, 1023, 128, 128, 192,
+             128, bf16)):
         q = randn(b, sq, h, dh, dtype=dtype)
         k = randn(b, sq, hkv, dh, dtype=dtype)
         v = randn(b, sq, hkv, dv, dtype=dtype)
@@ -1331,8 +1359,14 @@ def phase_lm_kernels():
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
         err = max_err(got.float(), ref.attention(q, k, v).float())
-        if not err <= tol:
-            raise AssertionError(f"flash_attention {label}: {err} > {tol}")
+        # deepseek-v3's train rows are also held to the plain version in
+        # float64, as the backward's rows are
+        err64 = (max_err(got.double(), ref.attention(
+            q.double(), k.double(), v.double()))
+            if label.startswith("deepseek") and "train" in label else None)
+        if not (err <= tol and (err64 is None or err64 <= tol)):
+            raise AssertionError(f"flash_attention {label}: {err} (float64: "
+                                 f"{err64}) > {tol}")
         run = (lambda: fa.flash_attention(q, k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         # every call launches at least one kernel (the port's exactly
@@ -1355,6 +1389,8 @@ def phase_lm_kernels():
             # which SDPA backend ran: its kernels, by device time
             library_kernels=[name[:90] for name, _ in sorted(
                 sdpa.items(), key=lambda kv: -kv[1][0])[:3]])
+        if err64 is not None:
+            row["max_abs_err_f64"] = err64
         if dtype == bf16:
             row["blocks_per_sm"] = fa.bf16_occupancy(dh, dv)
         rows.append(row)
@@ -2792,9 +2828,26 @@ MUSICGEN_TRAIN_ARCH = "musicgen-large"
 # all 16 (16.7 GiB) the step's f32 and f64 copies on the host would come
 # to about 167 GiB.
 DBRX_TRAIN_ARCH = "dbrx-132b"
-DBRX_TRAIN_LAYERS = 1
-DBRX_CPU_LAYERS = 1
-DBRX_CPU_EXPERTS = 8
+DBRX_TRAIN_CUT = dict(n_layers=1)
+DBRX_CPU_CUT = dict(n_layers=1, n_experts=8)
+# deepseek-v3-671b trains after it at its published widths (d_model 7168,
+# MLA with 128 heads of 192 -> 128, vocab 129,280, the sigmoid router,
+# top-8, one shared expert, capacity factor 1.25, MTP depth 1, bf16
+# moments), cut in three ways: (1) to MOE_SERVE_LAYERS = 4 layers with its
+# first_k_dense 3 kept (3 dense MLA layers and 1 MoE layer, as it is
+# served); (2) to 32 of its 256 routed experts, as serve_check cuts it:
+# 5.93 B parameters, whose bf16 weights, gradients and moments take 44.2
+# GiB before any activation (64 experts: 54.7 GiB; the 61-layer model does
+# not fit one card); (3) to accum_steps 1, not its published 8: B 2 does
+# not split into 8 microbatches.  Its card-vs-CPU step is 1 layer deep,
+# first_k_dense 0 (the MoE layer; the MTP block's dense layer carries MLA
+# and the dense SwiGLU), with 16 of the 256 experts, top-8 kept (16 > 8,
+# so routing still chooses), MTP on: 3.48 B parameters, about 65 GiB of
+# host for the step's f32 and f64 copies.
+DEEPSEEK_TRAIN_ARCH = "deepseek-v3-671b"
+DEEPSEEK_TRAIN_CUT = dict(n_layers=MOE_SERVE_LAYERS, first_k_dense=3,
+                          n_experts=32)
+DEEPSEEK_CPU_CUT = dict(n_layers=1, first_k_dense=0, n_experts=16)
 TRAIN_STEPS = 6
 TRAIN_BATCH = 2
 TRAIN_SEQ = 1024
@@ -2912,17 +2965,38 @@ DBRX_GRAD_LIMITS = (
     (r".*", 8e-5),
 )
 
+# deepseek-v3-671b's card-vs-CPU step (DEEPSEEK_CPU_CUT: its MoE layer and
+# the MTP block, 16 of 256 experts, top-8, f32): relative L2 gap per
+# tensor, the first pattern that matches the tensor's name, set as
+# TRAIN_GRAD_LIMITS are: about 3x the largest card-vs-CPU gap over three
+# seeds and below the smallest gap of the TF32 control
+# (train_grad_readings.py --arch deepseek-v3-671b on an NVIDIA H100 80GB
+# HBM3 at 700 W: the numbers beside each pattern).  No softmax saturates
+# as starcoder2's do (128 MLA heads, each projection's fan-in 128): every
+# tensor reads 3.4e-6 to 8.7e-6, about twice the CPU's own distance from
+# float64 (at most 4.0e-6).  The MTP block's tensors, whose gradient comes
+# back through its layer and the shared head, read the most.
+DEEPSEEK_GRAD_LIMITS = (
+    # the MTP block: <= 8.66e-6, TF32 >= 1.72e-3
+    (r"mtp\..*", 2.6e-5),
+    # the MoE layer, the head and the embedding: <= 7.05e-6, TF32 >= 1.40e-3
+    (r".*", 2.1e-5),
+)
 
-def _depth_cut(arch: str, layers: int) -> str:
-    """Register `arch` cut to `layers` layers, its widths kept, under a new
-    name that the port's `train()` takes (as examples/train_lm.py
-    registers its config)."""
+
+def _depth_cut(arch: str, **cut) -> str:
+    """Register `arch` with the config fields in `cut` replaced (its depth
+    `n_layers`, and for an MoE arch its leading dense layers or its expert
+    count, as SERVE_CHECKS cuts), its widths kept, under a new name that
+    the port's `train()` and servers take (as examples/train_lm.py
+    registers its config): `<arch>-<n>l`, then `-<field><value>` for each
+    other field."""
     import types
     from repro_torch import configs
-    name = f"{arch}-{layers}l"
+    name = f"{arch}-{cut['n_layers']}l" + "".join(
+        f"-{k}{v}" for k, v in sorted(cut.items()) if k != "n_layers")
     mod = types.ModuleType(f"chip_smoke_{name}")
-    mod.CONFIG = mod.REDUCED = configs.get(arch).replace(name=name,
-                                                         n_layers=layers)
+    mod.CONFIG = mod.REDUCED = configs.get(arch).replace(name=name, **cut)
     sys.modules[mod.__name__] = mod
     configs._MODULES[name] = mod.__name__
     return name
@@ -3002,7 +3076,10 @@ def _train_launches_want(cfg) -> dict:
     function's forward runs again in the backward, before its backward),
     in each of the step's `accum_steps` microbatches.
     A stack of layers checkpoints each layer: its forward twice a step,
-    its backward once.  zamba2's remat is nested, as the reference's is
+    its backward once.  deepseek-v3's MTP layer is not checkpointed: its
+    attention forward and backward once a step each (4 layers deep: 2 x 4
+    + 1 = 9 forwards and 4 + 1 = 5 backwards a step).  zamba2's remat is
+    nested, as the reference's is
     (repro/models/model.py:155-158): each group of Mamba2 layers and the
     shared attention block is checkpointed, and inside the group's
     recompute each Mamba2 layer is checkpointed again.  So a Mamba2
@@ -3024,8 +3101,13 @@ def _train_launches_want(cfg) -> dict:
                     flash_attention=2 * groups * steps,
                     flash_attention_bwd=groups * steps)
     else:
-        want.update(flash_attention=2 * cfg.n_layers * steps,
-                    flash_attention_bwd=cfg.n_layers * steps)
+        # deepseek-v3's MTP block (one dense layer, whatever mtp_depth)
+        # runs outside the checkpointed stack (models/model.py `_mtp_loss`,
+        # as the reference's): its attention once forward and once
+        # backward per microbatch, with no recompute
+        mtp = 1 if cfg.mtp_depth else 0
+        want.update(flash_attention=(2 * cfg.n_layers + mtp) * steps,
+                    flash_attention_bwd=(cfg.n_layers + mtp) * steps)
     return want
 
 
@@ -3201,7 +3283,7 @@ def _train_checkpoint_resume():
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import train as train_lib
 
-    arch = _depth_cut(TRAIN_ARCH, TRAIN_CKPT_LAYERS)
+    arch = _depth_cut(TRAIN_ARCH, n_layers=TRAIN_CKPT_LAYERS)
     kw = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
               log_every=TRAIN_STEPS)
     base = ROOT / "build" / "train_ckpt"
@@ -3287,21 +3369,31 @@ def _train_checkpoint_resume():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _host_mem_available_gib() -> float:
+    """The host's MemAvailable (/proc/meminfo), GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
 def _train_step_grads(seed: int = 7, tok_seed: int = 9,
                       repeat: bool = False, arch: str = TRAIN_ARCH,
-                      layers: int = TRAIN_CPU_LAYERS,
-                      experts: int = 0) -> dict:
+                      cut=None) -> dict:
     """One train step of `arch` (starcoder2-3b, zamba2-2.7b, rwkv6-3b,
-    phi-3-vision-4.2b, musicgen-large or dbrx-132b) at full width,
-    `layers` deep (and with `experts` of its experts, its top-k kept,
-    where that is given), in f32, from the same parameters (drawn from
+    phi-3-vision-4.2b, musicgen-large, dbrx-132b or deepseek-v3-671b) at
+    full width with the config fields in `cut` replaced (its depth, and
+    for an MoE arch its leading dense layers and its expert count, its
+    top-k kept; TRAIN_CPU_LAYERS deep where no cut is given),
+    in f32, from the same parameters (drawn from
     `seed`) and batch (from `tok_seed`: token ids, or embeddings and
     labels for an embedding-input arch): the gradient of `loss_fn`, then
     `adamw_update` (the train step at one micro-batch), on the card and
     through the port on the CPU; the same gradient on the card with TF32
     GEMMs (a control of lower precision) and of the same model in float64
     on the CPU (the oracle).  Returns the metrics (loss, aux, lr, gradient
-    norm), each tensor's relative L2 gradient gaps (`card_cpu`,
+    norm, and deepseek-v3's MTP cross-entropy), each tensor's relative L2
+    gradient gaps (`card_cpu`,
     `tf32_cpu`, `card_f64`, `cpu_f64`, and `norm`, the CPU gradient's),
     the largest gap of the updated parameters, the MoE forwards' routing
     differences from the CPU's (top-k indices and kept assignments; none
@@ -3311,17 +3403,36 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
     on the card) and the gaps are read one tensor at a time on the card,
     so the host holds at most the f32 model, the f64 model and its
     gradient, five f32 copies of the parameters (54 GiB at dbrx-132b's
-    cut), and the card four.  train_grad_readings.py records these over
-    several seeds."""
+    cut, 65 GiB at deepseek-v3's), and the card four.  `host_s` splits
+    the host's wall seconds into the stages: `init` (the f32 model and the
+    batch), `f64` (the oracle's model and gradient), `card` (the card's
+    model, the TF32 control's gradient, the card's and its repeat),
+    `cpu` (the CPU's gradient), `gaps` (each tensor's gaps and the routing
+    differences) and `adamw` (both updates and the parameters' gap), which
+    sum to `total`; `host_mem_available_gib` is the host's
+    MemAvailable before the step and `host_peak_rss_gib` the process's
+    peak resident size after it.  train_grad_readings.py records these
+    over several seeds."""
+    import resource
     import numpy as np
     import torch
     from repro_torch import configs, device
     from repro_torch.models import model, moe
     from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
-    cfg = configs.get(arch).replace(n_layers=layers, dtype="float32")
-    if experts:
-        cfg = cfg.replace(n_experts=experts)
+    host_s = {}
+    t_all = t_stage = time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        host_s[name] = now - t_stage
+        t_stage = now
+
+    mem_available = _host_mem_available_gib()
+    cfg = configs.get(arch).replace(
+        dtype="float32", **(cut or dict(n_layers=TRAIN_CPU_LAYERS)))
     n_moe = cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0
     cpu = model.init_params(cfg, seed, "cpu").trainable()
     rng = np.random.default_rng(tok_seed)
@@ -3334,11 +3445,13 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
     else:
         batch = {"tokens": torch.as_tensor(rng.integers(
             0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CPU_SEQ)))}
+    stage("init")
 
     def grad(m, c):
-        """-> (named parameters, loss, aux, gradients, routes): routes are
-        the forward's (idx, keep) per MoE layer, on the host (remat's
-        recompute calls the observer again after them)."""
+        """-> (named parameters, loss, {"aux"[, "mtp_ce"]}, gradients,
+        routes): routes are the forward's (idx, keep) per MoE layer, on
+        the host (remat's recompute calls the observer again after
+        them)."""
         named = dict(m.named_parameters())
         dev = next(m.parameters()).device
         seen = []
@@ -3353,8 +3466,9 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
             # reached: a zero gradient, as train() takes it
             g = torch.autograd.grad(loss, list(named.values()),
                                     allow_unused=True, materialize_grads=True)
-        return (named, float(loss.detach()), float(met["aux"].detach()),
-                dict(zip(named, g)), seen[:n_moe])
+        return (named, float(loss.detach()),
+                {k: float(met[k].detach()) for k in ("aux", "mtp_ce")
+                 if k in met}, dict(zip(named, g)), seen[:n_moe])
 
     metrics, out = {}, {}
     # the oracle first: its model is gone before the other gradients exist
@@ -3364,10 +3478,11 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
     with torch.no_grad():
         for k, p64 in cpu64.named_parameters():
             p64.copy_(src[k])
-    _, loss, aux, g64, r64 = grad(cpu64.trainable(), cfg64)
+    _, loss, extra, g64, r64 = grad(cpu64.trainable(), cfg64)
     del cpu64, src
-    metrics["cpu_f64"] = dict(loss=loss, aux=aux, grad_norm=math.sqrt(
+    metrics["cpu_f64"] = dict(loss=loss, **extra, grad_norm=math.sqrt(
         sum(float(v.square().sum()) for v in g64.values())))
+    stage("f64")
 
     card = model.LM(cfg, "cuda")
     card.load_state_dict(cpu.state_dict())
@@ -3378,15 +3493,17 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
     finally:
         device.strict_numerics()
     metrics["card_tf32"] = dict(loss=loss)
-    card_named, loss, aux, g_card, r_card = grad(card, cfg)
+    card_named, loss, extra, g_card, r_card = grad(card, cfg)
     if repeat:
         _, loss2, _, g2, _ = grad(card, cfg)
         out["repeat_bitwise"] = loss2 == loss and all(
             torch.equal(g_card[k], g2[k]) for k in g_card)
         del g2
-    metrics["card"] = dict(loss=loss, aux=aux)
-    cpu_named, loss, aux, g_cpu, r_cpu = grad(cpu, cfg)
-    metrics["cpu"] = dict(loss=loss, aux=aux)
+    metrics["card"] = dict(loss=loss, **extra)
+    stage("card")
+    cpu_named, loss, extra, g_cpu, r_cpu = grad(cpu, cfg)
+    metrics["cpu"] = dict(loss=loss, **extra)
+    stage("cpu")
 
     def gap(a, b):
         n = float(torch.linalg.vector_norm(b.double()))
@@ -3413,6 +3530,7 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
         dropped_cpu=sum(int((~r[1]).sum()) for r in r_cpu),
         card_cpu=differ(r_card, r_cpu), f64_cpu=differ(r64, r_cpu),
         tf32_cpu=differ(r_tf32, r_cpu))
+    stage("gaps")
     for name, named, g in (("card", card_named, g_card),
                            ("cpu", cpu_named, g_cpu)):
         _, _, met = adamw_update(named, g, init_opt_state(
@@ -3420,17 +3538,30 @@ def _train_step_grads(seed: int = 7, tok_seed: int = 9,
         metrics[name].update({k: float(v) for k, v in met.items()})
     del g_card, g_cpu
     out["metrics"] = metrics
+    # read on the card, a tensor at a time: the same exact differences,
+    # without a host copy and a host subtraction of every parameter
     out["max_param_err"] = max(
-        float((a.detach().cpu() - b.detach()).abs().max())
+        float((a.detach() - b.detach().cuda()).abs().max())
         for a, b in zip(card.parameters(), cpu.parameters()))
+    stage("adamw")
+    host_s["total"] = time.perf_counter() - t_all
+    out.update(host_s=host_s, host_mem_available_gib=mem_available,
+               host_peak_rss_gib=resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+               cut=dict(cfg=cfg.name, n_layers=cfg.n_layers,
+                        first_k_dense=cfg.first_k_dense,
+                        n_experts=cfg.n_experts, moe_top_k=cfg.moe_top_k,
+                        mtp_depth=cfg.mtp_depth,
+                        params=model.count_params(cfg)))
     return out
 
 
-def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
-                       limits=TRAIN_GRAD_LIMITS, experts: int = 0,
-                       repeat: bool = False):
-    """`_train_step_grads` at its default seeds, held to the CPU: loss and
-    lr (and an MoE arch's aux loss) within 1e-5 relative, the same routing
+def _train_card_vs_cpu(arch: str = TRAIN_ARCH, cut=None,
+                       limits=TRAIN_GRAD_LIMITS, repeat: bool = False):
+    """`_train_step_grads` at its default seeds and `cut` (TRAIN_CPU_LAYERS
+    deep where none is given), held to the CPU: loss and
+    lr (and an MoE arch's aux loss, deepseek-v3's MTP cross-entropy)
+    within 1e-5 relative, the same routing
     as the CPU's (top-k indices and kept assignments; the f64 oracle's
     differences are reported), with `repeat` a second card gradient
     equal to the first bit for bit, and the updated parameters within 2 lr
@@ -3440,19 +3571,21 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
     within its limit in `limits` (TRAIN_GRAD_LIMITS for starcoder2,
     ZAMBA_GRAD_LIMITS for zamba2, RWKV_GRAD_LIMITS for rwkv6,
     PHI3_GRAD_LIMITS and MUSICGEN_GRAD_LIMITS for the embedding-input
-    archs) of the CPU's, the TF32 control must
+    archs, DBRX_GRAD_LIMITS and DEEPSEEK_GRAD_LIMITS for the MoE archs) of
+    the CPU's, the TF32 control must
     read more than that limit on every tensor, and the gradient norm is
     held to the bound those limits give it (|‖a‖ − ‖b‖| <= ‖a − b‖).  A
     tensor the loss does not reach (the embedding table of an
     embedding-input arch: zero on the CPU) must read zero on the card and
-    has no control."""
+    has no control.  The log line and the record give the host's seconds
+    by stage (`host_s`: `_train_step_grads`)."""
     import re
-    r = _train_step_grads(arch=arch, layers=layers, experts=experts,
-                          repeat=repeat)
+    r = _train_step_grads(arch=arch, cut=cut, repeat=repeat)
     met, per, routing = r["metrics"], r["tensors"], r["routing"]
     rel = {k: abs(met["card"][k] - met["cpu"][k]) / abs(met["cpu"][k])
            for k in ("loss", "grad_norm", "lr")
-           + (("aux",) if routing["moe_layers"] else ())}
+           + (("aux",) if routing["moe_layers"] else ())
+           + (("mtp_ce",) if "mtp_ce" in met["cpu"] else ())}
     # for a zero CPU gradient, card_cpu is the card gradient's norm
     unreached = {k for k, t in per.items() if t["norm"] == 0.0}
     lim = {k: 0.0 if k in unreached
@@ -3470,6 +3603,7 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
     repeated = r.get("repeat_bitwise", True)
     if over or blind or not (rel["loss"] <= 1e-5 and rel["lr"] <= 1e-5
                              and rel.get("aux", 0.0) <= 1e-5
+                             and rel.get("mtp_ce", 0.0) <= 1e-5
                              and rel["grad_norm"] <= norm_tol
                              and err <= 2 * lr + 1e-6
                              and routed and repeated):
@@ -3481,15 +3615,21 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
     by_limit = {}
     for k, v in lim.items():
         by_limit.setdefault(v, []).append(k)
+    c = r["cut"]
     moe_kw = {} if not routing["moe_layers"] else dict(
-        experts=experts or "all", assignments=routing["assignments"],
+        first_k_dense=c["first_k_dense"], experts=c["n_experts"],
+        top_k=c["moe_top_k"], assignments=routing["assignments"],
         dropped_cpu=routing["dropped_cpu"],
         routing_diff_card_cpu=routing["card_cpu"],
         routing_diff_f64_cpu=routing["f64_cpu"],
         routing_diff_tf32_cpu=routing["tf32_cpu"])
     if repeat:
         moe_kw["repeat_bitwise"] = repeated
-    log("train.card_vs_cpu", arch=arch, layers=layers, dtype="float32",
+    if c["mtp_depth"]:
+        moe_kw.update(mtp_depth=c["mtp_depth"],
+                      mtp_ce=f"{met['card']['mtp_ce']:.6f}")
+    log("train.card_vs_cpu", arch=arch, layers=c["n_layers"],
+        params=c["params"], dtype="float32",
         **moe_kw, loss=f"{met['card']['loss']:.6f}",
         **{f"{k}_rel": f"{v:.3g}" for k, v in rel.items()},
         grad_norm_tol=f"{norm_tol:.3g}",
@@ -3497,10 +3637,16 @@ def _train_card_vs_cpu(arch: str = TRAIN_ARCH, layers: int = TRAIN_CPU_LAYERS,
                            f" tf32_min {min(per[k]['tf32_cpu'] for k in ks):.3g}"
            for v, ks in by_limit.items() if v > 0},
         unreached=sorted(unreached),
-        max_param_err=f"{err:.3g}", param_tol=f"{2 * lr + 1e-6:.3g}")
-    return dict(arch=arch, layers=layers, experts=experts, metrics=met,
+        max_param_err=f"{err:.3g}", param_tol=f"{2 * lr + 1e-6:.3g}",
+        **{f"host_{k}_s": f"{v:.2f}" for k, v in r["host_s"].items()},
+        host_mem_available_gib=f"{r['host_mem_available_gib']:.1f}",
+        host_peak_rss_gib=f"{r['host_peak_rss_gib']:.1f}")
+    return dict(arch=arch, cut=c, layers=c["n_layers"],
+                experts=c["n_experts"], metrics=met,
                 rel=rel, routing=routing, repeat_bitwise=r.get(
-                    "repeat_bitwise"),
+                    "repeat_bitwise"), host_s=r["host_s"],
+                host_mem_available_gib=r["host_mem_available_gib"],
+                host_peak_rss_gib=r["host_peak_rss_gib"],
                 grad_norm_tol=norm_tol, tensors=per, limits=lim,
                 unreached=sorted(unreached),
                 max_param_err=err, param_tol=2 * lr + 1e-6)
@@ -3518,7 +3664,11 @@ def phase_train():
     accum_steps 2) and their 2-layer steps on the card against the CPU;
     then dbrx-132b at published widths, 1 layer deep, at accum_steps 1,
     and its 1-layer step with 8 of its 16 experts on the card against the
-    CPU (DBRX_TRAIN_ARCH: why it is cut).
+    CPU (DBRX_TRAIN_ARCH: why it is cut); then deepseek-v3-671b at
+    published widths with its MTP loss, 4 layers deep (3 dense), 32 of its
+    256 experts, at accum_steps 1, and its 1-layer step (the MoE layer
+    and the MTP block) with 16 experts on the card against the CPU
+    (DEEPSEEK_TRAIN_ARCH: why it is cut).
     No checkpoint round for the others: the format is the model's tree,
     which starcoder2 proves."""
     import torch
@@ -3540,7 +3690,7 @@ def phase_train():
     zamba["full_depth_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     zamba["card_vs_cpu"] = _train_card_vs_cpu(
-        ZAMBA_TRAIN_ARCH, ZAMBA_CPU_LAYERS, ZAMBA_GRAD_LIMITS)
+        ZAMBA_TRAIN_ARCH, dict(n_layers=ZAMBA_CPU_LAYERS), ZAMBA_GRAD_LIMITS)
     zamba["card_vs_cpu_s"] = time.perf_counter() - t1
     out["zamba2"] = zamba
     torch.cuda.empty_cache()
@@ -3549,7 +3699,7 @@ def phase_train():
     rwkv["full_depth_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     rwkv["card_vs_cpu"] = _train_card_vs_cpu(
-        RWKV_TRAIN_ARCH, RWKV_CPU_LAYERS, RWKV_GRAD_LIMITS)
+        RWKV_TRAIN_ARCH, dict(n_layers=RWKV_CPU_LAYERS), RWKV_GRAD_LIMITS)
     rwkv["card_vs_cpu_s"] = time.perf_counter() - t1
     out["rwkv6"] = rwkv
     per_arch = [zamba_launches, rwkv_launches]
@@ -3560,24 +3710,26 @@ def phase_train():
         res, arch_launches = _train_full_depth(arch)
         res["full_depth_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
-        res["card_vs_cpu"] = _train_card_vs_cpu(arch, TRAIN_CPU_LAYERS,
-                                                limits)
+        res["card_vs_cpu"] = _train_card_vs_cpu(arch, limits=limits)
         res["card_vs_cpu_s"] = time.perf_counter() - t1
         out[arch] = res
         per_arch.append(arch_launches)
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    dbrx, dbrx_launches = _train_full_depth(
-        _depth_cut(DBRX_TRAIN_ARCH, DBRX_TRAIN_LAYERS), accum_steps=1)
-    dbrx["full_depth_s"] = time.perf_counter() - t1
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    dbrx["card_vs_cpu"] = _train_card_vs_cpu(
-        DBRX_TRAIN_ARCH, DBRX_CPU_LAYERS, DBRX_GRAD_LIMITS,
-        experts=DBRX_CPU_EXPERTS, repeat=True)
-    dbrx["card_vs_cpu_s"] = time.perf_counter() - t1
-    out[DBRX_TRAIN_ARCH] = dbrx
-    per_arch.append(dbrx_launches)
+    for arch, cut, cpu_cut, limits in (
+            (DBRX_TRAIN_ARCH, DBRX_TRAIN_CUT, DBRX_CPU_CUT, DBRX_GRAD_LIMITS),
+            (DEEPSEEK_TRAIN_ARCH, DEEPSEEK_TRAIN_CUT, DEEPSEEK_CPU_CUT,
+             DEEPSEEK_GRAD_LIMITS)):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res, arch_launches = _train_full_depth(_depth_cut(arch, **cut),
+                                               accum_steps=1)
+        res["full_depth_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res["card_vs_cpu"] = _train_card_vs_cpu(arch, cpu_cut, limits,
+                                                repeat=True)
+        res["card_vs_cpu_s"] = time.perf_counter() - t1
+        out[arch] = res
+        per_arch.append(arch_launches)
     launches = {k: launches[k] + sum(p[k] for p in per_arch)
                 for k in launches}
     out["seconds"] = time.perf_counter() - t0
@@ -3591,7 +3743,7 @@ def phase_train():
         rwkv6_card_vs_cpu_s=f"{rwkv['card_vs_cpu_s']:.3f}",
         **{f"{arch}_{k}": f"{out[arch][k]:.3f}"
            for arch in (PHI3_TRAIN_ARCH, MUSICGEN_TRAIN_ARCH,
-                        DBRX_TRAIN_ARCH)
+                        DBRX_TRAIN_ARCH, DEEPSEEK_TRAIN_ARCH)
            for k in ("full_depth_s", "card_vs_cpu_s")}, **launches)
     return out, launches
 
@@ -3716,7 +3868,8 @@ def main() -> int:
     moe_out, moe_launches = {}, {}
     for arch in MOE_ARCHS:
         moe_out[arch], moe_launches[arch] = timed(
-            f"serve_{arch}", phase_serve, _depth_cut(arch, MOE_SERVE_LAYERS),
+            f"serve_{arch}", phase_serve,
+            _depth_cut(arch, n_layers=MOE_SERVE_LAYERS),
             ("flash_attention",))
     serve_check = timed("serve_check", phase_serve_check)
     train_out, train_launches = timed("train", phase_train)
@@ -3768,6 +3921,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             **{k: r[k] for k in ("kernel_launches_per_call", "scratch_bytes",
                                  "phase_ms", "launch_floor_ms", "note",
+                                 "max_abs_err_f64",
                                  "grad_tol", "max_rel_err",
                                  "rel_err_by_grad", "blocks_per_sm",
                                  "rel_to_scan", "library_kernels")

@@ -15,6 +15,10 @@ dbrx-132b trains on a card only cut to 1 layer (its published 40 do not
 fit one card: at 1 layer its bf16 weights and gradients and f32 moments
 are 53.9 GB, at 2 layers 93 GB) and at `accum_steps` 1; `chip_smoke.py`'s
 `train` phase registers that cut and runs it through `train()`.
+deepseek-v3-671b trains there with its MTP loss cut to 4 layers (its
+first 3 dense), 32 of its 256 routed experts and `accum_steps` 1 (its
+bf16 weights, gradients and bf16 moments take 44.2 GiB at that cut, 54.7
+GiB with 64 experts; its 61 layers do not fit one card).
 
 Runs the training path on one card (or on the CPU after
 `repro_torch.device.set_device("cpu")`): the model initialised from a seed

@@ -1433,6 +1433,8 @@ BWD_SPLIT_SHAPES = [
     (1, 70, 70, 3, 1, 256, 200, 3),        # 256 over Dh != Dv, ragged
     (2, 1024, 1024, 32, 32, 96, 96, 1),    # phi-3-vision: MHA, no split
     (1, 1024, 1024, 32, 32, 64, 64, 1),    # musicgen: MHA, no split
+    (2, 1024, 1024, 128, 128, 192, 128, 1),  # deepseek-v3's train shape
+    (2, 1023, 1023, 128, 128, 192, 128, 1),  # its MTP layer's, S - 1
 ]
 
 
@@ -1769,3 +1771,102 @@ def test_remat_dots_step_on_card_matches_full(cuda):
     assert all(torch.equal(a, b) for a, b in zip(grads["dots"],
                                                  grads["none"]))
     assert peak["full"] < peak["dots"] < peak["none"], peak
+
+
+def _deepseek_step(m, cfg, toks):
+    """Loss, metrics and every gradient of one `loss_fn` of a reduced
+    deepseek-v3 (the MTP block's included), the attention launches it
+    made, and each MoE layer's routing (idx, keep) on the host."""
+    from repro_torch.models import model, moe
+    named = dict(m.named_parameters())
+    fa_kernel.reset_launches()
+    seen = []
+    with moe.observe(lambda idx, keep, cap: seen.append((idx.cpu(),
+                                                         keep.cpu()))):
+        loss, met = model.loss_fn(m, {"tokens": toks.to(
+            next(m.parameters()).device)}, cfg)
+        g = torch.autograd.grad(loss, list(named.values()))
+    return (loss.detach(), {k: v.detach() for k, v in met.items()},
+            dict(zip(named, g)), dict(fa_kernel.launches), seen)
+
+
+def test_deepseek_bf16_train_step_is_bitwise_on_card(cuda):
+    """Reduced deepseek-v3-671b in bf16 with remat "full" on the card
+    (MLA through the attention kernels, the sigmoid router, the shared
+    expert, the MTP block): the loss, its metrics and every gradient, the
+    MTP block's included, are the same bits over two calls; each of the
+    stack's layers launches the attention forward twice and its backward
+    once, the MTP layer once each."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get_reduced("deepseek-v3-671b").replace(
+        dtype="bfloat16", remat=True)
+    m = model.init_params(cfg, 3, cuda).trainable()
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(3))
+    first = _deepseek_step(m, cfg, toks)
+    again = _deepseek_step(m, cfg, toks)
+    torch.cuda.synchronize()
+    loss, met, grads, launches, _ = first
+    assert torch.isfinite(loss) and set(met) == {"ce", "aux", "mtp_ce",
+                                                 "loss"}
+    assert torch.equal(loss, again[0])
+    assert all(torch.equal(v, again[1][k]) for k, v in met.items())
+    assert set(grads) == set(again[2]) and any(k.startswith("mtp.")
+                                               for k in grads)
+    for k, g in grads.items():
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), k
+        assert torch.equal(g, again[2][k]), k
+    assert launches == again[3] == {
+        "flash_attention": 2 * cfg.n_layers + 1,
+        "flash_attention_bwd": cfg.n_layers + 1}
+
+
+def test_deepseek_f32_train_step_on_card_matches_cpu(cuda):
+    """One train step of reduced deepseek-v3-671b (f32, its MTP loss) on
+    the card and on the CPU from the same weights, at the CPU tests'
+    tolerances: the same routing; loss, ce, aux, the MTP cross-entropy and
+    lr within 1e-5 relative; the gradient no further from the f64 one
+    than max(1e-5, 2 x the CPU's f32 error); the updated parameters
+    within 2 lr + 1e-6 (AdamW's first step turns a gradient near 0 into
+    +-lr)."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+    cfg = configs.get_reduced("deepseek-v3-671b")
+    cpu = model.init_params(cfg, 5, "cpu").trainable()
+    card = model.LM(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    card.trainable()
+    c64 = cfg.replace(dtype="float64")
+    m64 = model.LM(c64, "cpu")
+    m64.load_state_dict({k: v.double() for k, v in cpu.state_dict().items()})
+    m64.trainable()
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    grads, mets, routes = {}, {}, {}
+    for name, m, c in (("card", card, cfg), ("cpu", cpu, cfg),
+                       ("f64", m64, c64)):
+        _, met, g, launches, routes[name] = _deepseek_step(m, c, toks)
+        if name == "card":
+            assert launches == {"flash_attention": cfg.n_layers + 1,
+                                "flash_attention_bwd": cfg.n_layers + 1}
+        grads[name] = {k: t.cpu().double() for k, t in g.items()}
+        named = dict(m.named_parameters())
+        _, _, om = adamw_update(named, g, init_opt_state(named,
+                                                         AdamWConfig()),
+                                AdamWConfig())
+        mets[name] = {k: float(v) for k, v in {**met, **om}.items()}
+    for a, b in zip(routes["card"], routes["cpu"]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    g64 = grads.pop("f64")
+    n64 = sum(float(t.square().sum()) for t in g64.values()) ** 0.5
+    err = {n: sum(float((g[k] - g64[k]).square().sum()) for k in g64) ** 0.5
+           / n64 for n, g in grads.items()}
+    assert err["card"] <= max(1e-5, 2 * err["cpu"]), err
+    for k in ("loss", "ce", "aux", "mtp_ce", "lr"):
+        assert mets["card"][k] == pytest.approx(mets["cpu"][k], rel=1e-5), k
+    lr = mets["cpu"]["lr"]
+    worst = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(card.parameters(), cpu.parameters()))
+    assert worst <= 2 * lr + 1e-6

@@ -205,6 +205,19 @@ def test_adamw_slices_an_expert_stack_one_expert_at_a_time():
     assert rows == {10922} and len(tadamw._slices(table)) == 10
 
 
+def test_adamw_takes_host_tensors_in_finer_slices():
+    """On the CPU the update's slices hold at most `_HOST_SLICE` = 2^20
+    elements (its temporaries stay under the size the C allocator maps
+    afresh), elsewhere `_SLICE`: a [16, 512, 256] tensor (2^21 elements)
+    is two slices of 8 rows on the host and one whole on another device.
+    The bits do not depend on the slicing
+    (`test_sliced_adamw_update_is_bitwise_the_whole`)."""
+    assert tadamw._HOST_SLICE == 1 << 20
+    assert tadamw._slices(torch.empty(16, 512, 256)) == [slice(0, 8),
+                                                         slice(8, 16)]
+    assert tadamw._slices(torch.empty(16, 512, 256, device="meta")) == [...]
+
+
 def test_bf16_moments_dtype():
     """tests/test_substrate.py::test_bf16_moments_dtype on the port."""
     cfg = tadamw.AdamWConfig(moments_dtype="bfloat16")

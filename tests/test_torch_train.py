@@ -1,7 +1,9 @@
 """The port's training path against the reference, on the CPU.
 
-Reduced zamba2-2.7b, starcoder2-3b, rwkv6-3b and dbrx-132b (f32) with the
-reference's parameters carried across (`weights.params_from_numpy`), the
+Reduced zamba2-2.7b, starcoder2-3b, rwkv6-3b, dbrx-132b and
+deepseek-v3-671b (f32; deepseek's with its sigmoid router, shared expert
+and MTP loss) with the reference's parameters carried across
+(`weights.params_from_numpy`), the
 same batches made with numpy, and JAX's jitted `make_train_step` against
 the port's.  Tolerances, each with its reason:
   * loss, grad norm and lr: 1e-5 relative.  Both are f32; XLA's and
@@ -22,6 +24,7 @@ The reference's `train()` fails on this JAX (torch_train_util), so its
 loop is `torch_train_util.reference_train`.
 """
 import collections
+import functools
 import os
 import subprocess
 import sys
@@ -58,8 +61,18 @@ from torch_train_util import (numpy_tree, reference_params, reference_train,
 
 pytestmark = pytest.mark.usefixtures("on_cpu")
 
-ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b", "dbrx-132b"]
+ARCHS = ["zamba2-2.7b", "starcoder2-3b", "rwkv6-3b", "dbrx-132b",
+         "deepseek-v3-671b"]
 REL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _jstep(arch):
+    """The reference's jitted train step for reduced `arch` (default
+    AdamW), built once, so that its compilation is shared by the tests of
+    that arch."""
+    return jax.jit(jsteps.make_train_step(jconfigs.get_reduced(arch),
+                                          JAdamWConfig()))
 
 
 def _tokens(cfg, b, s, seed):
@@ -114,7 +127,7 @@ def test_train_steps_match_reference(arch, n_steps):
     model = _port_params(arch, jparams)
     jopt = jinit_opt_state(jparams, JAdamWConfig())
     topt = init_opt_state(dict(model.named_parameters()), AdamWConfig())
-    jstep = jax.jit(jsteps.make_train_step(cfg, JAdamWConfig()))
+    jstep = _jstep(arch)
     tstep = tsteps.make_train_step(model.cfg, AdamWConfig())
     p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
     for i in range(n_steps):
@@ -139,7 +152,7 @@ def test_step_from_carried_optimizer_state(arch):
     cfg = jconfigs.get_reduced(arch)
     jparams = reference_params(arch, 1)
     jopt = jinit_opt_state(jparams, JAdamWConfig())
-    jstep = jax.jit(jsteps.make_train_step(cfg, JAdamWConfig()))
+    jstep = _jstep(arch)
     for i in range(2):
         jparams, jopt, _ = jstep(jparams, jopt, {"tokens": jnp.asarray(
             _tokens(cfg, 2, 16, seed=10 + i))})
@@ -154,6 +167,41 @@ def test_step_from_carried_optimizer_state(arch):
         model, topt, {"tokens": torch.from_numpy(toks).long()})
     _assert_metrics_close(tm, jm, arch)
     _assert_params_close(model, jparams, 2 * _lr(2) + 1e-6)
+
+
+def test_deepseek_bf16_moments_and_remat_match_reference():
+    """Reduced deepseek-v3-671b as its published config trains it: bf16
+    AdamW moments and remat "full" (the reference's `jax.checkpoint` with
+    no policy), two steps on both packages from the same parameters, the
+    MTP loss included.  Both round the moments to bf16 after each step; a
+    moment on the other side of a bf16 rounding boundary moves the next
+    update by at most 2^-8 of a step, inside the 2 sum(lr) + 1e-6 the
+    parameters are held to.  Loss, grad norm, lr, ce and the MTP
+    cross-entropy as the rules above."""
+    arch = "deepseek-v3-671b"
+    jcfg = jconfigs.get_reduced(arch).replace(moments_dtype="bfloat16",
+                                              remat=True)
+    jparams = reference_params(arch, 4)
+    model = _port_params(arch, jparams)
+    tcfg = model.cfg.replace(moments_dtype="bfloat16", remat=True)
+    assert tcfg.remat_policy == jcfg.remat_policy == "full"
+    jopt_cfg = JAdamWConfig(moments_dtype="bfloat16")
+    topt_cfg = AdamWConfig(moments_dtype="bfloat16")
+    jopt = jinit_opt_state(jparams, jopt_cfg)
+    topt = init_opt_state(dict(model.named_parameters()), topt_cfg)
+    assert {m.dtype for m in topt["m"].values()} == {torch.bfloat16}
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jopt_cfg))
+    tstep = tsteps.make_train_step(tcfg, topt_cfg)
+    for i in range(2):
+        toks = _tokens(jcfg, 2, 16, seed=20 + i)
+        jparams, jopt, jm = jstep(jparams, jopt, {"tokens": jnp.asarray(toks)})
+        model, topt, tm = tstep(model, topt,
+                                {"tokens": torch.from_numpy(toks).long()})
+        _assert_metrics_close(tm, jm, arch, first=i == 0)
+        np.testing.assert_allclose(float(tm["mtp_ce"]), float(jm["mtp_ce"]),
+                                   rtol=REL)
+    assert {v.dtype for v in topt["v"].values()} == {torch.bfloat16}
+    _assert_params_close(model, jparams, 2 * (_lr(0) + _lr(1)) + 1e-6)
 
 
 def test_accumulation_matches_single_batch():
@@ -198,7 +246,9 @@ def test_eval_step_matches_reference(arch):
                                              {"tokens": jnp.asarray(toks)})
     tm = tsteps.make_eval_step(model.cfg)(
         model, {"tokens": torch.from_numpy(toks).long()})
-    assert set(tm) == set(jm) == {"ce", "aux", "loss"}
+    # deepseek-v3's MTP block adds its cross-entropy
+    assert set(tm) == set(jm) == {"ce", "aux", "loss"} | (
+        {"mtp_ce"} if cfg.mtp_depth else set())
     for k in tm:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=REL,
                                    atol=1e-7, err_msg=k)
@@ -211,8 +261,9 @@ def test_labels_take_precedence_over_tokens(arch):
     jparams = reference_params(arch, 3)
     model = _port_params(arch, jparams)
     toks, labels = _tokens(cfg, 2, 10, seed=6), _tokens(cfg, 2, 10, seed=7)
-    jl, _ = jmodel.loss_fn(jparams, {"tokens": jnp.asarray(toks),
-                                     "labels": jnp.asarray(labels)}, cfg)
+    jl, _ = jax.jit(jmodel.loss_fn, static_argnums=2)(
+        jparams, {"tokens": jnp.asarray(toks),
+                  "labels": jnp.asarray(labels)}, cfg)
     tl, _ = tmodel.loss_fn(model, {"tokens": torch.from_numpy(toks).long(),
                                    "labels": torch.from_numpy(labels).long()},
                            model.cfg)
@@ -704,10 +755,12 @@ print("LOADED", loaded)
     assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
 
 
-def test_moe_train_loads_neither_jax_nor_repro():
-    """Reduced dbrx-132b `train()` (the MoE's dispatch and combine, top-2
-    of 4 experts) in a fresh interpreter: finite losses, parameters that
-    move, and neither `jax` nor `repro` loads."""
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_moe_train_loads_neither_jax_nor_repro(arch):
+    """Reduced dbrx-132b or deepseek-v3-671b `train()` (the MoE's dispatch
+    and combine, top-2 of 4 experts; deepseek's sigmoid router, shared
+    expert and MTP loss) in a fresh interpreter: finite losses, parameters
+    that move, and neither `jax` nor `repro` loads."""
     root = Path(__file__).resolve().parents[1]
     code = f"""
 import sys
@@ -717,7 +770,7 @@ from repro_torch import device
 device.set_device("cpu")
 from repro_torch.launch.train import train
 from repro_torch.models import model
-out = train("dbrx-132b", steps=3, batch=2, seq=16, log_every=100)
+out = train({arch!r}, steps=3, batch=2, seq=16, log_every=100)
 assert len(out["losses"]) == 3 and all(map(math.isfinite, out["losses"]))
 start = model.init_params(out["params"].cfg, 0, "cpu")
 assert any(not (a.detach() == b).all() for a, b in

@@ -2,10 +2,12 @@
 (chip_smoke.py's card-vs-CPU step), over several seeds: starcoder2-3b 2
 layers deep, zamba2-2.7b one group (6 layers) deep, rwkv6-3b,
 phi-3-vision-4.2b or musicgen-large 2 layers deep (the last two on
-embeddings), or dbrx-132b 1 layer deep with 8 of its 16 experts.  These
-are the readings from which chip_smoke.py's limits TRAIN_GRAD_LIMITS,
-ZAMBA_GRAD_LIMITS, RWKV_GRAD_LIMITS, PHI3_GRAD_LIMITS, MUSICGEN_GRAD_LIMITS
-and DBRX_GRAD_LIMITS are set.  A measurement aid beside chip_smoke.py;
+embeddings), dbrx-132b 1 layer deep with 8 of its 16 experts, or
+deepseek-v3-671b 1 layer deep (its MoE layer) with 16 of its 256 experts
+and its MTP block.  These are the readings from which chip_smoke.py's
+limits TRAIN_GRAD_LIMITS, ZAMBA_GRAD_LIMITS, RWKV_GRAD_LIMITS,
+PHI3_GRAD_LIMITS, MUSICGEN_GRAD_LIMITS, DBRX_GRAD_LIMITS and
+DEEPSEEK_GRAD_LIMITS are set.  A measurement aid beside chip_smoke.py;
 the port never imports it.
 
     python3 train_grad_readings.py                  # from the repo root, on a card
@@ -15,6 +17,7 @@ the port never imports it.
     python3 train_grad_readings.py --arch phi-3-vision-4.2b
     python3 train_grad_readings.py --arch musicgen-large
     python3 train_grad_readings.py --arch dbrx-132b
+    python3 train_grad_readings.py --arch deepseek-v3-671b
 
 For each `params:tokens` seed pair it runs `chip_smoke._train_step_grads`
 (the card, the card with TF32 GEMMs as a control of lower precision, the
@@ -22,7 +25,8 @@ port on the CPU in f32, and the same model in float64 on the CPU) and
 records each tensor's relative L2 gap of the card's gradient to the
 CPU's and of both to float64, the control's gap to the CPU's, whether
 the card's gradient repeats bit for bit, and for an MoE arch the routing
-differences of the card, the control and float64 from the CPU.  The summary gives, per
+differences of the card, the control and float64 from the CPU, and the
+host's seconds by stage.  The summary gives, per
 tensor, the largest card-vs-CPU gap over the seeds and the smallest gap
 the control reads.  Prints one JSON line per seed and the summary, and
 writes everything to `chiprun_out/train_grad_readings.json`
@@ -45,18 +49,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", nargs="+", default=["7:9", "11:13", "17:19"],
                     help="params:tokens seed pairs")
-    layers = {chip_smoke.TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS,
-              chip_smoke.ZAMBA_TRAIN_ARCH: chip_smoke.ZAMBA_CPU_LAYERS,
-              chip_smoke.RWKV_TRAIN_ARCH: chip_smoke.RWKV_CPU_LAYERS,
-              chip_smoke.PHI3_TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS,
-              chip_smoke.MUSICGEN_TRAIN_ARCH: chip_smoke.TRAIN_CPU_LAYERS,
-              chip_smoke.DBRX_TRAIN_ARCH: chip_smoke.DBRX_CPU_LAYERS}
-    experts = {chip_smoke.DBRX_TRAIN_ARCH: chip_smoke.DBRX_CPU_EXPERTS}
+    two = dict(n_layers=chip_smoke.TRAIN_CPU_LAYERS)
+    cuts = {chip_smoke.TRAIN_ARCH: two,
+            chip_smoke.ZAMBA_TRAIN_ARCH: dict(
+                n_layers=chip_smoke.ZAMBA_CPU_LAYERS),
+            chip_smoke.RWKV_TRAIN_ARCH: dict(
+                n_layers=chip_smoke.RWKV_CPU_LAYERS),
+            chip_smoke.PHI3_TRAIN_ARCH: two,
+            chip_smoke.MUSICGEN_TRAIN_ARCH: two,
+            chip_smoke.DBRX_TRAIN_ARCH: chip_smoke.DBRX_CPU_CUT,
+            chip_smoke.DEEPSEEK_TRAIN_ARCH: chip_smoke.DEEPSEEK_CPU_CUT}
     ap.add_argument("--arch", default=chip_smoke.TRAIN_ARCH,
-                    choices=tuple(layers))
+                    choices=tuple(cuts))
     args = ap.parse_args()
-    layers = layers[args.arch]
-    experts = experts.get(args.arch, 0)
+    cut = cuts[args.arch]
     import torch
     from repro_torch import device
     if not torch.cuda.is_available():
@@ -71,15 +77,19 @@ def main() -> int:
     for pair in args.seeds:
         seed, tok_seed = (int(x) for x in pair.split(":"))
         r = chip_smoke._train_step_grads(seed, tok_seed, repeat=True,
-                                         arch=args.arch, layers=layers,
-                                         experts=experts)
+                                         arch=args.arch, cut=cut)
         r.update(seed=seed, tok_seed=tok_seed)
         runs.append(r)
         print(json.dumps(dict(seed=seed, tok_seed=tok_seed,
                               metrics=r["metrics"],
                               repeat_bitwise=r["repeat_bitwise"],
                               routing=r["routing"],
-                              max_param_err=r["max_param_err"])), flush=True)
+                              max_param_err=r["max_param_err"],
+                              host_s=r["host_s"],
+                              host_mem_available_gib=r[
+                                  "host_mem_available_gib"],
+                              host_peak_rss_gib=r["host_peak_rss_gib"])),
+              flush=True)
     summary = {}
     for k in runs[0]["tensors"]:
         t = [r["tensors"][k] for r in runs]
@@ -94,8 +104,7 @@ def main() -> int:
     name = ("train_grad_readings.json" if args.arch == chip_smoke.TRAIN_ARCH
             else f"train_grad_readings_{args.arch}.json")
     (out_dir / name).write_text(json.dumps(
-        dict(device=smi, arch=args.arch, layers=layers, experts=experts,
-             runs=runs,
+        dict(device=smi, arch=args.arch, cut=cut, runs=runs,
              summary=summary), indent=1))
     return 0
 
