@@ -205,7 +205,23 @@ to the CPU:
                 block, 16 experts) at DBRX_GRAD_LIMITS and
                 DEEPSEEK_GRAD_LIMITS, with 0 routing differences, a
                 bitwise repeat and the host's seconds by stage.
- 11. where    — outside the counted runs: one GS2 solve alone, and the
+ 11. cost     — the dry run (repro_torch.launch.dryrun.run_cell on meta
+                tensors: no allocation, no launch) of each of the seven
+                train runs at the cut and accum_steps the train phase ran
+                (B 2, S 1024): its kernel calls per step x 6 must equal
+                the launches the run counted and _train_launches_want;
+                the run's median step must take at least the roofline
+                (the larger of the compute and memory terms: a roofline
+                the card beats is a miscount), whose ratio to the step is
+                printed beside the sum over ops of each op's own bound;
+                the predicted peak must lie within 10% of the run's
+                measured peak; the backward kernels' Python twins of the
+                library's splits and scratch must agree with it at every
+                shape the run gave them; and each arch's roofline becomes
+                an hlo_runtime_prior that calibrate(priors=...) installs
+                and runtime_fit(arch) reads back.  One `cost.<arch>` line
+                each.
+ 12. where    — outside the counted runs: one GS2 solve alone, and the
                 device's busy share (torch.profiler) during a solve, a
                 10,000-task re-cost and one zamba2 and one rwkv6 request
                 (a 512-token prefill, then prefill + 16 new tokens),
@@ -725,54 +741,25 @@ def phase_kernels():
     return rows
 
 
-def _attn_bound(q, k, v):
-    """Causal attention.  Bytes: q, k, v read once and the output written
-    once.  Operations: 2 (Dh + Dv) per visible (query, key) pair, at the
-    bf16 tensor-core peak for bf16 inputs (the products' type) and the f32
-    CUDA-core peak for f32 (the port allows no TF32)."""
-    import torch
-    b, sq, h, dh = q.shape
-    skv, dv = k.shape[1], v.shape[3]
-    # row r sees keys 0 .. r + skv - sq
-    pairs = sum(min(skv, r + skv - sq + 1) for r in range(sq))
-    elem = q.element_size()
-    n_bytes = elem * (q.numel() + k.numel() + v.numel() + b * sq * h * dv)
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    return bound_ms(n_bytes, b * h * pairs * 2 * (dh + dv), peak)
+def _bound_of(cost: dict):
+    """`bound_ms` of a kernel's least work as its module's `cost` /
+    `bwd_cost` states it (the dry run counts the same): its bytes, and its
+    flops at the peak of their type (bf16 on the tensor cores, f32 on the
+    CUDA cores)."""
+    (kind, flops), = cost["flops"].items()
+    return bound_ms(cost["bytes"], flops,
+                    BF16_FLOP_PER_S if kind == "bfloat16" else F32_FLOP_PER_S)
 
 
-def _ssd_bound(x, b_in, state):
-    """Bytes: x, dt, B, C, A, D and the state read once, y and the final
-    state written once.  Operations: the recurrence's 5 f32 operations per
-    (t, h, p, n) (decay, input product, add, and the C . state
-    multiply-add), the least the function needs, at the f32 CUDA-core
-    peak: the state and decays are f32 in the reference."""
-    bb, s, h, p = x.shape
-    n = b_in.shape[2]
-    elem = x.element_size()
-    n_bytes = (2 * elem * x.numel() + 4 * bb * s * h + 2 * elem * b_in.numel()
-               + 8 * h + 4 * bb * h * p * n * (2 if state is not None else 1))
-    return bound_ms(n_bytes, 5 * bb * s * h * p * n)
-
-
-def _ssd_bwd_bound(x, b_in, state, dstate_out):
-    """The SSD's gradient.  Bytes: x, dy, B and C in x's type, dt, a, D,
-    and the state and its gradient where given, read once; dx, dB, dC in
-    x's type, ddt, da, dD and dstate written once.  Operations: the least
-    the gradient of the sequential recurrence needs, 11 f32 operations per
-    (t, h, p, n): the state's gradient dS_t = e^{la_t} dS_{t+1} + dy_t C_t^T
-    (a multiply and a multiply-add), and one multiply-add each for dC
-    (S_t^T dy_t), dxdt (dS_t B_t), dB (dS_t^T xdt_t) and the decay's
-    gradient (<dS_t, S_{t-1}>), not counting the states S_t it reads, at
-    the f32 CUDA-core peak (the state and the decays are f32)."""
-    bb, s, h, p = x.shape
-    n = b_in.shape[2]
-    elem = x.element_size()
-    state_rw = (state is not None) + (dstate_out is not None)
-    n_bytes = (3 * elem * x.numel() + 2 * 4 * bb * s * h
-               + 4 * elem * b_in.numel() + 4 * 4 * h
-               + 4 * bb * h * p * n * (state_rw + (state is not None)))
-    return bound_ms(n_bytes, 11 * bb * s * h * p * n)
+def _twin_agrees(label: str, library, twin):
+    """`library`, what a kernel library's C function answers (the
+    backward's splits, its scratch), after checking that the Python twin
+    the dry run uses on `meta` (`splits_rule`, `scratch_floats`) answers
+    the same."""
+    if library != twin:
+        raise AssertionError(f"{label}: the library gives {library}, its "
+                             f"Python twin {twin}")
+    return library
 
 
 # the three kernels of one gp_predict / gp_predict_experts, one mamba2_ssd
@@ -854,61 +841,6 @@ def measured_scratch(fn, label: str, *layout: int) -> int:
         raise AssertionError(f"{label}: a call allocated {got} bytes of "
                              f"scratch, its layout states {want}")
     return got
-
-
-def _rwkv_bound(r, v, state):
-    """Bytes: r, k, v, u in their type and w in f32 read once, the state
-    read once when given, out written once in r's type and the final
-    state in f32.  Operations: the recurrence's 5 f32 operations per
-    (t, h, k, v) (decay, outer product, add, and the r . state
-    multiply-add), the least the function needs, at the f32 CUDA-core
-    peak: the state and decays are f32 in the reference."""
-    b, s, h, kd = r.shape
-    vd = v.shape[3]
-    elem = r.element_size()
-    n_bytes = (elem * (2 * r.numel() + 2 * v.numel() + h * kd)
-               + 4 * r.numel()
-               + 4 * b * h * kd * vd * (2 if state is not None else 1))
-    return bound_ms(n_bytes, 5 * b * s * h * kd * vd)
-
-
-def _wkv_bwd_bound(r, v, state, dstate_out):
-    """The WKV's gradient.  Bytes: r, k, v, u and do in r's type and w in
-    f32 read once, the state and its gradient read once where given; dr,
-    dk, dv, du in r's type, dw and dstate in f32 written once.  Operations:
-    the least the gradient of the sequential recurrence needs, 11 f32
-    operations per (t, h, k, v), counted as the SSD backward's are: the
-    state's gradient dS_t = w_t o dS_{t+1} + r_t do_t^T (a multiply and a
-    multiply-add), and one multiply-add each for dr (S_{t-1} do_t), dk (dS_t
-    v_t), dv (dS_t^T k_t) and the decay's gradient (<dS_t, S_{t-1}>), not
-    counting the states it reads, at the f32 CUDA-core peak."""
-    b, s, h, kd = r.shape
-    vd = v.shape[3]
-    elem = r.element_size()
-    state_rw = (state is not None) + (dstate_out is not None)
-    n_bytes = (elem * (4 * r.numel() + 3 * v.numel() + 2 * h * kd)
-               + 2 * 4 * r.numel()
-               + 4 * b * h * kd * vd * (state_rw + (state is not None)))
-    return bound_ms(n_bytes, 11 * b * s * h * kd * vd)
-
-
-def _attn_bwd_bound(q, k, v):
-    """The attention backward.  Bytes: q, k, v, the output and its
-    gradient read once each in the operands' type, the f32 log-sum-exp
-    read once, dq, dk and dv written once.  Operations: 2 (3 Dh + 2 Dv)
-    per visible (query, key) pair (S recomputed once, dP = dO V^T, dV, dK
-    and dQ), at the card's peak for the operands' type, as the forward's
-    bound (bf16 tensor cores, f32 CUDA cores)."""
-    import torch
-    b, sq, h, dh = q.shape
-    skv, dv = k.shape[1], v.shape[3]
-    pairs = sum(min(skv, r + skv - sq + 1) for r in range(sq))
-    elem = q.element_size()
-    n_bytes = (elem * (2 * (q.numel() + k.numel() + v.numel())
-                       + 2 * b * sq * h * dv) + 4 * b * h * sq)
-    return bound_ms(n_bytes, b * h * pairs * 2 * (3 * dh + 2 * dv),
-                    BF16_FLOP_PER_S if q.dtype == torch.bfloat16
-                    else F32_FLOP_PER_S)
 
 
 # the backward's kernels in launch order: D = rowsum(dO O), dq, dk/dv and,
@@ -1027,6 +959,10 @@ def _attention_bwd_rows(randn):
             raise AssertionError(f"flash_attention_bwd {label}: two calls "
                                  f"differ")
         splits = fa.bwd_splits(q, k, v)
+        _twin_agrees(f"flash_attention_bwd {label}",
+                     (splits, fa.bwd_scratch(q, k, v)),
+                     (fa.splits_rule(b, skv, h, hkv, dh, dv, dtype),
+                      fa.scratch_floats(b, sq, skv, h, hkv, dh, dv, dtype)))
         phases = ATTN_BWD_PHASES + ((ATTN_BWD_REDUCE,) if splits > 1
                                     else ())
         kernels = {}
@@ -1035,7 +971,7 @@ def _attention_bwd_rows(randn):
         # each of `phases` launched once a call, and nothing else
         phase_ms, per_call = _phases(kernels, phases, run,
                                      f"flash_attention_bwd {label}")
-        bnd, by = _attn_bwd_bound(q, k, v)
+        bnd, by = _bound_of(fa.bwd_cost(q, k, v))
         rows.append(dict(
             name=f"flash_attention_bwd[{label}]", source=fa.SOURCE,
             grad_tol=f"{rel:g} max|g|" + (" + 1e-6" if dtype == f32
@@ -1156,7 +1092,7 @@ def _ssd_bwd_rows(randn):
                        by_kernel=kernels, expect=len(SSD_BWD_PHASES))
         phase_ms, per_call = _phases(kernels, SSD_BWD_PHASES, run,
                                      f"mamba2_ssd_bwd {label}")
-        bnd, by = _ssd_bwd_bound(x, b_in, st, dso)
+        bnd, by = _bound_of(ssd.bwd_cost(x, b_in, st, dso))
         blocks = ssd.bwd_blocks_per_sm(dtype, n)
         if dtype == bf16 and blocks["ssd_bwd_chunk_grad"] < 2:
             raise AssertionError(f"mamba2_ssd_bwd {label}: the chunk "
@@ -1173,7 +1109,9 @@ def _ssd_bwd_rows(randn):
             kernel_launches_per_call=per_call, phase_ms=phase_ms,
             scratch_bytes=measured_scratch(
                 run, f"mamba2_ssd_bwd {label}",
-                4 * ssd.bwd_scratch(b, s, h, p, n)),
+                4 * _twin_agrees(f"mamba2_ssd_bwd {label}",
+                                 ssd.bwd_scratch(b, s, h, p, n),
+                                 ssd.scratch_floats(b, s, h, p, n))),
             deterministic=True, blocks_per_sm=blocks,
             **({} if rel_to_scan is None else {"rel_to_scan": rel_to_scan}),
             note="ms sums the device time of the call's four kernels (the "
@@ -1274,7 +1212,7 @@ def _wkv_bwd_rows(randn):
                        by_kernel=kernels, expect=len(WKV_BWD_PHASES))
         phase_ms, per_call = _phases(kernels, WKV_BWD_PHASES, run,
                                      f"rwkv6_wkv_bwd {label}")
-        bnd, by = _wkv_bwd_bound(r, v, st, dso)
+        bnd, by = _bound_of(wkv.bwd_cost(r, v, st, dso))
         blocks = wkv.bwd_blocks_per_sm(dtype, kd)
         if dtype == bf16 and blocks["wkv_bwd_chunk_grad"] < 2:
             raise AssertionError(f"rwkv6_wkv_bwd {label}: the chunk "
@@ -1293,7 +1231,9 @@ def _wkv_bwd_rows(randn):
             kernel_launches_per_call=per_call, phase_ms=phase_ms,
             scratch_bytes=measured_scratch(
                 run, f"rwkv6_wkv_bwd {label}",
-                4 * wkv.bwd_scratch(b, s, h, kd, kd)),
+                4 * _twin_agrees(f"rwkv6_wkv_bwd {label}",
+                                 wkv.bwd_scratch(b, s, h, kd, kd),
+                                 wkv.scratch_floats(b, s, h, kd, kd))),
             deterministic=True, blocks_per_sm=blocks,
             note="ms sums the device time of the call's four kernels (the "
                  "state gradient's increments, the reverse scan, the chunk "
@@ -1375,7 +1315,7 @@ def phase_lm_kernels():
         library = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=h != hkv), 200,
             label=f"sdpa {label}", by_kernel=sdpa, expect=1)
-        bnd, by = _attn_bound(q, k, v)
+        bnd, by = _bound_of(fa.cost(q, k, v))
         row = dict(
             name=f"flash_attention[{label}]", source=fa.SOURCE, tol=tol,
             shape=f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}",
@@ -1428,7 +1368,7 @@ def phase_lm_kernels():
             raise AssertionError(f"mamba2_ssd {label}: max error {err}, "
                                  f"finite {finite}")
         run = (lambda: ssd.mamba2_ssd(*args, chunk=256))
-        b, by = _ssd_bound(x, b_in, st)
+        b, by = _bound_of(ssd.cost(x, b_in, st))
         kernels = {}
         ms = device_ms(run, iters, label=f"mamba2_ssd {label}",
                        by_kernel=kernels, expect=len(SSD_PHASES))
@@ -1493,7 +1433,7 @@ def phase_lm_kernels():
             raise AssertionError(f"rwkv6_wkv {label}: max error {err}, "
                                  f"finite {finite}")
         run = (lambda: wkv.rwkv6_wkv(*args))
-        b, by = _rwkv_bound(r, v, st)
+        b, by = _bound_of(wkv.cost(r, v, st))
         kernels = {}
         ms = device_ms(run, iters, label=f"rwkv6_wkv {label}",
                        by_kernel=kernels, expect=len(WKV_PHASES))
@@ -2848,6 +2788,15 @@ DEEPSEEK_TRAIN_ARCH = "deepseek-v3-671b"
 DEEPSEEK_TRAIN_CUT = dict(n_layers=MOE_SERVE_LAYERS, first_k_dense=3,
                           n_experts=32)
 DEEPSEEK_CPU_CUT = dict(n_layers=1, first_k_dense=0, n_experts=16)
+# The cost phase's cells: each train run's arch, the key of its record in
+# the train phase's output (None: the output itself) and its config cut
+COST_RUNS = ((TRAIN_ARCH, None, {}), (ZAMBA_TRAIN_ARCH, "zamba2", {}),
+             (RWKV_TRAIN_ARCH, "rwkv6", {}),
+             (PHI3_TRAIN_ARCH, PHI3_TRAIN_ARCH, {}),
+             (MUSICGEN_TRAIN_ARCH, MUSICGEN_TRAIN_ARCH, {}),
+             (DBRX_TRAIN_ARCH, DBRX_TRAIN_ARCH, DBRX_TRAIN_CUT),
+             (DEEPSEEK_TRAIN_ARCH, DEEPSEEK_TRAIN_ARCH, DEEPSEEK_TRAIN_CUT))
+COST_PEAK_TOL = 0.10          # predicted peak against the measured one
 TRAIN_STEPS = 6
 TRAIN_BATCH = 2
 TRAIN_SEQ = 1024
@@ -3748,6 +3697,138 @@ def phase_train():
     return out, launches
 
 
+def _twins_at(rec: dict) -> int:
+    """Hold the backward kernels' Python twins (`splits_rule`,
+    `scratch_floats`), which a dry run uses on meta, to the library's C
+    functions at every operand shape a dry-run record `rec` gave the
+    backward kernels; returns the shapes checked."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    def calls(name):
+        return [c["operands"]
+                for c in rec["kernels"].get(name, {}).get("operands", [])]
+
+    n = 0
+    for (qs, t), (ks, _), (vs, _) in calls("flash_attention_bwd"):
+        b, sq, h, dh = qs
+        skv, hkv, dv = ks[1], ks[2], vs[3]
+        dtype = getattr(torch, t)
+        lib = fa.load()
+        _twin_agrees(f"flash_attention_bwd {qs} {ks} {vs} {t}",
+                     (lib.flash_attention_bwd_splits(b, skv, h, hkv, dh, dv,
+                                                     fa.DTYPES[dtype]),
+                      lib.flash_attention_bwd_scratch(b, sq, skv, h, hkv, dh,
+                                                      dv, fa.DTYPES[dtype])),
+                     (fa.splits_rule(b, skv, h, hkv, dh, dv, dtype),
+                      fa.scratch_floats(b, sq, skv, h, hkv, dh, dv, dtype)))
+        n += 1
+    for (xs, _), (bs, _) in calls("mamba2_ssd_bwd"):
+        _twin_agrees(f"mamba2_ssd_bwd {xs} {bs}",
+                     ssd.bwd_scratch(*xs, bs[2]),
+                     ssd.scratch_floats(*xs, bs[2]))
+        n += 1
+    for (rs, _), (vs, _) in calls("rwkv6_wkv_bwd"):
+        _twin_agrees(f"rwkv6_wkv_bwd {rs} {vs}",
+                     wkv.bwd_scratch(*rs, vs[3]),
+                     wkv.scratch_floats(*rs, vs[3]))
+        n += 1
+    return n
+
+
+def phase_cost(train_out):
+    """The dry run of each train run (COST_RUNS) on meta tensors, held to
+    what the run measured on the card: the kernels' calls to its launch
+    counts, its median step to the roofline, its peak device memory to
+    the predicted peak; then each roofline installed as a runtime prior
+    through calibrate(priors=...) and read back."""
+    from repro_torch import configs
+    from repro_torch.core import backends
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.obs.calib import calibrate, hlo_runtime_prior
+    shape = ShapeConfig(f"train_b{TRAIN_BATCH}_s{TRAIN_SEQ}", TRAIN_SEQ,
+                        TRAIN_BATCH, "train")
+    before = {**fa.launches, **ssd.launches, **wkv.launches}
+    out, priors = {}, {}
+    for arch, key, cut in COST_RUNS:
+        res = train_out if key is None else train_out[key]
+        overrides = dict(cut, accum_steps=res["accum_steps"])
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, overrides=overrides,
+                              tag="chip_smoke", save=False, verbose=False)
+        dry_s = time.perf_counter() - t0
+        if rec["status"] != "ok":
+            raise AssertionError(f"cost {arch}: the dry run gave {rec}")
+        predicted = {name: rec["kernels"].get(name, {}).get("calls", 0)
+                     * TRAIN_STEPS for name in res["launches"]}
+        want = _train_launches_want(configs.get(arch).replace(**overrides))
+        if not predicted == res["launches"] == want:
+            raise AssertionError(
+                f"cost {arch}: the dry run's kernel calls x {TRAIN_STEPS} "
+                f"steps {predicted}, the run's launches {res['launches']}, "
+                f"_train_launches_want {want}")
+        step_s = res["step_ms_median_last4"] / 1e3
+        roof = rec["roofline"]
+        if not step_s >= roof["roofline_s"]:
+            raise AssertionError(
+                f"cost {arch}: the card's step {step_s} s beats the "
+                f"roofline {roof['roofline_s']} s: a miscount")
+        peak_gib = rec["peak_bytes"] / 2 ** 30
+        peak_rel = peak_gib / res["peak_device_gib"] - 1
+        if not abs(peak_rel) <= COST_PEAK_TOL:
+            raise AssertionError(
+                f"cost {arch}: predicted peak {peak_gib} GiB, measured "
+                f"{res['peak_device_gib']} GiB")
+        twins = _twins_at(rec)
+        priors[arch] = hlo_runtime_prior(
+            cost.op_cost(rec), peak_flops=cost.prior_peak_flops(rec),
+            mem_bw=cost.HBM_BYTES_PER_S)
+        out[arch] = dict(
+            overrides=overrides, dry_run_s=dry_s,
+            kernel_calls_per_step={k: v["calls"]
+                                   for k, v in rec["kernels"].items()},
+            flops=rec["flops"], flops_by_type=rec["flops_by_type"],
+            bytes=rec["bytes"], model_flops=rec["model_flops"],
+            useful_flops_ratio=rec["useful_flops_ratio"],
+            roofline=roof, step_s=step_s,
+            step_over_roofline=step_s / roof["roofline_s"],
+            step_over_op_sum=step_s / roof["op_sum_s"],
+            predicted_peak_gib=peak_gib,
+            measured_peak_gib=res["peak_device_gib"],
+            predicted_over_measured_peak=peak_gib / res["peak_device_gib"],
+            argument_gib=rec["argument_bytes"] / 2 ** 30,
+            twin_shapes_checked=twins, prior_s=priors[arch])
+        log(f"cost.{arch}", dry_run_s=f"{dry_s:.2f}",
+            calls=out[arch]["kernel_calls_per_step"],
+            step_ms=f"{step_s * 1e3:.2f}",
+            roofline_ms=f"{roof['roofline_s'] * 1e3:.3f}",
+            dominant=roof["dominant"],
+            compute_ms=f"{roof['compute_s'] * 1e3:.3f}",
+            memory_ms=f"{roof['memory_s'] * 1e3:.3f}",
+            op_sum_ms=f"{roof['op_sum_s'] * 1e3:.3f}",
+            step_over_roofline=f"{out[arch]['step_over_roofline']:.4f}",
+            step_over_op_sum=f"{out[arch]['step_over_op_sum']:.4f}",
+            predicted_peak_gib=f"{peak_gib:.3f}",
+            measured_peak_gib=f"{res['peak_device_gib']:.3f}",
+            peak_rel=f"{peak_rel:+.4f}", twin_shapes=twins,
+            prior_s=f"{priors[arch]:.6f}")
+    spec = calibrate([], backends.get("hq"), priors=priors)
+    for arch, prior in priors.items():
+        fit = spec.runtime_fit(arch)
+        if fit is None or fit.source != "prior" or fit.median != prior:
+            raise AssertionError(f"cost {arch}: calibrate installed {fit}, "
+                                 f"not the prior {prior} s")
+    if {**fa.launches, **ssd.launches, **wkv.launches} != before:
+        raise AssertionError("cost: a dry run launched a kernel")
+    return out
+
+
 def _top_device_ops(prof, k: int = 6):
     """The `k` kernels with the most device time in a profiler window:
     [(name, device ms, launches)]."""
@@ -3873,6 +3954,7 @@ def main() -> int:
             ("flash_attention",))
     serve_check = timed("serve_check", phase_serve_check)
     train_out, train_launches = timed("train", phase_train)
+    cost_out = timed("cost", phase_cost, train_out)
     where = timed("where", phase_where)
     # each path's launches, counted from zero on that path
     by_path = {"main": main_launches, "sim": sim_launches,
@@ -3936,7 +4018,8 @@ def main() -> int:
                   serve_dense=dense_out, serve_moe=moe_out,
                   bwd_splits={r["name"]: r["splits"] for r in rows
                               if "splits" in r},
-                  serve_check=serve_check, train=train_out, where=where,
+                  serve_check=serve_check, train=train_out, cost=cost_out,
+                  where=where,
                   event_timed=EVENT_TIMED)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -2,12 +2,14 @@
 with its published config and a reduced smoke variant.
 
 `get(name)` / `get_reduced(name)` take the public dashed ids, as in
-`repro.configs`.
+`repro.configs`.  `cells()` enumerates the 40 (arch x shape) dry-run
+cells, flagging the long_500k skips for the full-attention archs, as the
+reference's does.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 from repro_torch.models.config import LM_SHAPES, ModelConfig, ShapeConfig
 
@@ -43,3 +45,9 @@ def get_reduced(name: str) -> ModelConfig:
 
 def shapes() -> Tuple[ShapeConfig, ...]:
     return LM_SHAPES
+
+
+def cells() -> List[Tuple[str, ShapeConfig, bool]]:
+    """All 40 assigned (arch, shape, runnable) cells."""
+    return [(arch, shp, get(arch).runnable(shp))
+            for arch in ARCH_NAMES for shp in LM_SHAPES]

@@ -9,9 +9,17 @@ Several libraries may build at once (one `nvcc` each, from threads).
 
 `Launches` is the launch counter a wrapper keeps: it adds one where it
 launches its kernel, and nowhere else.
+
+The LM kernels' wrappers also take `meta` tensors (`check_operand`), for
+the dry run (`repro_torch.launch.cost`): with the card's checks, they
+allocate on `meta` what they allocate on the card, hand the call's cost
+to every active recorder (`record`) and launch nothing.  A recorder is
+installed with `recording`; `scope` marks the ops of a kernel's plain
+version on the CPU, forward and backward, for the same recorders.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -104,6 +112,19 @@ def check_cuda(name: str, t: torch.Tensor, ndim: int, dtypes) -> None:
     dtype is one of `dtypes`."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    _check_layout(name, t, ndim, dtypes)
+
+
+def check_operand(name: str, t: torch.Tensor, ndim: int, dtypes) -> None:
+    """`check_cuda`, where a `meta` tensor (the dry run's) passes as a
+    CUDA one does."""
+    if t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name}: expected a CUDA or meta tensor, got "
+                         f"{t.device}")
+    _check_layout(name, t, ndim, dtypes)
+
+
+def _check_layout(name: str, t: torch.Tensor, ndim: int, dtypes) -> None:
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))}"
                          f", got {t.dtype}")
@@ -133,3 +154,88 @@ def refuse_grad(name: str, *operands, reason: str) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
         raise NotImplementedError(f"{name} records no gradient: {reason}")
+
+
+# the active cost recorders, innermost last (`repro_torch.launch.cost`)
+_RECORDERS: List = []
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Within the block, hand `recorder` every kernel call made on `meta`
+    tensors (`recorder.kernel(name, cost, operands)`) and every
+    `scope`."""
+    _RECORDERS.append(recorder)
+    try:
+        yield recorder
+    finally:
+        _RECORDERS.remove(recorder)
+
+
+def on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def record(name: str, cost: dict, *operands) -> None:
+    """One call of kernel `name` on the `meta` tensors `operands` (those
+    that fix its shapes), with its cost ({"flops": {dtype name: n},
+    "bytes": n}), to every active recorder."""
+    for r in list(_RECORDERS):
+        r.kernel(name, cost, operands)
+
+
+def recorders_active() -> bool:
+    return bool(_RECORDERS)
+
+
+@contextlib.contextmanager
+def scope(name: str):
+    """Mark the ops run within the block as one call of kernel `name`'s
+    plain version for every active recorder (`recorder.enter(name,
+    new_call=True)` / `leave(name)`)."""
+    rs = list(_RECORDERS)
+    for r in rs:
+        r.enter(name, new_call=True)
+    try:
+        yield
+    finally:
+        for r in rs:
+            r.leave(name)
+
+
+def scope_backward(name: str, outputs, inputs) -> None:
+    """Mark the autograd nodes that lie between `outputs` and `inputs`
+    (tensors, or None) as one call of kernel `name`'s plain version for
+    the active recorders: each node enters the scope before it runs in the
+    backward (the first to run starts the call) and leaves it after.  A
+    no-op where no recorder is active or nothing is being
+    differentiated."""
+    if not _RECORDERS:
+        return
+    stop = {t.grad_fn for t in inputs
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None}
+    todo = [t.grad_fn for t in outputs
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+    seen = set()
+    rs = list(_RECORDERS)
+    started = []
+
+    def enter(*_):
+        for r in rs:
+            r.enter(name, new_call=not started)
+        started.append(True)
+
+    def leave(*_):
+        for r in rs:
+            r.leave(name)
+
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen or node in stop:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "AccumulateGrad":
+            continue
+        node.register_prehook(enter)
+        node.register_hook(leave)
+        todo.extend(n for n, _ in node.next_functions)

@@ -30,6 +30,13 @@ summation order (no atomics).  On the bf16 route a kv head's group of
 query heads may be split across G blocks whose f32 partials a fourth
 kernel sums in index order (`bwd_splits`).  `FlashAttention` is the
 `torch.autograd.Function` that joins the two.
+
+On `meta` tensors (the dry run, `repro_torch.launch.cost`) both wrappers
+check their operands as on the card, allocate what they allocate there
+(the output and log-sum-exp; the gradients and the f32 scratch), record
+one call with its `cost` / `bwd_cost` and launch nothing.  `bwd_splits`
+and `bwd_scratch` then answer from `splits_rule` / `scratch_floats`, the
+Python twins of the source's rules.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256        # kMaxHeadDim in the CUDA source
+SMS = 132                 # kSms in the CUDA source: SMs of the H100 SXM
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = _build.Launches("flash_attention", "flash_attention_bwd")
@@ -77,7 +85,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool) -> None:
     """Raise unless q, k, v are operands the kernels take."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_cuda(name, t, 4, tuple(DTYPES))
+        _build.check_operand(name, t, 4, tuple(DTYPES))
     _build.same_device(q, k, v)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v differ in dtype: {q.dtype}, {k.dtype}, "
@@ -114,6 +122,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if _build.on_meta(q):
+        _build.record("flash_attention", cost(q, k, v, causal=causal),
+                      q, k, v)
+        return (out, lse) if return_lse else out
     lib = load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -126,13 +138,93 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+def causal_pairs(sq: int, skv: int, causal: bool = True) -> int:
+    """The (query, key) pairs a call computes per (batch, head): all Sq
+    Skv of them, or with `causal` those with key <= query + Skv - Sq (row
+    r sees min(Skv, r + Skv - Sq + 1) keys; with Sq <= Skv, the minimum is
+    always the second), summed in closed form."""
+    if not causal:
+        return sq * skv
+    return sq * (skv - sq + 1) + sq * (sq - 1) // 2
+
+
+def _peak_type(q: torch.Tensor) -> str:
+    # the products' type: bf16 on the tensor cores, f32 on the CUDA cores
+    return "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True) -> dict:
+    """The least work of one forward call: {"flops": {type: n}, "bytes":
+    n}.  Bytes: q, k, v read once and the output written once.
+    Operations: 2 (Dh + Dv) per visible (query, key) pair, at the
+    products' type (bf16 operands on the tensor cores, f32 on the CUDA
+    cores: the port allows no TF32)."""
+    b, sq, h, dh = q.shape
+    skv, dv = k.shape[1], v.shape[3]
+    elem = q.element_size()
+    n_bytes = elem * (q.numel() + k.numel() + v.numel() + b * sq * h * dv)
+    flops = b * h * causal_pairs(sq, skv, causal) * 2 * (dh + dv)
+    return {"flops": {_peak_type(q): flops}, "bytes": n_bytes}
+
+
+def bwd_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True) -> dict:
+    """The least work of one backward call, as `cost`.  Bytes: q, k, v,
+    the output and its gradient read once each in the operands' type, the
+    f32 log-sum-exp read once, dq, dk and dv written once.  Operations:
+    2 (3 Dh + 2 Dv) per visible (query, key) pair (S recomputed once,
+    dP = dO V^T, dV, dK and dQ), at the operands' type."""
+    b, sq, h, dh = q.shape
+    skv, dv = k.shape[1], v.shape[3]
+    elem = q.element_size()
+    n_bytes = (elem * (2 * (q.numel() + k.numel() + v.numel())
+                       + 2 * b * sq * h * dv) + 4 * b * h * sq)
+    flops = b * h * causal_pairs(sq, skv, causal) * 2 * (3 * dh + 2 * dv)
+    return {"flops": {_peak_type(q): flops}, "bytes": n_bytes}
+
+
+def _bwd_tile_rows(d: int) -> int:
+    # bwd_tile_rows in the CUDA source
+    return 32 if d > 128 else 64
+
+
+def splits_rule(b: int, skv: int, h: int, hkv: int, dh: int, dv: int,
+                dtype: torch.dtype) -> int:
+    """`flash_attention_bwd_splits` of the CUDA source, in Python: 1 on
+    the f32 route; on the bf16 route the least divisor G of the group H /
+    Hkv whose dk/dv blocks, G x ceil(Skv / rows) x B x Hkv, fill two per
+    SM, else the whole group."""
+    if hkv < 1 or h % hkv or dtype != torch.bfloat16:
+        return 1
+    group = h // hkv
+    rows = _bwd_tile_rows((max(dh, dv) + 15) // 16 * 16)
+    blocks = -(-skv // rows) * b * hkv
+    for g in range(1, group):
+        if group % g == 0 and blocks * g >= 2 * SMS:
+            return g
+    return group
+
+
+def scratch_floats(b: int, sq: int, skv: int, h: int, hkv: int, dh: int,
+                   dv: int, dtype: torch.dtype) -> int:
+    """`flash_attention_bwd_scratch` of the CUDA source, in Python: D,
+    B H Sq floats, then where G > 1 the G dk/dv partials [G, B, Skv, Hkv,
+    Dh + Dv]."""
+    g = splits_rule(b, skv, h, hkv, dh, dv, dtype)
+    return b * h * sq + (g * b * skv * hkv * (dh + dv) if g > 1 else 0)
+
+
 def bwd_splits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     """G: the blocks over which the backward's dk/dv kernel splits each kv
     head's group of query heads for these operands (1 on the f32 route;
-    the rule is stated in the CUDA source).  Where G > 1 a fourth kernel
-    sums the blocks' partials."""
+    the rule is stated in the CUDA source, and for `meta` operands read
+    from its twin `splits_rule`).  Where G > 1 a fourth kernel sums the
+    blocks' partials."""
     b, _, h, dh = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if _build.on_meta(q):
+        return splits_rule(b, skv, h, hkv, dh, dv, q.dtype)
     return load().flash_attention_bwd_splits(b, skv, h, hkv, dh, dv,
                                              DTYPES[q.dtype])
 
@@ -161,9 +253,12 @@ def bf16_occupancy(dh: int, dv: int) -> dict:
 def bwd_scratch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     """Floats of f32 scratch the backward allocates for these operands,
     as the CUDA source lays it out: D = rowsum(dO O), then the G dk/dv
-    partials where G > 1."""
+    partials where G > 1 (for `meta` operands, its twin
+    `scratch_floats`)."""
     b, sq, h, dh = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if _build.on_meta(q):
+        return scratch_floats(b, sq, skv, h, hkv, dh, dv, q.dtype)
     return load().flash_attention_bwd_scratch(b, sq, skv, h, hkv, dh, dv,
                                               DTYPES[q.dtype])
 
@@ -180,11 +275,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, dh = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):
-        _build.check_cuda(name, t, 4, (q.dtype,))
+        _build.check_operand(name, t, 4, (q.dtype,))
         if tuple(t.shape) != (b, sq, h, dv):
             raise ValueError(f"{name}: expected {(b, sq, h, dv)}, got "
                              f"{tuple(t.shape)}")
-    _build.check_cuda("lse", lse, 3, (torch.float32,))
+    _build.check_operand("lse", lse, 3, (torch.float32,))
     if tuple(lse.shape) != (b, h, sq):
         raise ValueError(f"lse: expected {(b, h, sq)}, got "
                          f"{tuple(lse.shape)}")
@@ -192,6 +287,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
     dd = torch.empty(bwd_scratch(q, k, v), dtype=torch.float32,
                      device=q.device)
+    if _build.on_meta(q):
+        _build.record("flash_attention_bwd",
+                      bwd_cost(q, k, v, causal=causal), q, k, v)
+        return dq, dk, dvv
     lib = load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -29,6 +29,12 @@ only route to a gradient: the raw `mamba2_ssd` refuses one.
 backward's under `mamba2_ssd_bwd`, one per call.  What bounds the kernels
 on the H100, and what their design does about it, is written beside them
 in the CUDA source.
+
+On `meta` tensors (the dry run, `repro_torch.launch.cost`) both wrappers
+check their operands as on the card, allocate what they allocate there
+(outputs and scratch; the backward's scratch sized by `scratch_floats`,
+the Python twin of the source's rule), record one call with its `cost` /
+`bwd_cost` and launch nothing.
 """
 from __future__ import annotations
 
@@ -91,16 +97,16 @@ def scratch(b: int, s: int, h: int, p: int, n: int, dev
 def _check(x, dt, a, b_in, c_in, d, state) -> Tuple[int, ...]:
     """Raise unless the forward's operands are ones the kernels take;
     returns (B, S, H, P, N)."""
-    _build.check_cuda("x", x, 4, tuple(DTYPES))
-    _build.check_cuda("dt", dt, 3, _F32)
-    _build.check_cuda("a", a, 1, _F32)
-    _build.check_cuda("b_in", b_in, 3, (x.dtype,))
-    _build.check_cuda("c_in", c_in, 3, (x.dtype,))
-    _build.check_cuda("d", d, 1,
+    _build.check_operand("x", x, 4, tuple(DTYPES))
+    _build.check_operand("dt", dt, 3, _F32)
+    _build.check_operand("a", a, 1, _F32)
+    _build.check_operand("b_in", b_in, 3, (x.dtype,))
+    _build.check_operand("c_in", c_in, 3, (x.dtype,))
+    _build.check_operand("d", d, 1,
                       tuple(dict.fromkeys((torch.float32, x.dtype))))
     tensors = [x, dt, a, b_in, c_in, d]
     if state is not None:
-        _build.check_cuda("state", state, 4, _F32)
+        _build.check_operand("state", state, 4, _F32)
         tensors.append(state)
     _build.same_device(*tensors)
     bb, s, h, p = x.shape
@@ -147,6 +153,9 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     final = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
     ds, clast = scratch(bb, s, h, p, n, x.device)
+    if _build.on_meta(x):
+        _build.record("mamba2_ssd", cost(x, b_in, state), x, b_in)
+        return (y, final, ds) if return_states else (y, final)
     lib = load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -159,6 +168,53 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _build.raise_on(err, "mamba2_ssd")
     launches.count("mamba2_ssd")
     return (y, final, ds) if return_states else (y, final)
+
+
+def cost(x: torch.Tensor, b_in: torch.Tensor,
+         state: Optional[torch.Tensor]) -> dict:
+    """The least work of one forward call: {"flops": {type: n}, "bytes":
+    n}.  Bytes: x, dt, B, C, A, D and the state read once, y and the
+    final state written once.  Operations: the recurrence's 5 f32
+    operations per (t, h, p, n) (decay, input product, add, and the C .
+    state multiply-add), the least the function needs, on the CUDA cores:
+    the state and decays are f32 in the reference."""
+    bb, s, h, p = x.shape
+    n = b_in.shape[2]
+    elem = x.element_size()
+    n_bytes = (2 * elem * x.numel() + 4 * bb * s * h + 2 * elem * b_in.numel()
+               + 8 * h + 4 * bb * h * p * n * (2 if state is not None else 1))
+    return {"flops": {"float32": 5 * bb * s * h * p * n}, "bytes": n_bytes}
+
+
+def bwd_cost(x: torch.Tensor, b_in: torch.Tensor,
+             state: Optional[torch.Tensor],
+             dstate_out: Optional[torch.Tensor]) -> dict:
+    """The least work of one backward call, as `cost`.  Bytes: x, dy, B
+    and C in x's type, dt, a, D, and the state and its gradient where
+    given, read once; dx, dB, dC in x's type, ddt, da, dD and dstate
+    written once.  Operations: the least the gradient of the sequential
+    recurrence needs, 11 f32 operations per (t, h, p, n): the state's
+    gradient dS_t = e^{la_t} dS_{t+1} + dy_t C_t^T (a multiply and a
+    multiply-add), and one multiply-add each for dC (S_t^T dy_t), dxdt
+    (dS_t B_t), dB (dS_t^T xdt_t) and the decay's gradient (<dS_t,
+    S_{t-1}>), not counting the states S_t it reads, on the CUDA cores."""
+    bb, s, h, p = x.shape
+    n = b_in.shape[2]
+    elem = x.element_size()
+    state_rw = (state is not None) + (dstate_out is not None)
+    n_bytes = (3 * elem * x.numel() + 2 * 4 * bb * s * h
+               + 4 * elem * b_in.numel() + 4 * 4 * h
+               + 4 * bb * h * p * n * (state_rw + (state is not None)))
+    return {"flops": {"float32": 11 * bb * s * h * p * n}, "bytes": n_bytes}
+
+
+def scratch_floats(b: int, s: int, h: int, p: int, n: int) -> int:
+    """`mamba2_ssd_bwd_scratch` of the CUDA source, in Python: the
+    state's gradient per chunk [B, H, NC, P, N], the chunks' total log
+    decays [B, H, NC], the per-head partials of dB and dC [B, H, S, N]
+    each and those of da and dD [B, H, NC] each."""
+    nc, nbh = -(-s // CHUNK), b * h
+    return nbh * nc * p * n + nbh * nc + 2 * nbh * s * n + 2 * nbh * nc
 
 
 def bwd_scratch(b: int, s: int, h: int, p: int, n: int) -> int:
@@ -192,18 +248,18 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     that call's chunk states (`return_states=True`).  Each gradient comes
     in its operand's type; dstate is None when state is."""
     bb, s, h, p, n = _check(x, dt, a, b_in, c_in, d, state)
-    _build.check_cuda("dy", dy, 4, (x.dtype,))
+    _build.check_operand("dy", dy, 4, (x.dtype,))
     if dy.shape != x.shape:
         raise ValueError(f"dy: expected {tuple(x.shape)}, got "
                          f"{tuple(dy.shape)}")
     nc = -(-s // CHUNK)
-    _build.check_cuda("states", states, 5, _F32)
+    _build.check_operand("states", states, 5, _F32)
     if tuple(states.shape) != (bb, h, nc, p, n):
         raise ValueError(f"states: expected {(bb, h, nc, p, n)}, got "
                          f"{tuple(states.shape)}")
     tensors = [x, dy, states]
     if dstate_out is not None:
-        _build.check_cuda("dstate_out", dstate_out, 4, _F32)
+        _build.check_operand("dstate_out", dstate_out, 4, _F32)
         if tuple(dstate_out.shape) != (bb, h, p, n):
             raise ValueError(f"dstate_out: expected {(bb, h, p, n)}, got "
                              f"{tuple(dstate_out.shape)}")
@@ -212,6 +268,12 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dx, ddt, da, db, dc, dd = (torch.empty_like(t)
                                for t in (x, dt, a, b_in, c_in, d))
     dstate = None if state is None else torch.empty_like(state)
+    if _build.on_meta(x):
+        work = torch.empty(scratch_floats(bb, s, h, p, n),
+                           dtype=torch.float32, device=x.device)
+        _build.record("mamba2_ssd_bwd",
+                      bwd_cost(x, b_in, state, dstate_out), x, b_in)
+        return dx, ddt, da, db, dc, dd, dstate
     work = torch.empty(bwd_scratch(bb, s, h, p, n), dtype=torch.float32,
                        device=x.device)
     lib = load()

@@ -32,6 +32,12 @@ counts the forward's calls under `rwkv6_wkv` and the backward's under
 `rwkv6_wkv_bwd`, one per call (their kernels count once).  What bounds
 the kernels on the H100, and what their design does about it, is written
 beside them in the CUDA source.
+
+On `meta` tensors (the dry run, `repro_torch.launch.cost`) both wrappers
+check their operands as on the card, allocate what they allocate there
+(outputs and scratch; the backward's scratch sized by `scratch_floats`,
+the Python twin of the source's rule), record one call with its `cost` /
+`bwd_cost` and launch nothing.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 MAX_K = 128               # kMaxK in the CUDA source
 MAX_KV_BWD = 64           # kBK in the CUDA source: the backward's K, V limit
 CHUNK = 64                # kC in the CUDA source: steps per chunk
+BWD_TERMS = 3 * CHUNK * MAX_KV_BWD   # kTerms in the CUDA source
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = (torch.float32,)
 
@@ -96,14 +103,14 @@ def scratch(b: int, s: int, h: int, kd: int, vd: int, dev
 def _check(r, k, v, w, u, state) -> Tuple[int, ...]:
     """Raise unless the forward's operands are ones the kernels take;
     returns (B, S, H, K, V)."""
-    _build.check_cuda("r", r, 4, tuple(DTYPES))
+    _build.check_operand("r", r, 4, tuple(DTYPES))
     for name, t in (("k", k), ("v", v)):
-        _build.check_cuda(name, t, 4, (r.dtype,))
-    _build.check_cuda("w", w, 4, _F32)
-    _build.check_cuda("u", u, 2, (r.dtype,))
+        _build.check_operand(name, t, 4, (r.dtype,))
+    _build.check_operand("w", w, 4, _F32)
+    _build.check_operand("u", u, 2, (r.dtype,))
     tensors = [r, k, v, w, u]
     if state is not None:
-        _build.check_cuda("state", state, 4, _F32)
+        _build.check_operand("state", state, 4, _F32)
         tensors.append(state)
     _build.same_device(*tensors)
     b, s, h, kd = r.shape
@@ -148,6 +155,9 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(v.shape, dtype=r.dtype, device=r.device)
     final = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
     ds, clast = scratch(b, s, h, kd, vd, r.device)
+    if _build.on_meta(r):
+        _build.record("rwkv6_wkv", cost(r, v, state), r, v)
+        return (out, final, ds) if return_states else (out, final)
     lib = load()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -160,6 +170,56 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches.count("rwkv6_wkv")
     # the scan leaves each chunk's starting state in ds
     return (out, final, ds) if return_states else (out, final)
+
+
+def cost(r: torch.Tensor, v: torch.Tensor,
+         state: Optional[torch.Tensor]) -> dict:
+    """The least work of one forward call: {"flops": {type: n}, "bytes":
+    n}.  Bytes: r, k, v, u in their type and w in f32 read once, the state
+    read once when given, out written once in r's type and the final
+    state in f32.  Operations: the recurrence's 5 f32 operations per (t,
+    h, k, v) (decay, outer product, add, and the r . state multiply-add),
+    the least the function needs, on the CUDA cores: the state and decays
+    are f32 in the reference."""
+    b, s, h, kd = r.shape
+    vd = v.shape[3]
+    elem = r.element_size()
+    n_bytes = (elem * (2 * r.numel() + 2 * v.numel() + h * kd)
+               + 4 * r.numel()
+               + 4 * b * h * kd * vd * (2 if state is not None else 1))
+    return {"flops": {"float32": 5 * b * s * h * kd * vd}, "bytes": n_bytes}
+
+
+def bwd_cost(r: torch.Tensor, v: torch.Tensor,
+             state: Optional[torch.Tensor],
+             dstate_out: Optional[torch.Tensor]) -> dict:
+    """The least work of one backward call, as `cost`.  Bytes: r, k, v, u
+    and do in r's type and w in f32 read once, the state and its gradient
+    read once where given; dr, dk, dv, du in r's type, dw and dstate in
+    f32 written once.  Operations: the least the gradient of the
+    sequential recurrence needs, 11 f32 operations per (t, h, k, v),
+    counted as the SSD backward's are: the state's gradient dS_t = w_t o
+    dS_{t+1} + r_t do_t^T (a multiply and a multiply-add), and one
+    multiply-add each for dr (S_{t-1} do_t), dk (dS_t v_t), dv (dS_t^T
+    k_t) and the decay's gradient (<dS_t, S_{t-1}>), not counting the
+    states it reads, on the CUDA cores."""
+    b, s, h, kd = r.shape
+    vd = v.shape[3]
+    elem = r.element_size()
+    state_rw = (state is not None) + (dstate_out is not None)
+    n_bytes = (elem * (4 * r.numel() + 3 * v.numel() + 2 * h * kd)
+               + 2 * 4 * r.numel()
+               + 4 * b * h * kd * vd * (state_rw + (state is not None)))
+    return {"flops": {"float32": 11 * b * s * h * kd * vd}, "bytes": n_bytes}
+
+
+def scratch_floats(b: int, s: int, h: int, kd: int, vd: int) -> int:
+    """`rwkv6_wkv_bwd_scratch` of the CUDA source, in Python: per (b, h,
+    chunk) the chunk gradients' S and G terms (three [64, 64] tiles) and
+    a [64] vector, the state's gradient [K, V], the decay products [K]
+    and the partials of du [K]."""
+    nc = -(-s // CHUNK)
+    return b * h * nc * (BWD_TERMS + MAX_KV_BWD + kd * vd + 2 * kd)
 
 
 def bwd_scratch(b: int, s: int, h: int, kd: int, vd: int) -> int:
@@ -199,18 +259,18 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kd > MAX_KV_BWD or vd > MAX_KV_BWD:
         raise ValueError(f"the backward takes K, V <= {MAX_KV_BWD}, got "
                          f"K = {kd}, V = {vd}")
-    _build.check_cuda("do", do, 4, (r.dtype,))
+    _build.check_operand("do", do, 4, (r.dtype,))
     if do.shape != v.shape:
         raise ValueError(f"do: expected {tuple(v.shape)}, got "
                          f"{tuple(do.shape)}")
     nc = -(-s // CHUNK)
-    _build.check_cuda("states", states, 5, _F32)
+    _build.check_operand("states", states, 5, _F32)
     if tuple(states.shape) != (b, h, nc, kd, vd):
         raise ValueError(f"states: expected {(b, h, nc, kd, vd)}, got "
                          f"{tuple(states.shape)}")
     tensors = [r, do, states]
     if dstate_out is not None:
-        _build.check_cuda("dstate_out", dstate_out, 4, _F32)
+        _build.check_operand("dstate_out", dstate_out, 4, _F32)
         if tuple(dstate_out.shape) != (b, h, kd, vd):
             raise ValueError(f"dstate_out: expected {(b, h, kd, vd)}, got "
                              f"{tuple(dstate_out.shape)}")
@@ -218,6 +278,12 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.same_device(*tensors)
     dr, dk, dv, dw, du = (torch.empty_like(t) for t in (r, k, v, w, u))
     dstate = None if state is None else torch.empty_like(state)
+    if _build.on_meta(r):
+        work = torch.empty(scratch_floats(b, s, h, kd, vd),
+                           dtype=torch.float32, device=r.device)
+        _build.record("rwkv6_wkv_bwd",
+                      bwd_cost(r, v, state, dstate_out), r, v)
+        return dr, dk, dv, dw, du, dstate
     work = torch.empty(bwd_scratch(b, s, h, kd, vd), dtype=torch.float32,
                        device=r.device)
     lib = load()

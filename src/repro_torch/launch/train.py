@@ -32,7 +32,7 @@ through their backward kernels, and the MoE's bf16 products through
 reference's npz layout with restore of the latest, gradient accumulation
 and optional int8 gradient compression.  The reference lays the model over a (data,
 model) mesh; the port runs on one device, and mesh sizes other than 1
-raise (ROADMAP.md Queue 1 item 16).
+raise (ROADMAP.md Queue 1 item 16b).
 """
 from __future__ import annotations
 
@@ -105,7 +105,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     if mesh_data != 1 or mesh_model != 1:
         raise NotImplementedError(
             f"a ({mesh_data}, {mesh_model}) mesh: the port trains on one "
-            f"device (ROADMAP.md Queue 1 item 16)")
+            f"device (ROADMAP.md Queue 1 item 16b)")
     dev = device_lib.get()
     if dev.type == "cuda":
         device_lib.strict_numerics()

@@ -10,7 +10,7 @@ expert's capacity C = ceil(capacity_factor * T * k / E) is dropped), the
 experts run as one grouped SwiGLU (`torch.bmm` over E), and the weighted
 results are combined in f32.  The reference's expert-parallel branches
 (`_moe_body_ep_all` and the two `shard_map` calls) are mesh code and stay
-with ROADMAP.md Queue 1 item 16.
+with ROADMAP.md Queue 1 item 16b.
 
 Rounding follows the reference step by step:
   * the router logits are f32 (computed from f32 copies of x and the
@@ -121,7 +121,9 @@ class MatmulF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        if a.is_cuda:
+        # meta (the dry run) takes the card's product, not the CPU's f32
+        # copies of the operands, which the card never makes
+        if a.device.type in ("cuda", "meta"):
             mm = torch.bmm if a.dim() == 3 else torch.mm
             return mm(a, b, out_dtype=torch.float32)
         return torch.matmul(a.float(), b.float())

@@ -33,8 +33,8 @@ Pipeline:
     (`simulate_cluster`, `AutoAllocator`, `Executor`) works unchanged.
 
 For device tasks with no recorded runtimes, `hlo_runtime_prior` turns a
-cost analysis (`launch.hlo_cost`: not yet ported, ROADMAP item 16)
-into a roofline runtime estimate
+cost analysis (`launch.cost.analyze`, or a `launch.dryrun.run_cell`
+record, through `launch.cost.op_cost`) into a roofline runtime estimate
 (max(flops/peak, bytes/bandwidth)) that `calibrate(priors=...)` installs
 as an analytical prior `PhaseFit` — the simulator can cost a model it
 has never observed.
@@ -216,8 +216,10 @@ def hlo_runtime_prior(cost: Any, *, peak_flops: float = 1.0e12,
                       mem_bw: float = 1.0e11,
                       coll_bw: float = 2.5e10,
                       latency_floor_s: float = 1e-4) -> float:
-    """Roofline runtime estimate (seconds) from a `launch.hlo_cost`
-    analysis (not yet ported, ROADMAP item 16): the kernel is bound by
+    """Roofline runtime estimate (seconds) from a cost analysis
+    (`launch.cost.op_cost` of a `launch.cost.analyze` result or a
+    `launch.dryrun.run_cell` record; `launch.cost.prior_peak_flops` is
+    the one peak rate for its mix of types): the kernel is bound by
     whichever of compute, HBM traffic or collective traffic takes
     longest, plus a launch-latency floor.
     `cost` is an `OpCost` (or anything with ``flops`` / ``bytes`` /

@@ -14,7 +14,7 @@ holds two copies of the optimizer state, and returns the same dicts.  It
 updates a large tensor one slice at a time (`_SLICE`; `_HOST_SLICE` on
 the CPU), so that its f32 temporaries stay bounded.
 The sharding-axis helpers (`abstract_opt_state`, `opt_state_axes`) belong
-to the mesh code (ROADMAP.md Queue 1 item 16).
+to the mesh code (ROADMAP.md Queue 1 item 16b).
 """
 from __future__ import annotations
 

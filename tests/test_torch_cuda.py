@@ -1870,3 +1870,43 @@ def test_deepseek_f32_train_step_on_card_matches_cpu(cuda):
     worst = max(float((a.detach().cpu() - b.detach()).abs().max())
                 for a, b in zip(card.parameters(), cpu.parameters()))
     assert worst <= 2 * lr + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The Python twins of the backward kernels' library rules, which the dry run
+# (repro_torch.launch.cost) reads on meta tensors, against the C functions
+ATTN_TWIN_SHAPES = [
+    # b, sq, skv, h, hkv, dh, dv: starcoder2, MLA, Sq < Skv, phi-3-vision,
+    # musicgen, dbrx, deepseek and its MTP layer, zamba2's shared block, odd
+    (2, 1024, 1024, 24, 2, 128, 128), (1, 1024, 1024, 16, 16, 192, 128),
+    (2, 512, 1024, 24, 2, 128, 128), (2, 1024, 1024, 32, 32, 96, 96),
+    (1, 1024, 1024, 32, 32, 64, 64), (2, 1024, 1024, 48, 8, 128, 128),
+    (2, 1024, 1024, 128, 128, 192, 128), (2, 1023, 1023, 128, 128, 192, 128),
+    (2, 1024, 1024, 32, 32, 80, 80), (256, 4096, 4096, 40, 8, 128, 128),
+    (1, 1, 300, 6, 3, 256, 256), (3, 77, 77, 12, 4, 8, 24),
+    (1, 64, 64, 8, 1, 16, 16), (4, 33, 65, 9, 3, 144, 112),
+    (2, 16, 16, 5, 2, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ATTN_TWIN_SHAPES)
+def test_flash_attention_bwd_twins_equal_the_library(cuda, shape, dtype):
+    b, sq, skv, h, hkv, dh, dv = shape
+    lib = fa_kernel.load()
+    code = fa_kernel.DTYPES[dtype]
+    assert fa_kernel.splits_rule(b, skv, h, hkv, dh, dv, dtype) == (
+        lib.flash_attention_bwd_splits(b, skv, h, hkv, dh, dv, code))
+    assert fa_kernel.scratch_floats(b, sq, skv, h, hkv, dh, dv, dtype) == (
+        lib.flash_attention_bwd_scratch(b, sq, skv, h, hkv, dh, dv, code))
+
+
+@pytest.mark.parametrize("shape", [
+    # b, s, h, p, n (SSD) or b, s, h, k, v (WKV)
+    (2, 1024, 80, 64, 64), (2, 777, 8, 16, 16), (1, 1, 3, 5, 7),
+    (4, 65, 40, 64, 64), (2, 1024, 40, 64, 64), (1, 4096, 2, 32, 128)])
+def test_ssd_and_wkv_bwd_scratch_twins_equal_the_library(cuda, shape):
+    assert ssd_kernel.scratch_floats(*shape) == ssd_kernel.bwd_scratch(*shape)
+    b, s, h, k, v = shape
+    kv = (min(k, wkv_kernel.MAX_KV_BWD), min(v, wkv_kernel.MAX_KV_BWD))
+    assert wkv_kernel.scratch_floats(b, s, h, *kv) == (
+        wkv_kernel.bwd_scratch(b, s, h, *kv))
